@@ -18,9 +18,10 @@ from torch import nn
 from .context import as_torch_device
 from .ops.cuda_kernels import flash_attention
 
-__all__ = ['TransformerConfig', 'TransformerLM', 'init_params',
+__all__ = ['HEAD_DIM', 'TransformerConfig', 'TransformerLM', 'init_params',
            'params_from_jax']
 
+HEAD_DIM = 128              # bench's DH: heads are d_model // HEAD_DIM
 _LAYER_PARAMS = ('g1', 'wqkv', 'wo', 'g2', 'wup', 'wdn')
 
 
@@ -31,16 +32,15 @@ class TransformerConfig:
     d_model: int = 1024
     n_layers: int = 8
     seq_len: int = 1024
-    head_dim: int = 128
 
     def __post_init__(self):
-        if self.d_model % self.head_dim:
-            raise ValueError('d_model %d is not a multiple of head_dim %d'
-                             % (self.d_model, self.head_dim))
+        if self.d_model % HEAD_DIM:
+            raise ValueError('d_model %d is not a multiple of the head dim %d'
+                             % (self.d_model, HEAD_DIM))
 
     @property
     def n_heads(self):
-        return self.d_model // self.head_dim
+        return self.d_model // HEAD_DIM
 
 
 def _param_shapes(V, D, L):
@@ -134,7 +134,7 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens):
         B, S = tokens.shape
-        H, DH = self.cfg.n_heads, self.cfg.head_dim
+        H, DH = self.cfg.n_heads, HEAD_DIM
         x = self.embed[tokens]
         for blk in self.layers:
             h = _rms(x, blk.g1)

@@ -6,6 +6,7 @@ ValueErrors. Forwards here are exact (integer-valued arithmetic) so that
 pad and strip are checked bit for bit; the model-level parity with bench's
 forward is in test_torch_transformer.py.
 """
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -99,10 +100,13 @@ def test_bad_requests_raise():
 
 def test_inputs_cast_and_bf16_outputs_widen():
     eng = _engine(descs=(('tokens', (4,), np.int32),),
-                  fwd=lambda t: (t.dtype == torch.int32) * t.to(torch.bfloat16))
+                  fwd=lambda t: (t.dtype == torch.int32) * t.to(torch.bfloat16) / 3)
     out = eng.infer([np.array([[1.0, 2.0, 3.0, 4.0]])])[0]
-    assert out.dtype == np.float32
-    np.testing.assert_array_equal(out, [[1, 2, 3, 4]])
+    # bf16 leaves the engine as bf16, bit for bit, as the JAX engine's does
+    want = torch.tensor([[1, 2, 3, 4]]).to(torch.bfloat16) / 3
+    assert out.dtype == ml_dtypes.bfloat16
+    np.testing.assert_array_equal(out.view(np.int16),
+                                  want.view(torch.int16).numpy())
 
 
 def test_warmup_and_describe():
