@@ -3,24 +3,41 @@
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (a non-zero exit) when it fails:
+Phases, each of which fails the run (a non-zero exit) when it fails, in the
+order they run:
 
 (a) identity: the card's name and power limit, as nvidia-smi reports them;
-(b) build: every CUDA kernel of the served path, compiled from the sources
-    in this checkout with nvcc for sm_90a (timed);
-(c) kernel vs plain version on the card, for the flash-attention kernel's
-    out and lse: the served shape, contiguous and as the strided views of
-    the fused qkv that the model passes, small f32 shapes, decode shapes
-    (Tq < Tk), a ragged T = 1006, head dims 16/40/64/256, the empty cases,
-    the two ValueError cases, and the autograd gradient;
+(b) build: every CUDA source of the port (flash_attention.cu,
+    row_kernels.cu), compiled in parallel from the sources in this checkout
+    with nvcc for sm_90a (timed), with ptxas' register and spill lines;
+(c) flash kernel vs plain version on the card, for its out and lse: the
+    served shape, contiguous and as the strided views of the fused qkv that
+    the model passes, small f32 shapes, decode shapes (Tq < Tk), a ragged
+    T = 1006, head dims 16/40/64/256, the empty cases, the two ValueError
+    cases, and the autograd gradient;
+(g) row kernels vs plain versions on the card (layernorm, rmsnorm, softmax,
+    softmax_xent): f32, bf16 and f16 at the model's shapes, a ragged
+    N = 1006, widths 32, 50 and 1000, N = 0, an input at an odd offset,
+    labels -1 and V, gamma/beta in another dtype than x, rows with a large
+    mean; the dtype errors; each autograd Function's gradient;
 (d) serving: the bench transformer at full width (D=1024, 8 layers,
     8 heads x 128, S=1024, V=16384, bf16, weights from seed 0) behind
     ServingEngine(max_batch=8) answers requests of 8, 5 and 11 rows.
     Their logits are held against a reference forward built on the plain
     attention, and the kernel's launch count must be 8 layers x chunks;
-(e) times from CUDA events: the kernel, its plain version and PyTorch's
-    scaled_dot_product_attention at the served shape, the kernel's bound,
-    the full-width forward's tokens/s, and each request's latency.
+(h) the NDArray path at full width, through mxnet_tpu_torch.nd on gpu(0):
+    nd.LayerNorm on [8, 1024, 1024] bf16, nd.softmax on one layer's
+    attention scores [8, 8, 1024, 1024] bf16, ops.fused_rmsnorm on
+    [8, 1024, 1024] bf16, and bench's training loss: the full-width model on
+    bench's 8 x 1024 tokens, its logits cast to f32, through
+    nd.softmax_cross_entropy / N against bench's labels. Each is held to its
+    plain version, and each kernel's launch count must grow by its calls;
+(e) times from CUDA events: the flash kernel, its plain version and
+    PyTorch's scaled_dot_product_attention at the served shape, the
+    kernel's bound, the full-width forward's tokens/s, and each request's
+    latency; each row kernel, its plain version and one PyTorch call at the
+    shapes of (h), with their bounds;
+(f) where the forward's device time goes (torch.profiler).
 
 The second-to-last line of its output is the kernel record
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -33,14 +50,18 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the dense bf16
-# tensor-core FLOP/s. The bound of a kernel is the larger of its bytes over
-# the memory rate and its operations over the peak for its type.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the dense bf16
+# tensor-core FLOP/s and the f32 FLOP/s outside the tensor cores. The bound
+# of a kernel is the larger of its bytes over the memory rate and its
+# operations over the peak for their type.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+SOURCES = ('flash_attention', 'row_kernels')
 
 SERVE_ROWS = (8, 5, 11)         # requests: full bucket, padded, chunked
 MAX_BATCH = 8
@@ -319,13 +340,362 @@ def serve(device, cfg, rows_list, max_batch):
 
 
 # ---------------------------------------------------------------------------
+# (g) row kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+ROW_KERNELS = ('layernorm', 'rmsnorm', 'softmax', 'softmax_xent')
+ROW_REPLACES = {'layernorm': 'mxnet_tpu/ops/pallas_kernels.py:290',
+                'rmsnorm': 'mxnet_tpu/ops/pallas_kernels.py:284',
+                'softmax': 'mxnet_tpu/ops/pallas_kernels.py:382',
+                'softmax_xent': 'mxnet_tpu/ops/pallas_kernels.py:412'}
+
+# Tolerances of a row kernel against its plain version on the same inputs
+# (|kernel - plain| <= atol + rtol * |plain|), with their reasons. Both
+# compute in f32 with the row sums in another order (a few f32 ulps of the
+# statistics), then round once to the output type:
+# - f32 out (and xent's f32 loss, whatever its logits' type): 1e-5 / 1e-5;
+# - bf16 out: one bf16 ulp of the value (rtol 2**-7: 2**-8 relative, up to
+#   2**-7 just above a power of two), as a few f32 ulps can fall on either
+#   side of a rounding boundary; atol 1e-6 near zero;
+# - f16 out: one f16 ulp, rtol 2**-10; atol 1e-6 covers f16's subnormals
+#   (softmax outputs below 6.1e-5 have an ulp of 6e-8).
+# - rows with a mean of 1000 (LayerNorm): atol 2e-3 against the plain
+#   version and against float64. An f32 row sum near 1e6 rounds at 0.06 an
+#   add, so either mean may be off by ~1e-4, which moves (x - mean) * rstd
+#   * gamma by a few 1e-4; the one-pass E[x^2] - mean^2 would be off by
+#   about 1e-1 here.
+ROW_TOL = {'float32': (1e-5, 1e-5), 'bfloat16': (1e-6, 2 ** -7),
+           'float16': (1e-6, 2 ** -10)}
+LARGE_MEAN_ATOL = 2e-3
+# Gradients of each autograd Function (kernel forward) against the plain
+# version's autograd gradient, f32: the norm and xent backwards recompute
+# through the plain version (the same arithmetic) and the softmax backward
+# reads the kernel's y; 1e-5.
+ROW_GRAD_TOL = 1e-5
+
+
+def model_shapes(cfg, batch=MAX_BATCH):
+    """The row kernels' shapes on the model's path: its activations, one
+    layer's attention scores, and its logits as [N, V]."""
+    act = (batch, cfg.seq_len, cfg.d_model)
+    return {'layernorm': act, 'rmsnorm': act,
+            'softmax': (batch, cfg.n_heads, cfg.seq_len, cfg.seq_len),
+            'softmax_xent': (batch * cfg.seq_len, cfg.vocab)}
+
+
+def row_inputs(kernel, shape, dtype, device, seed=0, param_dtypes=None,
+               offset=False, mean=0.0):
+    """Arguments of ``kernel`` at ``shape``, from a seeded generator on
+    ``device``: x (N(mean, 1.5), or the logits), then gamma/beta (f32 by
+    default, else ``param_dtypes``), or the int32 labels with -1 and V
+    among them. ``offset``: x is a contiguous view one element past an
+    aligned start, so its rows are not 16-byte aligned."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    numel = int(np.prod(shape))
+    flat = (torch.randn(numel + 1, generator=gen, device=device) * 1.5
+            + mean).to(dt)
+    x = (flat[1:] if offset else flat[:numel]).view(shape)
+    if kernel == 'softmax_xent':
+        N, V = shape
+        labels = torch.randint(0, V, (N,), generator=gen, device=device,
+                               dtype=torch.int32)
+        labels[::97] = -1
+        labels[1::89] = V
+        return [x, labels]
+    D = shape[-1]
+    gd, bd = param_dtypes or ('float32', 'float32')
+    gamma = (torch.randn(D, generator=gen, device=device) * 0.5 + 1).to(
+        getattr(torch, gd))
+    beta = (torch.randn(D, generator=gen, device=device) * 0.1).to(
+        getattr(torch, bd))
+    return {'layernorm': [x, gamma, beta], 'rmsnorm': [x, gamma],
+            'softmax': [x]}[kernel]
+
+
+def row_fns(kernel):
+    """(kernel wrapper, plain version, autograd Function) of ``kernel``."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    return {'layernorm': (ck.layernorm_fwd, ck.layernorm_ref, ck.fused_layernorm),
+            'rmsnorm': (ck.rmsnorm_fwd, ck.rmsnorm_ref, ck.fused_rmsnorm),
+            'softmax': (ck.softmax_fwd, ck.softmax_ref, ck.fused_softmax),
+            'softmax_xent': (ck.softmax_xent_fwd, ck.softmax_xent_ref,
+                             ck.softmax_xent)}[kernel]
+
+
+def row_tol(kernel, dtype):
+    return ROW_TOL['float32' if kernel == 'softmax_xent' else dtype]
+
+
+def row_cases(cfg):
+    """(kernel, label, shape, dtype, options) of phase (g)."""
+    shapes = model_shapes(cfg)
+    cases = []
+    for kernel in ROW_KERNELS:
+        for dtype in ('float32', 'bfloat16', 'float16'):
+            cases.append((kernel, 'model shape', shapes[kernel], dtype, {}))
+            for shape in ((1006, 32), (1006, 1000), (1006, 50), (7, 1000),
+                          (0, 64)):
+                cases.append((kernel, 'N=%d width %d' % shape, shape, dtype, {}))
+            cases.append((kernel, 'odd offset', (1006, 1000), dtype,
+                          {'offset': True}))
+    for kernel in ('layernorm', 'rmsnorm'):
+        cases.append((kernel, 'x bf16, gamma/beta f32', (1006, 1000),
+                      'bfloat16', {}))
+        cases.append((kernel, 'x f32, gamma bf16, beta f16', (1006, 1000),
+                      'float32', {'param_dtypes': ('bfloat16', 'float16')}))
+        cases.append((kernel, 'x f16, gamma/beta bf16', (1006, 1000),
+                      'float16', {'param_dtypes': ('bfloat16', 'bfloat16')}))
+    return cases
+
+
+def row_kernels_vs_plain(device, cfg):
+    """Phase (g)."""
+    import torch
+    for i, (kernel, label, shape, dtype, opts) in enumerate(row_cases(cfg)):
+        fwd, ref, _ = row_fns(kernel)
+        args = row_inputs(kernel, shape, dtype, device, seed=i, **opts)
+        before = fwd.launches
+        got = fwd(*args)
+        want = ref(*args)
+        atol, rtol = row_tol(kernel, dtype)
+        err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+        ok = (got.shape == want.shape and got.dtype == want.dtype
+              and bool(torch.isfinite(got).all())
+              and (got.numel() == 0 or excess(got, want, atol, rtol) <= atol)
+              and fwd.launches == before + (1 if got.numel() and device.type == 'cuda' else 0))
+        log('  %-12s %-30s %-8s %-22s max|err| %.3e  %s'
+            % (kernel, label, dtype, tuple(shape), err, 'ok' if ok else 'FAIL'))
+        check(ok, '%s disagrees with its plain version: %s %s %s'
+              % (kernel, label, dtype, tuple(shape)))
+        del args, got, want
+
+    # the two-pass variance: rows with a mean of 1000, against float64 too
+    for dtype in ('float32', 'bfloat16'):
+        x, g, b = row_inputs('layernorm', (64, cfg.d_model), dtype, device,
+                             seed=99, mean=1000.0)
+        got = row_fns('layernorm')[0](x, g, b)
+        plain = row_fns('layernorm')[1](x, g, b)
+        x64 = x.double()
+        y64 = ((x64 - x64.mean(-1, keepdim=True))
+               * torch.rsqrt(x64.var(-1, unbiased=False, keepdim=True) + 1e-5)
+               * g.double() + b.double())
+        rtol = ROW_TOL[dtype][1] if dtype == 'bfloat16' else 0.0  # y's rounding
+        e_plain = excess(got, plain, LARGE_MEAN_ATOL, rtol)
+        e64 = excess(got, y64, LARGE_MEAN_ATOL, rtol)
+        log('  layernorm    rows with mean 1000             %-8s |err| beyond '
+            'rounding: vs plain %.3e, vs float64 %.3e' % (dtype, e_plain, e64))
+        check(e_plain <= LARGE_MEAN_ATOL and e64 <= LARGE_MEAN_ATOL,
+              'layernorm loses the variance of rows with a large mean')
+
+    # types the kernels do not take raise
+    bad = [(row_fns('softmax')[0], [torch.zeros(4, 8, dtype=torch.int32,
+                                                device=device)]),
+           (row_fns('softmax_xent')[0], [torch.zeros(4, 8, device=device),
+                                         torch.zeros(4, device=device)])]
+    if device.type == 'cuda':
+        for fn, args in bad:
+            try:
+                fn(*args)
+            except TypeError:
+                continue
+            check(False, '%s took a type it does not take' % fn.__name__)
+        log('  int x and float labels: TypeError')
+
+    # each autograd Function's gradient vs the plain gradient (f32)
+    for kernel in ROW_KERNELS:
+        _, ref, function = row_fns(kernel)
+        shape = (64, 50) if kernel == 'softmax_xent' else (64, 96)
+        args = row_inputs(kernel, shape, 'float32', device, seed=7)
+        w = torch.randn(shape[:1] if kernel == 'softmax_xent' else shape,
+                        generator=torch.Generator(device=device).manual_seed(8),
+                        device=device)
+        grads = []
+        for fn in (function, ref):
+            leaves = [a.clone().requires_grad_() if a.is_floating_point() else a
+                      for a in args]
+            (fn(*leaves) * w).sum().backward()
+            grads.append([a.grad for a in leaves if a.is_floating_point()])
+        gerr = max(float((a - b).abs().max()) for a, b in zip(*grads))
+        log('  %-12s autograd grad vs plain grad: max err %.3e' % (kernel, gerr))
+        check(gerr <= ROW_GRAD_TOL, '%s gradient disagrees (%.3e)' % (kernel, gerr))
+
+
+# ---------------------------------------------------------------------------
+# (h) the NDArray path at full width
+# ---------------------------------------------------------------------------
+
+# bench's loss through the kernel against the plain version's mean(lse -
+# gold) on the same f32 logits: each row's loss (about 10) agrees to a few
+# f32 ulps, and the sums over 65,536 rows run in another order: 1e-5
+# relative.
+LOSS_RTOL = 1e-5
+
+
+def nd_path(device, cfg, model):
+    """Phase (h). Returns ({wrapper name: launches}, {kernel: max |err|
+    against the plain version})."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.transformer import bench_batch
+    ctx = mt.gpu(device.index or 0) if device.type == 'cuda' else mt.cpu()
+    shapes = model_shapes(cfg)
+    x, gamma, beta = row_inputs('layernorm', shapes['layernorm'], 'bfloat16',
+                                device, seed=11)
+    scores, = row_inputs('softmax', shapes['softmax'], 'bfloat16', device,
+                         seed=12)
+    tokens, labels = bench_batch(cfg, MAX_BATCH, seed=0)
+    tokens = torch.from_numpy(tokens).to(device)
+    N, V = tokens.numel(), cfg.vocab
+    lab = nd.array(labels.reshape(-1), ctx=ctx)
+    x_nd, g_nd, b_nd = (nd.from_torch(t, ctx) for t in (x, gamma, beta))
+    s_nd = nd.from_torch(scores, ctx)
+
+    counters = [ck.flash_fwd] + [row_fns(k)[0] for k in ROW_KERNELS]
+    # the main path: counts are zeroed just before and read just after
+    for fwd in counters:
+        fwd.launches = 0
+    ln = nd.LayerNorm(x_nd, g_nd, b_nd, eps=1e-5)
+    sm = nd.softmax(s_nd)
+    rms = mt.ops.fused_rmsnorm(x, gamma)
+    with torch.no_grad():
+        logits = model(tokens).float()               # bench.py:270
+    loss = nd.softmax_cross_entropy(nd.from_torch(logits.reshape(-1, V), ctx),
+                                    lab)
+    loss.wait_to_read()
+    launches = {fwd.__name__: fwd.launches for fwd in counters}
+
+    want = {'flash_fwd': cfg.n_layers, 'layernorm_fwd': 1, 'rmsnorm_fwd': 1,
+            'softmax_fwd': 1, 'softmax_xent_fwd': 1}
+    if device.type != 'cuda':
+        want = dict.fromkeys(want, 0)                # plain versions on the CPU
+    log('  launches: %s' % launches)
+    check(launches == want, 'launch counts %s != %s' % (launches, want))
+
+    errs = {}
+    for kernel, got, ref_args in (('layernorm', ln.handle, (x, gamma, beta)),
+                                  ('softmax', sm.handle, (scores,)),
+                                  ('rmsnorm', rms, (x, gamma))):
+        want_t = row_fns(kernel)[1](*ref_args)
+        atol, rtol = ROW_TOL['bfloat16']
+        errs[kernel] = float((got.float() - want_t.float()).abs().max())
+        ok = (got.dtype == torch.bfloat16 and got.shape == want_t.shape
+              and bool(torch.isfinite(got).all())
+              and excess(got, want_t, atol, rtol) <= atol)
+        log('  nd %-10s %-22s bf16: max|err| vs plain %.3e  %s'
+            % (kernel, tuple(got.shape), errs[kernel], 'ok' if ok else 'FAIL'))
+        check(ok, 'nd path %s disagrees with its plain version' % kernel)
+        del want_t
+
+    labels_t = torch.from_numpy(labels.reshape(-1)).to(device)
+    got_loss = float(loss.asscalar()) / N
+    per_row = ck.softmax_xent_ref(logits.reshape(-1, V), labels_t)
+    plain_loss = float(per_row.mean())
+    kernel_rows = ck.softmax_xent_fwd(logits.reshape(-1, V), labels_t)
+    errs['softmax_xent'] = float((kernel_rows - per_row).abs().max())
+    lse = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, labels_t.view(tokens.shape).long()[..., None])[..., 0]
+    bench_loss = float((lse - gold).mean())
+    log('  bench loss at full width (%d tokens, V=%d): nd.softmax_cross_entropy'
+        ' / N %.6f, plain mean(lse - gold) %.6f, torch.logsumexp form %.6f, '
+        'max|row err| %.3e' % (N, V, got_loss, plain_loss, bench_loss,
+                               errs['softmax_xent']))
+    check(np.isfinite(got_loss) and loss.shape == () and loss.dtype == np.float32
+          and abs(got_loss - plain_loss) <= LOSS_RTOL * abs(plain_loss),
+          'bench loss through the kernel disagrees with the plain version')
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
+# (e) times of the row kernels
+# ---------------------------------------------------------------------------
+
+# operations per element of each row kernel's arithmetic (f32, outside the
+# tensor cores): layernorm add; sub, mul, add; sub, mul, mul, add -> 8;
+# rmsnorm mul, add; mul, mul -> 4; softmax max; sub, exp, add; sub, exp,
+# div -> 7; xent max; sub, exp, add -> 4.
+ROW_OPS_PER_ELEMENT = {'layernorm': 8, 'rmsnorm': 4, 'softmax': 7,
+                       'softmax_xent': 4}
+
+
+def row_bound_ms(kernel, args, out):
+    """(bound ms, 'bytes' or 'operations', bytes, ops): each input read once
+    and the output written once over the memory rate, against the f32
+    operations over the f32 rate."""
+    nbytes = sum(a.numel() * a.element_size() for a in args) \
+        + out.numel() * out.element_size()
+    ops = ROW_OPS_PER_ELEMENT[kernel] * args[0].numel()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations',
+            nbytes, ops)
+
+
+def library_call(kernel, args):
+    """One PyTorch call computing the kernel's function, timed as a
+    yardstick only (the port never calls it), or None."""
+    import torch
+    import torch.nn.functional as F
+    if kernel == 'layernorm':
+        x, g, b = args
+        g, b = g.to(x.dtype), b.to(x.dtype)
+        return lambda: F.layer_norm(x, (x.shape[-1],), g, b, 1e-5)
+    if kernel == 'rmsnorm':
+        if not hasattr(F, 'rms_norm'):
+            return None
+        x, g = args
+        g = g.to(x.dtype)
+        return lambda: F.rms_norm(x, (x.shape[-1],), g, 1e-6)
+    if kernel == 'softmax':
+        return lambda: torch.softmax(args[0], -1)
+    logits, labels = args
+    labels = labels.long()
+    return lambda: F.cross_entropy(logits, labels, reduction='none')
+
+
+def row_times(device, cfg):
+    """Each row kernel at its shape on the model's path (bf16 activations
+    and scores, f32 logits), from a cold L2: its time, its plain version's,
+    one PyTorch call's and its bound."""
+    import torch
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    shapes = model_shapes(cfg)
+    out = {}
+    for kernel in ROW_KERNELS:
+        dtype = 'float32' if kernel == 'softmax_xent' else 'bfloat16'
+        args = row_inputs(kernel, shapes[kernel], dtype, device, seed=21)
+        if kernel == 'softmax_xent':
+            args[1].clamp_(0, cfg.vocab - 1)         # bench's labels are in range
+        fwd, ref, _ = row_fns(kernel)
+        kernel_ms = device_ms(lambda: fwd(*args), flush=flush)
+        plain_ms = device_ms(lambda: ref(*args), flush=flush, runs=10)
+        lib = library_call(kernel, args)
+        library_ms = device_ms(lib, flush=flush) if lib is not None else None
+        bound_ms, bound_by, nbytes, ops = row_bound_ms(kernel, args, fwd(*args))
+        log('  %-12s %-22s %-8s kernel %.4f ms, plain %.4f ms, library %s ms, '
+            'bound %.4f ms (%s: %.1f MB, %.2f GFLOP), bound / kernel %.3f'
+            % (kernel, tuple(shapes[kernel]), dtype, kernel_ms, plain_ms,
+               'n/a' if library_ms is None else '%.4f' % library_ms, bound_ms,
+               bound_by, nbytes / 1e6, ops / 1e9, bound_ms / kernel_ms))
+        out[kernel] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        del args
+    del flush
+    return out
+
+
+# ---------------------------------------------------------------------------
 # (e) times
 # ---------------------------------------------------------------------------
 
-def device_ms(fn, runs=TIMED_RUNS, warmup=3):
+def device_ms(fn, runs=TIMED_RUNS, warmup=3, flush=None):
     """Median device time of ``fn()`` in ms over ``runs`` CUDA-event pairs.
     A sleep kernel ahead of each start event lets the host enqueue the
-    launch before the device reaches it, so host overhead is not timed."""
+    launch before the device reaches it, so host overhead is not timed.
+    ``flush``: a buffer larger than the L2 cache, overwritten before each
+    start event, so that ``fn`` finds its inputs in device memory."""
     import torch
     for _ in range(warmup):
         fn()
@@ -334,6 +704,8 @@ def device_ms(fn, runs=TIMED_RUNS, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
+        if flush is not None:
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -440,17 +812,23 @@ def main():
 
     log('(b) build')
     t0 = time.perf_counter()
-    _build.load('flash_attention')
-    log('  flash_attention.cu built and loaded in %.1f s' % (time.perf_counter() - t0))
-    for line in _build.build_log('flash_attention').splitlines():
-        if 'Function properties' in line or 'registers' in line or 'spill' in line:
-            log('   ', line.strip())
+    with ThreadPoolExecutor(len(SOURCES)) as pool:    # one nvcc per source
+        list(pool.map(_build.load, SOURCES))
+    log('  %s built and loaded in %.1f s'
+        % (', '.join(n + '.cu' for n in SOURCES), time.perf_counter() - t0))
+    for name in SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if 'Function properties' in line or 'registers' in line or 'spill' in line:
+                log('   ', line.strip())
 
-    log('(c) kernel vs plain version')
+    log('(c) flash kernel vs plain version')
     errs = kernel_vs_plain(device)
 
-    log('(d) serving at full width')
     cfg = TransformerConfig()
+    log('(g) row kernels vs plain versions')
+    row_kernels_vs_plain(device, cfg)
+
+    log('(d) serving at full width')
     model, ref, launches, latencies, worst = serve(device, cfg, SERVE_ROWS,
                                                    MAX_BATCH)
     for rows, (sec, tm) in zip(SERVE_ROWS, latencies):
@@ -459,8 +837,12 @@ def main():
             % (rows, sec * 1e3, rows * cfg.seq_len / sec, tm['pad_ms'],
                tm['dispatch_ms'], tm['fetch_ms']))
 
+    log('(h) the NDArray path at full width')
+    row_launches, nd_errs = nd_path(device, cfg, model)
+
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
+    rt = row_times(device, cfg)
     log('(f) where the time goes: torch.profiler over 3 forwards at batch %d'
         % MAX_BATCH)
     profile_forward(device, model, cfg)
@@ -474,10 +856,18 @@ def main():
         'ms': t['kernel_ms'], 'plain_ms': t['plain_ms'],
         'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'],
         'library_ms': t['library_ms']}]}
+    for kernel in ROW_KERNELS:
+        record['kernels'].append({
+            'name': kernel, 'route': 'cuda',
+            'source': 'mxnet_tpu_torch/ops/csrc/row_kernels.cu',
+            'replaces': ROW_REPLACES[kernel],
+            'launches': row_launches[row_fns(kernel)[0].__name__],
+            'max_abs_err': nd_errs[kernel], **rt[kernel]})
     log(json.dumps(record))
+    # the run uses one card, whatever the machine holds
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
+        'count': 1}}))
     return 0
 
 

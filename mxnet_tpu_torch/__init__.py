@@ -6,15 +6,29 @@ package wrote in Pallas is a kernel written by hand for sm_90a here.
 Entry points run on the card (``gpu(0)``) unless the caller passes
 ``device='cpu'``; there is no quiet fallback from one to the other.
 
-Ported so far: serving the decoder that ``bench.py`` measures
-(:mod:`.transformer`, :mod:`.serving`) through the flash-attention kernel
-(:mod:`.ops.cuda_kernels`).
+Ported so far:
+
+- serving the decoder that ``bench.py`` measures (:mod:`.transformer`,
+  :mod:`.serving`) through the flash-attention kernel;
+- the NDArray operator path: the op registry (:mod:`.ops.registry`), the
+  ``nd`` namespace generated from it (:mod:`.ndarray`), and the registry
+  ops LayerNorm, softmax and softmax_cross_entropy (:mod:`.ops.nn`) on the
+  row kernels; ``fused_rmsnorm`` is exported beside them.
+
+The kernels and their plain versions are in :mod:`.ops.cuda_kernels`.
 """
+from . import base
+from .base import MXNetError
+from . import config
 from . import context
 from .context import Context, cpu, gpu, current_context
 from . import ops
+from .ops import fused_rmsnorm
+from . import ndarray
+from . import ndarray as nd
 from . import transformer
 from . import serving
 
-__all__ = ['Context', 'cpu', 'gpu', 'current_context', 'context', 'ops',
+__all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context', 'base',
+           'config', 'context', 'ops', 'fused_rmsnorm', 'ndarray', 'nd',
            'transformer', 'serving']

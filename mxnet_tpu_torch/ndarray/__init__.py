@@ -1,0 +1,23 @@
+"""nd — the imperative tensor namespace: the counterpart of
+``mxnet_tpu/ndarray/__init__.py``.
+
+NDArray and its constructors, and one generated function per registered op
+(``nd.LayerNorm``, ``nd.softmax``, ``nd.softmax_cross_entropy``), called as
+in the JAX package.
+"""
+from .ndarray import (NDArray, array, zeros, ones, empty, full, invoke,
+                      from_torch)
+from . import register as _register
+from . import op  # noqa: F401  (generated-op module path)
+
+_register.install_ops(globals())
+
+
+def __getattr__(name):
+    """Late binding for ops registered after import."""
+    from ..ops import registry as _late_reg
+    if _late_reg.exists(name):
+        fn = _register.make_nd_function(name)
+        globals()[name] = fn
+        return fn
+    raise AttributeError('module %r has no attribute %r' % (__name__, name))

@@ -1,5 +1,16 @@
-"""Operators of the port. :mod:`.cuda_kernels` holds the hand-written CUDA
-kernels (built from ``csrc/`` at first use) beside their plain versions."""
-from .cuda_kernels import flash_attention, flash_attention_lse
+"""Operators of the port. Importing this package registers the ops.
 
-__all__ = ['flash_attention', 'flash_attention_lse']
+:mod:`.registry` holds them; :mod:`.nn` registers LayerNorm, softmax and
+softmax_cross_entropy. :mod:`.cuda_kernels` holds the hand-written CUDA
+kernels (built from ``csrc/`` at first use) beside their plain versions.
+"""
+from . import registry
+from . import nn                  # noqa: F401  (registers its ops)
+from .registry import register, get, list_ops, exists
+from .cuda_kernels import (flash_attention, flash_attention_lse,
+                           fused_rmsnorm, fused_layernorm, fused_softmax,
+                           softmax_xent)
+
+__all__ = ['registry', 'register', 'get', 'list_ops', 'exists',
+           'flash_attention', 'flash_attention_lse', 'fused_rmsnorm',
+           'fused_layernorm', 'fused_softmax', 'softmax_xent']

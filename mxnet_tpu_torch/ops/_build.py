@@ -5,7 +5,8 @@ Each source under ``csrc/`` has a plain C interface. It is compiled by
 file at its first use, and loaded with ``ctypes``. The hash covers the
 source and the flags, so an edited source is rebuilt and a stale
 library is never loaded. The build happens on the machine with the card
-(nothing here imports or builds at package import).
+(nothing here imports or builds at package import). Different sources
+build in parallel when loaded from several threads.
 """
 import ctypes
 import hashlib
@@ -23,6 +24,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _lock = threading.Lock()
+_locks = {}        # name -> threading.Lock, held while that source builds
 _loaded = {}       # name -> ctypes.CDLL
 
 
@@ -69,6 +71,8 @@ def load(name):
     """The loaded ``ctypes.CDLL`` of ``csrc/<name>.cu``, built first when
     no library for its current source exists."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is None:
             out = _library_path(name)

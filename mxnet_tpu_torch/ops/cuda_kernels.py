@@ -5,23 +5,32 @@
   online softmax over K/V tiles, with no [Tq, Tk] score matrix in device
   memory (``csrc/flash_attention.cu``). One kernel serves both, as one
   ``pallas_call`` does on the TPU.
+- :func:`fused_layernorm`, :func:`fused_rmsnorm`, :func:`fused_softmax` and
+  :func:`softmax_xent` — last-axis row kernels (``csrc/row_kernels.cu``):
+  one pass of statistics in f32 and one of output per row, with no padding
+  of the row count.
 
 A wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; it runs the plain PyTorch version beside it only
 for tensors on the CPU (the role interpret mode plays for Pallas). Each
-wrapper counts its launches in a plain integer (``flash_fwd.launches``),
-so a run can show that its path went through the kernel. Backward passes
+wrapper counts its launches in a plain integer (``flash_fwd.launches``,
+``layernorm_fwd.launches``, ...), so a run can show that its path went
+through the kernel. Backward passes
 recompute through the plain version (a ``torch.autograd.Function``),
 as the JAX package's ``custom_vjp`` does: the kernels are forward-only.
 """
 import ctypes
+import math
 
 import torch
 
 from . import _build
 
 __all__ = ['flash_attention', 'flash_attention_lse', 'flash_attention_ref',
-           'flash_attention_lse_ref', 'flash_fwd', 'MAX_HEAD_DIM']
+           'flash_attention_lse_ref', 'flash_fwd', 'MAX_HEAD_DIM',
+           'fused_layernorm', 'fused_rmsnorm', 'fused_softmax', 'softmax_xent',
+           'layernorm_ref', 'rmsnorm_ref', 'softmax_ref', 'softmax_xent_ref',
+           'layernorm_fwd', 'rmsnorm_fwd', 'softmax_fwd', 'softmax_xent_fwd']
 
 _NEG = -1e30
 MAX_HEAD_DIM = 256          # largest head dim the kernel takes
@@ -214,3 +223,343 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
     """:func:`flash_attention_lse` without the lse."""
     del block_q, block_k
     return _FlashFunction.apply(q, k, v, bool(causal), scale)[0]
+
+
+# ---------------------------------------------------------------------------
+# Row kernels: LayerNorm, RMSNorm, softmax and softmax cross-entropy over the
+# last axis (csrc/row_kernels.cu)
+# ---------------------------------------------------------------------------
+
+_ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_LABEL_DTYPES = {torch.int32: 0, torch.int64: 1}
+_MAX_ROWS = 2 ** 31 - 1      # the grid's x extent: one block per row
+
+
+def layernorm_ref(x, gamma, beta, eps=1e-5):
+    """LayerNorm over the last axis in plain PyTorch (the counterpart of
+    ``_ln_ref``): f32 mean and two-pass variance, gamma and beta applied
+    in f32, the result in x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
+
+
+def rmsnorm_ref(x, gamma, eps=1e-6):
+    """x * rsqrt(mean(x^2) + eps) * gamma over the last axis in plain
+    PyTorch (the counterpart of ``_rms_ref``): f32 inside, x's dtype out."""
+    x32 = x.float()
+    inv = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * inv * gamma.float()).to(x.dtype)
+
+
+def softmax_ref(x):
+    """Last-axis softmax in plain PyTorch (the body of ``_softmax_kernel``):
+    f32 inside, x's dtype out."""
+    x32 = x.float()
+    e = torch.exp(x32 - x32.amax(-1, keepdim=True))
+    return (e / e.sum(-1, keepdim=True)).to(x.dtype)
+
+
+def softmax_xent_ref(logits, labels):
+    """Per-row logsumexp(logits) - logits[label] as f32 [N], in plain
+    PyTorch (the body of ``_xent_kernel``). A label outside [0, V) matches
+    no column: its gold logit is 0."""
+    x = logits.float()
+    m = x.amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(x - m).sum(-1)) + m[:, 0]
+    cols = torch.arange(x.shape[-1], device=x.device)
+    onehot = cols == labels.reshape(-1, 1)
+    return lse - torch.where(onehot, x, torch.zeros((), device=x.device)).sum(-1)
+
+
+def _row_lib():
+    lib = _build.load('row_kernels')
+    if lib.mxtt_softmax.argtypes is None:
+        vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                             ctypes.c_float)
+        lib.mxtt_layernorm.argtypes = [i32, vp, vp, i32, vp, i32, vp, i64, i64,
+                                       f32, vp]
+        lib.mxtt_rmsnorm.argtypes = [i32, vp, vp, i32, vp, i64, i64, f32, vp]
+        lib.mxtt_softmax.argtypes = [i32, vp, vp, i64, i64, vp]
+        lib.mxtt_softmax_xent.argtypes = [i32, vp, vp, i32, vp, i64, i64, vp]
+        for fn in (lib.mxtt_layernorm, lib.mxtt_rmsnorm, lib.mxtt_softmax,
+                   lib.mxtt_softmax_xent):
+            fn.restype = ctypes.c_int
+        lib.mxtt_row_error_string.argtypes = [i32]
+        lib.mxtt_row_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _rows(x, what):
+    """(N, D): the row count and width of ``x`` over its last axis."""
+    if x.dim() == 0:
+        raise ValueError('%s works over the last axis; got a 0-d tensor' % what)
+    return math.prod(x.shape[:-1]), x.shape[-1]
+
+
+def _check_on_cpu(what, *tensors):
+    """The plain version runs for CPU tensors only."""
+    devices = {t.device for t in tensors}
+    if devices != {torch.device('cpu')}:
+        raise ValueError('%s runs on CUDA tensors (the kernel) or CPU tensors '
+                         '(the plain version); got tensors on %s'
+                         % (what, sorted(str(d) for d in devices)))
+
+
+def _check_row_input(x, what):
+    if x.dtype not in _ROW_DTYPES:
+        raise TypeError('the %s kernel takes float32, bfloat16 or float16, '
+                        'got %s' % (what, x.dtype))
+    N, D = _rows(x, what)
+    if N > _MAX_ROWS:
+        raise ValueError('the %s kernel takes at most %d rows, got %d'
+                         % (what, _MAX_ROWS, N))
+    return N, D
+
+
+def _check_param(p, name, x, D, what):
+    if p.device != x.device:
+        raise ValueError('%s is on %s, x on %s' % (name, p.device, x.device))
+    if p.dtype not in _ROW_DTYPES:
+        raise TypeError('%s of the %s kernel must be float32, bfloat16 or '
+                        'float16, got %s' % (name, what, p.dtype))
+    if tuple(p.shape) != (D,):
+        raise ValueError('%s must have shape (%d,), got %s'
+                         % (name, D, tuple(p.shape)))
+    return p.contiguous()
+
+
+def _raise_on(err, lib, what):
+    if err:
+        raise RuntimeError('%s kernel launch failed: %s (%d)'
+                           % (what, lib.mxtt_row_error_string(err).decode(), err))
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_norm(fwd, kind, x, params, eps):
+    """Launch the layernorm or rmsnorm kernel over x's rows and count the
+    launch on ``fwd``."""
+    N, D = _check_row_input(x, kind)
+    params = [_check_param(p, n, x, D, kind)
+              for p, n in zip(params, ('gamma', 'beta'))]
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if N == 0 or D == 0:                    # nothing to launch
+        return out
+    x = x.contiguous()
+    lib = _row_lib()
+    args = []
+    for p in params:
+        args += [p.data_ptr(), _ROW_DTYPES[p.dtype]]
+    with torch.cuda.device(x.device):
+        fn = lib.mxtt_layernorm if kind == 'layernorm' else lib.mxtt_rmsnorm
+        err = fn(_ROW_DTYPES[x.dtype], x.data_ptr(), *args, out.data_ptr(), N,
+                 D, float(eps), _stream(x.device))
+    _raise_on(err, lib, kind)
+    fwd.launches += 1
+    return out
+
+
+def layernorm_fwd(x, gamma, beta, eps=1e-5):
+    """LayerNorm over the last axis: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. No autograd; see :func:`fused_layernorm`.
+
+    x is float32, bfloat16 or float16 of any shape (its leading axes are the
+    rows); gamma and beta are [D] in any of those three dtypes, read as f32.
+    The result has x's shape and dtype. Raises TypeError on another dtype and
+    ValueError on a 0-d x or a parameter of another shape or device."""
+    _rows(x, 'layernorm')
+    if x.device.type == 'cuda':
+        return _launch_norm(layernorm_fwd, 'layernorm', x, (gamma, beta), eps)
+    _check_on_cpu('layernorm', x, gamma, beta)
+    with torch.no_grad():
+        return layernorm_ref(x, gamma, beta, eps)
+
+
+layernorm_fwd.launches = 0
+
+
+def rmsnorm_fwd(x, gamma, eps=1e-6):
+    """RMSNorm over the last axis: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. No autograd; see :func:`fused_rmsnorm`.
+    Takes what :func:`layernorm_fwd` takes, without beta."""
+    _rows(x, 'rmsnorm')
+    if x.device.type == 'cuda':
+        return _launch_norm(rmsnorm_fwd, 'rmsnorm', x, (gamma,), eps)
+    _check_on_cpu('rmsnorm', x, gamma)
+    with torch.no_grad():
+        return rmsnorm_ref(x, gamma, eps)
+
+
+rmsnorm_fwd.launches = 0
+
+
+def softmax_fwd(x):
+    """Last-axis softmax: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. No autograd; see :func:`fused_softmax`.
+    x is float32, bfloat16 or float16 (TypeError otherwise); the result has
+    its shape and dtype. Raises ValueError on a 0-d x."""
+    _rows(x, 'softmax')
+    if x.device.type == 'cuda':
+        N, D = _check_row_input(x, 'softmax')
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        if N == 0 or D == 0:                # nothing to launch
+            return out
+        x = x.contiguous()
+        lib = _row_lib()
+        with torch.cuda.device(x.device):
+            err = lib.mxtt_softmax(_ROW_DTYPES[x.dtype], x.data_ptr(),
+                                   out.data_ptr(), N, D, _stream(x.device))
+        _raise_on(err, lib, 'softmax')
+        softmax_fwd.launches += 1
+        return out
+    _check_on_cpu('softmax', x)
+    with torch.no_grad():
+        return softmax_ref(x)
+
+
+softmax_fwd.launches = 0
+
+
+def softmax_xent_fwd(logits, labels):
+    """Per-row cross-entropy logsumexp(logits) - logits[label] as f32 [N]:
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors. No
+    autograd; see :func:`softmax_xent`.
+
+    logits are [N, V] float32, bfloat16 or float16; labels are [N] int32 or
+    int64 (TypeError otherwise). A label outside [0, V) gives the row's
+    logsumexp (its gold logit is 0) and is never read as an address. Raises
+    ValueError for V = 0 (a softmax over nothing); N = 0 gives an empty
+    result without a launch."""
+    if logits.dim() != 2:
+        raise ValueError('softmax_xent takes [N, V] logits, got shape %s'
+                         % (tuple(logits.shape),))
+    N, V = logits.shape
+    if tuple(labels.shape) != (N,):
+        raise ValueError('labels must have shape (%d,), got %s'
+                         % (N, tuple(labels.shape)))
+    if V == 0:
+        raise ValueError('softmax_xent needs at least one class (V = 0)')
+    if logits.device.type == 'cuda':
+        _check_row_input(logits, 'softmax_xent')
+        if labels.device != logits.device:
+            raise ValueError('labels are on %s, logits on %s'
+                             % (labels.device, logits.device))
+        if labels.dtype not in _LABEL_DTYPES:
+            raise TypeError('the softmax_xent kernel takes int32 or int64 '
+                            'labels, got %s' % labels.dtype)
+        loss = torch.empty((N,), dtype=torch.float32, device=logits.device)
+        if N == 0:                          # nothing to launch
+            return loss
+        logits, labels = logits.contiguous(), labels.contiguous()
+        lib = _row_lib()
+        with torch.cuda.device(logits.device):
+            err = lib.mxtt_softmax_xent(
+                _ROW_DTYPES[logits.dtype], logits.data_ptr(), labels.data_ptr(),
+                _LABEL_DTYPES[labels.dtype], loss.data_ptr(), N, V,
+                _stream(logits.device))
+        _raise_on(err, lib, 'softmax_xent')
+        softmax_xent_fwd.launches += 1
+        return loss
+    _check_on_cpu('softmax_xent', logits, labels)
+    with torch.no_grad():
+        return softmax_xent_ref(logits, labels)
+
+
+softmax_xent_fwd.launches = 0
+
+
+def _ref_grads(ref, inputs, grad, *args):
+    """The gradients of ``ref(*inputs, *args)`` for the cotangent ``grad``:
+    the backward of the norm kernels, which recompute through their plain
+    versions as the JAX package's custom_vjp does."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    with torch.enable_grad():
+        out = ref(*leaves, *args)
+        return torch.autograd.grad(out, leaves, grad)
+
+
+class _LayerNormFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps = eps
+        return layernorm_fwd(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_ref_grads(layernorm_ref, ctx.saved_tensors, g, ctx.eps), None)
+
+
+class _RMSNormFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return rmsnorm_fwd(x, gamma, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_ref_grads(rmsnorm_ref, ctx.saved_tensors, g, ctx.eps), None)
+
+
+class _SoftmaxFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = softmax_fwd(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # d/dx softmax = y * (g - sum(g * y)) along the row
+        y, = ctx.saved_tensors
+        return y * (g - (g * y).sum(-1, keepdim=True))
+
+
+class _XentFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels):
+        ctx.save_for_backward(logits, labels)
+        return softmax_xent_fwd(logits, labels)
+
+    @staticmethod
+    def backward(ctx, g):
+        # (softmax - onehot) * g; a label outside [0, V) has a zero one-hot
+        # row, as jax.nn.one_hot gives it. No gradient for the labels.
+        logits, labels = ctx.saved_tensors
+        p = softmax_ref(logits.float())
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        onehot = (cols == labels.reshape(-1, 1)).to(p.dtype)
+        return ((p - onehot) * g[:, None]).to(logits.dtype), None
+
+
+def fused_layernorm(x, gamma, beta, eps=1e-5):
+    """LayerNorm over the last axis (the counterpart of the JAX package's
+    ``fused_layernorm``): :func:`layernorm_fwd` forward, a backward that
+    recomputes through :func:`layernorm_ref`."""
+    return _LayerNormFunction.apply(x, gamma, beta, float(eps))
+
+
+def fused_rmsnorm(x, gamma, eps=1e-6):
+    """RMSNorm over the last axis (the counterpart of ``fused_rmsnorm``):
+    :func:`rmsnorm_fwd` forward, a backward through :func:`rmsnorm_ref`."""
+    return _RMSNormFunction.apply(x, gamma, float(eps))
+
+
+def fused_softmax(x):
+    """Last-axis softmax (the counterpart of ``fused_softmax``):
+    :func:`softmax_fwd` forward, backward y * (g - sum(g * y))."""
+    return _SoftmaxFunction.apply(x)
+
+
+def softmax_xent(logits, labels):
+    """Per-example cross-entropy [N] f32 from logits [N, V] and integer
+    labels [N] (the counterpart of ``softmax_xent``), without a softmax in
+    device memory: :func:`softmax_xent_fwd` forward, backward
+    (softmax - onehot) * g in the logits' dtype."""
+    return _XentFunction.apply(logits, labels)

@@ -16,13 +16,13 @@ and dtype. A constructor that takes a ``Module`` comes with the port's
 Module slice. The JAX engine's telemetry spans are not ported yet.
 """
 import logging
-import os
 import time
 
 import ml_dtypes
 import numpy as np
 import torch
 
+from ..config import flags
 from ..context import as_torch_device
 
 __all__ = ['ServingEngine', 'bucket_ladder']
@@ -45,19 +45,8 @@ def bucket_ladder(max_batch):
 
 
 def _serve_max_batch():
-    """``MXTPU_SERVE_MAX_BATCH`` (default 32, 1..65536), parsed as the JAX
-    package's flag registry parses it."""
-    raw = os.environ.get('MXTPU_SERVE_MAX_BATCH')
-    if raw is None:
-        return 32
-    try:
-        val = int(raw)
-    except ValueError:
-        raise ValueError('env MXTPU_SERVE_MAX_BATCH=%r: expected int' % raw)
-    if not 1 <= val <= 65536:
-        raise ValueError('env MXTPU_SERVE_MAX_BATCH=%r: must be in 1..65536'
-                         % raw)
-    return val
+    flags.reload('MXTPU_SERVE_MAX_BATCH')
+    return flags.get('MXTPU_SERVE_MAX_BATCH')
 
 
 class ServingEngine:

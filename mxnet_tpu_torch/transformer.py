@@ -19,7 +19,7 @@ from .context import as_torch_device
 from .ops.cuda_kernels import flash_attention
 
 __all__ = ['HEAD_DIM', 'TransformerConfig', 'TransformerLM', 'init_params',
-           'params_from_jax']
+           'bench_batch', 'params_from_jax']
 
 HEAD_DIM = 128              # bench's DH: heads are d_model // HEAD_DIM
 _LAYER_PARAMS = ('g1', 'wqkv', 'wo', 'g2', 'wup', 'wdn')
@@ -53,13 +53,7 @@ def _param_shapes(V, D, L):
     return out + [('gf', (D,)), ('head', (D, V))]
 
 
-def init_params(cfg, seed=0):
-    """Float32 numpy weights in bench's order, drawn as bench draws them:
-    one ``RandomState(seed)``, N(0, 1) scaled by ``shape[0] ** -0.5`` by
-    default, 0.02 for the embedding, 0.02**0.5 for the head, and ones for
-    the norm gains."""
-    rng = np.random.RandomState(seed)
-
+def _draw_params(cfg, rng):
     def p(*shape, scale=None):
         s = scale if scale is not None else shape[0] ** -0.5
         return (rng.standard_normal(shape) * s).astype(np.float32)
@@ -71,6 +65,26 @@ def init_params(cfg, seed=0):
                    np.ones((D,), np.float32), p(D, 4 * D), p(4 * D, D)]
     params += [np.ones((D,), np.float32), p(D, V, scale=0.02 ** 0.5)]
     return tuple(params)
+
+
+def init_params(cfg, seed=0):
+    """Float32 numpy weights in bench's order, drawn as bench draws them:
+    one ``RandomState(seed)``, N(0, 1) scaled by ``shape[0] ** -0.5`` by
+    default, 0.02 for the embedding, 0.02**0.5 for the head, and ones for
+    the norm gains."""
+    return _draw_params(cfg, np.random.RandomState(seed))
+
+
+def bench_batch(cfg, batch, seed=0):
+    """(tokens, labels): bench's training batch, int32 [batch, seq_len]
+    each, drawn as ``bench.build_transformer_step`` draws them: from the
+    ``RandomState(seed)`` that drew its weights, after them."""
+    rng = np.random.RandomState(seed)
+    _draw_params(cfg, rng)
+    shape = (batch, cfg.seq_len)
+    tokens = rng.randint(0, cfg.vocab, shape).astype(np.int32)
+    labels = rng.randint(0, cfg.vocab, shape).astype(np.int32)
+    return tokens, labels
 
 
 def params_from_jax(masters):

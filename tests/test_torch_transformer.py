@@ -124,7 +124,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
     """The port and chip_smoke.py import neither JAX nor the JAX package."""
     code = ('import sys, mxnet_tpu_torch, mxnet_tpu_torch.transformer, '
             'mxnet_tpu_torch.serving, mxnet_tpu_torch.ops.cuda_kernels, '
-            'chip_smoke\n'
+            'mxnet_tpu_torch.ops.nn, mxnet_tpu_torch.ndarray, chip_smoke\n'
+            'from mxnet_tpu_torch import nd\n'
+            'nd.LayerNorm, nd.softmax, nd.softmax_cross_entropy\n'
             'bad = sorted(m for m in sys.modules if m == "jax" '
             'or m.startswith("jax.") or m == "mxnet_tpu" '
             'or m.startswith("mxnet_tpu."))\n'
