@@ -13,8 +13,8 @@ order they run:
 (c) flash kernel vs plain version on the card, for its out and lse: the
     served shape, contiguous and as the strided views of the fused qkv that
     the model passes, small f32 shapes, decode shapes (Tq < Tk), a ragged
-    T = 1006, head dims 16/40/64/256, the empty cases, the two ValueError
-    cases, and the autograd gradient;
+    T = 1006, head dims 16/40/64/256, f16 at a small and the served shape,
+    the empty cases, the two ValueError cases, and the autograd gradient;
 (g) row kernels vs plain versions on the card (layernorm, rmsnorm, softmax,
     softmax_xent): f32, bf16 and f16 at the model's shapes, a ragged
     N = 1006, widths 32, 50 and 1000, N = 0, an input at an odd offset,
@@ -32,11 +32,25 @@ order they run:
     bench's 8 x 1024 tokens, its logits cast to f32, through
     nd.softmax_cross_entropy / N against bench's labels. Each is held to its
     plain version, and each kernel's launch count must grow by its calls;
+(i) mx.rtc on the card (K7): NVRTC's library and version; user kernels
+    written in CUDA C and compiled at run time through
+    mxnet_tpu_torch.rtc.Rtc(mode='cuda') for sm_90a: k7a the reference's
+    mx.rtc test kernel, k7b the JAX test's triple, k7c bench's rms on the
+    full-width activations [8, 1024, 1024] bf16 and k7d the tanh GELU on the
+    MLP's hidden activations [8, 1024, 4096] bf16. A first compile and a
+    cached one (a second Rtc of the same source must not compile), a body
+    with a syntax error (MXNetError with NVRTC's log), a 2048-thread block
+    and CPU tensors (ValueError, no launch). The main path: an imperative
+    step on gpu(0) through the nd surface (x[:] = ..., the pushes, x * 0.5,
+    x + y, a slice, .sum()) on layer 0's MLP input, with each user kernel's
+    launch count; the step is held to torch on the same tensors and to the
+    plain chain, and each user kernel to its plain version;
 (e) times from CUDA events: the flash kernel, its plain version and
     PyTorch's scaled_dot_product_attention at the served shape, the
     kernel's bound, the full-width forward's tokens/s, and each request's
     latency; each row kernel, its plain version and one PyTorch call at the
-    shapes of (h), with their bounds;
+    shapes of (h), with their bounds; each user kernel of (i), its plain
+    version and one PyTorch call where there is one, with their bounds;
 (f) where the forward's device time goes (torch.profiler).
 
 The second-to-last line of its output is the kernel record
@@ -45,6 +59,7 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints neither.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -115,6 +130,8 @@ CASES = [
     ('D=64', 2, 256, 256, 4, 64, 'bfloat16', False),
     ('D=40 scalar body', 2, 200, 200, 2, 40, 'bfloat16', True),
     ('D=256 scalar body', 1, 128, 128, 2, 256, 'bfloat16', True),
+    ('f16 small', 2, 128, 128, 4, 64, 'float16', False),
+    ('f16 served shape', 8, 1024, 1024, 8, 128, 'float16', True),
 ]
 
 # Tolerances (|kernel - plain| <= atol + rtol * |plain|), with their reasons:
@@ -123,9 +140,13 @@ CASES = [
 #   the tolerance the JAX package's own kernel tests use (2e-5).
 # - bf16 out: the kernel rounds p to bf16 before the p.v product, and both
 #   sides round the output to bf16 once (2**-8 relative each): 1e-2.
+# - f16 out (the scalar body: p stays f32, and both sides round the f32
+#   output to f16 once): one f16 ulp, rtol 2**-10; atol 1e-6 for f16's
+#   subnormals.
 # - lse (f32 on both sides, the scores exact products of bf16 inputs
 #   summed in f32): 1e-4.
-TOL = {'float32': (2e-5, 2e-5), 'bfloat16': (1e-2, 1e-2)}
+TOL = {'float32': (2e-5, 2e-5), 'bfloat16': (1e-2, 1e-2),
+       'float16': (1e-6, 2 ** -10)}
 LSE_TOL = (1e-4, 1e-4)
 
 
@@ -610,6 +631,434 @@ def nd_path(device, cfg, model):
 
 
 # ---------------------------------------------------------------------------
+# (i) mx.rtc on the card: user kernels compiled at run time by NVRTC (K7)
+# ---------------------------------------------------------------------------
+
+RTC_REPLACES = 'mxnet_tpu/rtc.py:79'
+
+# The user kernels, written as a user of mx.rtc writes them: CUDA C bodies
+# over the declared inputs and outputs, each of which comes with its
+# <name>_ndim and <name>_dims[] constants.
+# k7a: the reference's own mx.rtc test kernel, as it was written.
+K7A_REFERENCE = """
+__shared__ float s_rec[10];
+s_rec[threadIdx.x] = x[threadIdx.x];
+y[threadIdx.x] = expf(s_rec[threadIdx.x]*5.0);
+"""
+# k7b: the JAX package's test kernel `triple` (tests/unittest/test_rtc.py).
+K7B_TRIPLE = """
+const int i = blockIdx.x * blockDim.x + threadIdx.x;
+if (i < x_dims[0]) y[i] = x[i] * 3.0f;
+"""
+# k7c: bench's rms (transformer._rms): normalise in f32, round to x's type,
+# then scale by g. One row a block, blocks of at most 256 threads (a power
+# of two), the sum of squares reduced in shared memory.
+K7C_RMS = """
+const int D = x_dims[x_ndim - 1];
+const __nv_bfloat16* xr = x + (long long)blockIdx.x * D;
+__nv_bfloat16* yr = y + (long long)blockIdx.x * D;
+__shared__ float part[256];
+float s = 0.f;
+for (int j = threadIdx.x; j < D; j += blockDim.x) {
+  const float v = __bfloat162float(xr[j]);
+  s += v * v;
+}
+part[threadIdx.x] = s;
+__syncthreads();
+for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+  if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+  __syncthreads();
+}
+const float inv = rsqrtf(part[0] / D + 1e-6f);
+for (int j = threadIdx.x; j < D; j += blockDim.x) {
+  const float n = __bfloat162float(__float2bfloat16_rn(__bfloat162float(xr[j]) * inv));
+  yr[j] = __float2bfloat16_rn(n * __bfloat162float(g[j]));
+}
+"""
+# k7d: GELU, tanh form, over every element of h (the MLP's hidden
+# activations), f32 inside, grid-stride so that any grid covers it.
+K7D_GELU = """
+long long n = 1;
+for (int d = 0; d < h_ndim; ++d) n *= h_dims[d];
+for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+     i += (long long)gridDim.x * blockDim.x) {
+  const float v = __bfloat162float(h[i]);
+  const float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
+  y[i] = __float2bfloat16_rn(0.5f * v * (1.0f + tanhf(u)));
+}
+"""
+RMS_BLOCK = 256
+
+# Tolerances of each user kernel against its plain version on the same
+# inputs (|kernel - plain| <= atol + rtol * |plain|), with their reasons:
+# - k7a, k7b (f32): expf is within 2 ulps of exp, and x * 3 is exact:
+#   rtol 1e-6 (about 8 f32 ulps), atol 0.
+# - k7d (bf16 out, one rounding of an f32 value): one bf16 ulp (rtol 2**-7,
+#   atol 1e-6). tanhf and fused multiply-adds can move the f32 value across
+#   a bf16 rounding boundary; atol covers GELU's outputs near zero.
+# - k7c (bf16 out, two roundings, as bench rounds): two bf16 ulps (rtol
+#   2**-6, atol 1e-6). The f32 sums of squares differ in their order, so
+#   the normalised value n may round to the neighbouring bf16 value (one ulp
+#   of n, up to 2**-7 relative); n * g then rounds again, so one ulp does
+#   not hold (a few elements in a million differ by two).
+# For both, fewer than RTC_DIFF_SHARE of the elements may differ at all: a
+# kernel that is off everywhere fails that even inside the ulps. The limit
+# is about 20 times the readings on an H100 (k7c: 37 of 8.4M elements,
+# 4.41e-6; k7d: none), so a body that moves its f32 value by a few parts in
+# a million (an eps of 1e-5 for bench's 1e-6) fails it.
+RTC_TOL = {'rtc_k7a_reference': (0.0, 1e-6), 'rtc_k7b_triple': (0.0, 1e-6),
+           'rtc_k7c_rms': (1e-6, 2 ** -6), 'rtc_k7d_gelu': (1e-6, 2 ** -7)}
+RTC_DIFF_SHARE = 1e-4
+# f32 operations an element: k7a mul, exp; k7b mul; k7c mul, add; mul, mul;
+# k7d 3 mul, add, mul, tanh, add, 2 mul (tanh counted as one).
+RTC_OPS_PER_ELEMENT = {'rtc_k7a_reference': 2, 'rtc_k7b_triple': 1,
+                       'rtc_k7c_rms': 4, 'rtc_k7d_gelu': 9}
+# The step on the NDArray surface against the plain chain (bench's _rms and
+# the plain GELU in torch): the user kernels' outputs differ from the plain
+# versions by a bf16 ulp in a few elements per million, which the matmul and
+# the sum spread. It read a relative RMS of 2.7e-5 on an H100; the limit is
+# about 20 times that. The step's bf16 total has a limit of its own (its
+# rounding to bf16 comes first).
+STEP_REL_RMS = 5e-4
+
+
+def rtc_kernels(cfg, batch=MAX_BATCH):
+    """{name: (body, inputs, outputs, grid_dims, block_dims)} of k7a-k7d at
+    the shapes of the main path; inputs and outputs are (name, shape,
+    dtype); grid_dims None takes Rtc's default geometry."""
+    act = (batch, cfg.seq_len, cfg.d_model)
+    hid = (batch, cfg.seq_len, 4 * cfg.d_model)
+    rows = batch * cfg.seq_len
+    return {
+        'rtc_k7a_reference': (K7A_REFERENCE, [('x', (10,), 'float32')],
+                              [('y', (10,), 'float32')], (1, 1, 1), (10, 1, 1)),
+        'rtc_k7b_triple': (K7B_TRIPLE, [('x', (8,), 'float32')],
+                           [('y', (8,), 'float32')], None, None),
+        'rtc_k7c_rms': (K7C_RMS, [('x', act, 'bfloat16'),
+                                  ('g', (cfg.d_model,), 'bfloat16')],
+                        [('y', act, 'bfloat16')], (rows, 1, 1),
+                        (RMS_BLOCK, 1, 1)),
+        'rtc_k7d_gelu': (K7D_GELU, [('h', hid, 'bfloat16')],
+                         [('y', hid, 'bfloat16')], None, None),
+    }
+
+
+def make_rtc(name, spec, ctx):
+    """An Rtc(mode='cuda') of ``spec`` (see :func:`rtc_kernels`), its
+    arguments declared by NDArrays on ``ctx``."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.rtc import Rtc
+    body, ins, outs, _, _ = spec
+    return Rtc(name, [(n, nd.zeros(s, ctx, d)) for n, s, d in ins],
+               [(n, nd.zeros(s, ctx, d)) for n, s, d in outs], body, mode='cuda')
+
+
+def rtc_plain(name):
+    """The plain PyTorch version of user kernel ``name``."""
+    import torch
+    from mxnet_tpu_torch.transformer import _rms
+
+    def gelu(h):
+        v = h.float()
+        u = 0.7978845608028654 * (v + 0.044715 * v * v * v)
+        return (0.5 * v * (1.0 + torch.tanh(u))).to(h.dtype)
+    return {'rtc_k7a_reference': lambda x: torch.exp(x * 5.0),
+            'rtc_k7b_triple': lambda x: x * 3.0,
+            'rtc_k7c_rms': _rms, 'rtc_k7d_gelu': gelu}[name]
+
+
+def rtc_library(name, args):
+    """One PyTorch call computing the user kernel's function (a yardstick
+    only; the port never calls it), or None where there is none."""
+    import torch
+    import torch.nn.functional as F
+    if name == 'rtc_k7b_triple':
+        return lambda: torch.mul(args[0], 3.0)
+    if name == 'rtc_k7d_gelu':
+        return lambda: F.gelu(args[0], approximate='tanh')
+    return None
+
+
+def rtc_inputs(name, spec, device, seed):
+    """Seeded inputs of user kernel ``name`` at its shapes."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for arg, shape, dtype in spec[1]:
+        t = torch.randn(shape, generator=gen, device=device)
+        if arg == 'g':
+            t = t * 0.5 + 1.0
+        elif name == 'rtc_k7d_gelu':
+            t = t * 2.0
+        elif name == 'rtc_k7a_reference':
+            t = t.clamp(-1.0, 1.0)
+        out.append(t.to(getattr(torch, dtype)))
+    return out
+
+
+def push(rtc, spec, args, device):
+    """Push ``args`` (tensors) through ``rtc``; its output tensors."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.context import Context
+    ctx = Context('gpu', device.index or 0)
+    outs = [nd.zeros(s, ctx, d) for _, s, d in spec[2]]
+    rtc.push([nd.from_torch(a, ctx) for a in args], outs, spec[3], spec[4])
+    return [o.handle for o in outs]
+
+
+def rtc_engine_checks(device, cfg):
+    """NVRTC's library, a first compile and a cached one, the compile error
+    and the launch-geometry error."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import MXNetError, nd
+    from mxnet_tpu_torch.ops import nvrtc
+    from mxnet_tpu_torch.rtc import Rtc
+    info = nvrtc.info()
+    log('  NVRTC %d.%d from %s, include %s, arch %s'
+        % (*info['version'], info['path'], info['include'], info['arch']))
+    ctx = mt.gpu(device.index or 0)
+    spec = rtc_kernels(cfg)['rtc_k7c_rms']
+    args = [nd.from_torch(a, ctx)
+            for a in rtc_inputs('rtc_k7c_rms', spec, device, seed=30)]
+    outs = [nd.zeros(spec[2][0][1], ctx, 'bfloat16')]
+    times = []
+    for _ in range(2):            # the second Rtc of the same source
+        rtc = make_rtc('rtc_k7c_rms', spec, ctx)
+        before = nvrtc.stats['compiles']
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rtc.push(args, outs, *spec[3:])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        compiled = nvrtc.stats['compiles'] - before
+        check(compiled == (1 if len(times) == 1 else 0),
+              'push %d compiled %d times' % (len(times), compiled))
+    n = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        rtc.push(args, outs, *spec[3:])
+    torch.cuda.synchronize()
+    steady_us = (time.perf_counter() - t0) / n * 1e6
+    log('  k7c push and kernel, host clock: first %.1f ms (NVRTC compile and '
+        'module load %.1f ms); a second Rtc of the same source %.3f ms, no '
+        'compile; %d pushes of one Rtc back to back: %.1f us a push'
+        % (times[0], nvrtc.stats['compile_ms'], times[1], n, steady_us))
+
+    x, y = nd.zeros((4,), ctx), nd.zeros((4,), ctx)
+    bad = Rtc('rtc_syntax_error', [('x', x)], [('y', y)],
+              'y[threadIdx.x] = x[threadIdx.x] +;', mode='cuda')
+    try:
+        bad.push([x], [y])
+    except MXNetError as e:
+        msg = str(e)
+        check('rtc_syntax_error' in msg and 'error' in msg,
+              "the compile error does not carry NVRTC's log: %s" % msg)
+        log("  a body with a syntax error: MXNetError with NVRTC's log: %s"
+            % ' | '.join(ln.strip() for ln in msg.splitlines()
+                         if 'error' in ln)[:300])
+    else:
+        check(False, 'a body with a syntax error compiled')
+    before = nvrtc.launch.launches
+    try:
+        rtc.push(args, outs, grid_dims=(1,), block_dims=(2048,))
+    except ValueError as e:
+        log('  a 2048-thread block: ValueError before any launch (%s)' % e)
+    else:
+        check(False, 'a 2048-thread block was taken')
+    check(nvrtc.launch.launches == before, 'a refused geometry launched')
+    cpu_x, cpu_y = nd.zeros((4,), mt.cpu()), nd.zeros((4,), mt.cpu())
+    try:
+        Rtc('rtc_on_cpu', [('x', cpu_x)], [('y', cpu_y)], 'y[0] = x[0];',
+            mode='cuda').push([cpu_x], [cpu_y])
+    except ValueError:
+        log("  CPU tensors: ValueError, nothing runs in the kernel's place")
+    else:
+        check(False, "mode='cuda' ran on CPU tensors")
+    check(nvrtc.launch.launches == before, 'a refused push launched')
+
+
+def first_mlp_input(model, tokens):
+    """Layer 0 of the model up to its MLP: the residual stream after
+    attention, which the MLP's pre-norm reads."""
+    from mxnet_tpu_torch.transformer import HEAD_DIM, _rms
+    B, S = tokens.shape
+    H = model.cfg.n_heads
+    blk = model.layers[0]
+    x = model.embed[tokens]
+    q, k, v = (_rms(x, blk.g1) @ blk.wqkv).view(B, S, H, 3 * HEAD_DIM) \
+        .split(HEAD_DIM, dim=-1)
+    a = model.attention(q, k, v, causal=True)
+    return x + a.reshape(B, S, H * HEAD_DIM) @ blk.wo
+
+
+def rel_rms(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+
+
+def rtc_path(device, cfg, model):
+    """Phase (i)'s main path: an imperative step on gpu(0) at full width
+    through the nd surface and the user kernels. Returns ({kernel:
+    launches}, {kernel: Rtc})."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops import nvrtc
+    from mxnet_tpu_torch.transformer import bench_batch
+    ctx = mt.gpu(device.index or 0)
+    specs = rtc_kernels(cfg)
+    rtcs = {name: make_rtc(name, spec, ctx) for name, spec in specs.items()}
+    tokens = torch.from_numpy(bench_batch(cfg, MAX_BATCH, seed=0)[0]).to(device)
+    blk = model.layers[0]
+    with torch.no_grad():
+        resid = first_mlp_input(model, tokens)
+    g2, wup = blk.g2.detach(), blk.wup.detach()
+    act = tuple(resid.shape)
+    hid = act[:-1] + (wup.shape[1],)
+
+    # the main path: counts are zeroed just before and read just after
+    for r in rtcs.values():
+        r.launches = 0
+    nvrtc.launch.launches = 0
+    # the reference's mx.rtc usage: fill with x[:] = 1, push, read y
+    x = nd.zeros((10,), ctx)
+    x[:] = 1
+    y = nd.zeros((10,), ctx)
+    rtcs['rtc_k7a_reference'].push([x], [y], *specs['rtc_k7a_reference'][3:])
+    t = nd.arange(0, 8, ctx=ctx)
+    t3 = nd.zeros((8,), ctx)
+    rtcs['rtc_k7b_triple'].push([t], [t3])
+    # layer 0's MLP at full width: pre-norm and GELU through user kernels
+    acts = nd.zeros(act, ctx, 'bfloat16')
+    acts[:] = nd.from_torch(resid, ctx)
+    normed = nd.zeros(act, ctx, 'bfloat16')
+    rtcs['rtc_k7c_rms'].push([acts, nd.from_torch(g2, ctx)], [normed],
+                             *specs['rtc_k7c_rms'][3:])
+    hidden = nd.from_torch(normed.handle @ wup, ctx)
+    gelu = nd.zeros(hid, ctx, 'bfloat16')
+    rtcs['rtc_k7d_gelu'].push([hidden], [gelu])
+    mix = gelu * 0.5 + hidden
+    row = mix[0, 3, :4]
+    total = mix.sum()
+    scaled = y + t3[1:3].sum()
+    nd.waitall()
+    launches = {name: r.launches for name, r in rtcs.items()}
+    log('  launches: %s (NVRTC launches %d)' % (launches, nvrtc.launch.launches))
+    check(launches == dict.fromkeys(rtcs, 1) and nvrtc.launch.launches == 4,
+          'user-kernel launches %s' % launches)
+
+    # the step against torch on the same tensors, and against the plain chain
+    e5 = torch.exp(torch.tensor(5.0, device=device))
+    want_t3 = torch.arange(8, dtype=torch.float32, device=device) * 3
+    check(bool(torch.allclose(y.handle, e5.expand(10), rtol=1e-6, atol=0))
+          and bool(torch.equal(t3.handle, want_t3))
+          and bool(torch.equal(acts.handle, resid)),
+          'k7a/k7b or the x[:] fill disagree')
+    want_mix = gelu.handle * 0.5 + hidden.handle
+    check(bool(torch.equal(mix.handle, want_mix))
+          and bool(torch.equal(row.handle, want_mix[0, 3, :4]))
+          and total.shape == (1,) and total.handle.dtype == want_mix.dtype
+          and bool(torch.equal(total.handle, want_mix.sum().reshape(1)))
+          and bool(torch.allclose(scaled.handle, e5 + 9.0, rtol=1e-6, atol=0)),
+          'the nd step disagrees with torch on the same tensors')
+    with torch.no_grad():
+        plain_hidden = rtc_plain('rtc_k7c_rms')(resid, g2) @ wup
+        plain_mix = rtc_plain('rtc_k7d_gelu')(plain_hidden) * 0.5 + plain_hidden
+    got_sum = float(total.asscalar())
+    want_sum = float(plain_mix.float().sum())
+    abs_sum = float(plain_mix.float().abs().sum())
+    err_mix = rel_rms(mix.handle, plain_mix)
+    # the total is a bf16 value: rounded once, by up to half a bf16 ulp of
+    # the f32 total (2**(e - 9) for a total in [2**(e-1), 2**e)), beside
+    # which the user kernels' few differing elements spread as above
+    sum_tol = 2.0 ** (math.frexp(want_sum)[1] - 9) + STEP_REL_RMS * abs_sum
+    log('  step at full width (%s -> %s bf16): x[:] fill exact; nd ops equal '
+        'torch on the same tensors; vs the plain chain: rel RMS %.3e, sum '
+        '%.6g vs %.6g (|diff| %.6g, limit %.6g; |diff| / sum|x| %.3e)'
+        % (act, hid, err_mix, got_sum, want_sum, abs(got_sum - want_sum),
+           sum_tol, abs(got_sum - want_sum) / abs_sum))
+    check(err_mix <= STEP_REL_RMS and abs(got_sum - want_sum) <= sum_tol
+          and bool(torch.isfinite(mix.handle).all()),
+          'the step disagrees with the plain chain')
+    return launches, rtcs
+
+
+def rtc_vs_plain(device, cfg, rtcs):
+    """Each user kernel against its plain version on seeded inputs at the
+    main path's shapes. Returns {kernel: max |err|}."""
+    import torch
+    errs = {}
+    for i, (name, spec) in enumerate(rtc_kernels(cfg).items()):
+        args = rtc_inputs(name, spec, device, seed=40 + i)
+        got, = push(rtcs[name], spec, args, device)
+        want = rtc_plain(name)(*args)
+        atol, rtol = RTC_TOL[name]
+        errs[name] = float((got.float() - want.float()).abs().max())
+        share = float((got != want).float().mean())
+        ok = (got.shape == want.shape and got.dtype == want.dtype
+              and bool(torch.isfinite(got).all())
+              and excess(got, want, atol, rtol) <= atol
+              and share < RTC_DIFF_SHARE)
+        log('  %-18s %-22s %-8s max|err| vs plain %.3e, %.2e of the elements '
+            'differ  %s' % (name, tuple(got.shape),
+                            str(got.dtype).replace('torch.', ''), errs[name],
+                            share, 'ok' if ok else 'FAIL'))
+        check(ok, '%s disagrees with its plain version' % name)
+        del args, got, want
+    return errs
+
+
+def rtc_times(device, cfg, rtcs):
+    """Each user kernel at the main path's shapes from a cold L2: its time
+    through Rtc.push, its plain version's, one PyTorch call's and its
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.context import Context
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    out = {}
+    ctx = Context('gpu', device.index or 0)
+    for name, spec in rtc_kernels(cfg).items():
+        args = rtc_inputs(name, spec, device, seed=50)
+        # the NDArrays are made outside the timed call: nd.zeros fills on
+        # the card, and Rtc.push itself only allocates its outputs
+        ins = [nd.from_torch(a, ctx) for a in args]
+        outs = [nd.zeros(s, ctx, d) for _, s, d in spec[2]]
+        kernel_ms = device_ms(lambda: rtcs[name].push(ins, outs, *spec[3:]),
+                              flush=flush)
+        plain_ms = device_ms(lambda: rtc_plain(name)(*args), flush=flush)
+        lib = rtc_library(name, args)
+        library_ms = device_ms(lib, flush=flush) if lib is not None else None
+        res = outs[0].handle
+        nbytes = sum(a.numel() * a.element_size() for a in args) \
+            + res.numel() * res.element_size()
+        ops = RTC_OPS_PER_ELEMENT[name] * args[0].numel()
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = 'bytes' if t_bytes >= t_ops else 'operations'
+        extra = ''
+        if name == 'rtc_k7c_rms' and hasattr(F, 'rms_norm'):
+            x, g = args
+            extra = ('; F.rms_norm %.4f ms (not the same function: it does '
+                     'not round before g)'
+                     % device_ms(lambda: F.rms_norm(x, (x.shape[-1],), g, 1e-6),
+                                 flush=flush))
+        log('  %-18s %-22s kernel %.4f ms, plain %.4f ms, library %s ms, bound '
+            '%.4f ms (%s: %.1f MB), bound / kernel %.3f%s'
+            % (name, tuple(args[0].shape), kernel_ms, plain_ms,
+               'n/a' if library_ms is None else '%.4f' % library_ms, bound_ms,
+               bound_by, nbytes / 1e6, bound_ms / kernel_ms, extra))
+        out[name] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        del args, res, ins, outs
+    del flush
+    return out
+
+
+# ---------------------------------------------------------------------------
 # (e) times of the row kernels
 # ---------------------------------------------------------------------------
 
@@ -840,9 +1289,15 @@ def main():
     log('(h) the NDArray path at full width')
     row_launches, nd_errs = nd_path(device, cfg, model)
 
+    log('(i) mx.rtc on the card: user kernels compiled by NVRTC')
+    rtc_engine_checks(device, cfg)
+    rtc_launches, rtcs = rtc_path(device, cfg, model)
+    rtc_errs = rtc_vs_plain(device, cfg, rtcs)
+
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
     rt = row_times(device, cfg)
+    rtc_t = rtc_times(device, cfg, rtcs)
     log('(f) where the time goes: torch.profiler over 3 forwards at batch %d'
         % MAX_BATCH)
     profile_forward(device, model, cfg)
@@ -863,6 +1318,11 @@ def main():
             'replaces': ROW_REPLACES[kernel],
             'launches': row_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
+    for name in rtc_kernels(cfg):
+        record['kernels'].append({
+            'name': name, 'route': 'cuda', 'source': 'chip_smoke.py',
+            'replaces': RTC_REPLACES, 'launches': rtc_launches[name],
+            'max_abs_err': rtc_errs[name], **rtc_t[name]})
     log(json.dumps(record))
     # the run uses one card, whatever the machine holds
     log(json.dumps({'ok': True, 'device': {

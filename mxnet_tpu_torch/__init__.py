@@ -13,7 +13,11 @@ Ported so far:
 - the NDArray operator path: the op registry (:mod:`.ops.registry`), the
   ``nd`` namespace generated from it (:mod:`.ndarray`), and the registry
   ops LayerNorm, softmax and softmax_cross_entropy (:mod:`.ops.nn`) on the
-  row kernels; ``fused_rmsnorm`` is exported beside them.
+  row kernels; ``fused_rmsnorm`` is exported beside them;
+- the imperative NDArray surface: the elementwise and reduce ops
+  (:mod:`.ops.elemwise`, :mod:`.ops.reduce_ops`), NDArray arithmetic,
+  comparison and indexing, and ``mx.rtc`` (:mod:`.rtc`): CUDA C kernel
+  bodies compiled at run time by NVRTC (:mod:`.ops.nvrtc`).
 
 The kernels and their plain versions are in :mod:`.ops.cuda_kernels`.
 """
@@ -26,9 +30,10 @@ from . import ops
 from .ops import fused_rmsnorm
 from . import ndarray
 from . import ndarray as nd
+from . import rtc
 from . import transformer
 from . import serving
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context', 'base',
            'config', 'context', 'ops', 'fused_rmsnorm', 'ndarray', 'nd',
-           'transformer', 'serving']
+           'rtc', 'transformer', 'serving']

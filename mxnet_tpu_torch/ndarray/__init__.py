@@ -1,12 +1,13 @@
 """nd — the imperative tensor namespace: the counterpart of
 ``mxnet_tpu/ndarray/__init__.py``.
 
-NDArray and its constructors, and one generated function per registered op
-(``nd.LayerNorm``, ``nd.softmax``, ``nd.softmax_cross_entropy``), called as
-in the JAX package.
+NDArray and its constructors, ``waitall`` and ``moveaxis``, and one
+generated function per registered op (``nd.LayerNorm``, ``nd.softmax``,
+``nd.broadcast_add``, ``nd.sum``, ``nd.add_n``, ...), called as in the JAX
+package.
 """
-from .ndarray import (NDArray, array, zeros, ones, empty, full, invoke,
-                      from_torch)
+from .ndarray import (NDArray, array, zeros, ones, empty, full, arange,
+                      invoke, waitall, moveaxis, from_torch)
 from . import register as _register
 from . import op  # noqa: F401  (generated-op module path)
 

@@ -9,11 +9,22 @@ caller returns before the device finishes, and ``wait_to_read`` waits for
 the device.
 
 Ported here: the properties, host transfer, copies and context moves,
-``astype``, ``reshape`` (with MXNet's special codes), the constructors and
-:func:`invoke`. Not yet: the autograd tape (``attach_grad``/``backward``
-come with ``autograd.py``; :func:`invoke` runs ops under
-``torch.no_grad``), the arithmetic, comparison and indexing dunders and the
-method forms of ops (they go through registry ops that are not ported yet),
+``astype``, ``reshape`` (with MXNet's special codes), the arithmetic,
+comparison and in-place dunders (through the registry's elemwise ops),
+indexing, the reduce and unary method forms, the constructors, ``arange``,
+``moveaxis``, ``waitall`` and :func:`invoke`.
+
+``reshape`` and ``moveaxis`` may return torch views of the same storage.
+Nothing writes into a tensor in place, so no NDArray sees another's
+write: ``__setitem__`` copies the tensor, writes the copy and rebinds
+``_data``, and ``__getitem__`` returns a copy, as jnp's indexing does.
+Integer index arrays follow jnp: a negative index counts from the end, an
+index still out of range is clamped on a read and its write is dropped
+(never passed to torch, where it would fault on the card).
+
+Not yet: the autograd tape (``attach_grad``/``backward`` come with
+``autograd.py``; :func:`invoke` runs ops under ``torch.no_grad``), the
+method forms of ops that are not ported (``log_softmax``, the shape ops),
 the RNG that ``needs_rng`` ops take, and sparse storage.
 """
 import numpy as np
@@ -23,8 +34,19 @@ from ..base import MXNetError, dtype_of, normalize_attrs, np_dtype, torch_dtype
 from ..context import Context, current_context
 from ..ops import registry as _reg
 
-__all__ = ['NDArray', 'array', 'zeros', 'ones', 'empty', 'full', 'invoke',
-           'from_torch']
+__all__ = ['NDArray', 'array', 'zeros', 'ones', 'empty', 'full', 'arange',
+           'invoke', 'waitall', 'moveaxis', 'from_torch']
+
+_NUMERIC = (float, int, np.generic)
+
+
+def waitall():
+    """Wait until every card has finished the work queued on it
+    (reference MXNDArrayWaitAll): ``torch.cuda.synchronize`` on each
+    device; nothing without CUDA, where ops run synchronously."""
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def _context_of(tensor):
@@ -136,6 +158,272 @@ class NDArray:
         shape = kwargs.get('shape', shape)
         out = _infer_reshape(list(self.shape), list(shape))
         return NDArray(self._data.reshape(out), self._ctx)
+
+    def broadcast_to(self, shape):
+        return invoke('broadcast_to', [self], {'shape': tuple(shape)})
+
+    def broadcast_axes(self, axis=(), size=()):
+        return invoke('broadcast_axes', [self],
+                      {'axis': (axis,) if isinstance(axis, int) else tuple(axis),
+                       'size': (size,) if isinstance(size, int) else tuple(size)})
+
+    # -- indexing ---------------------------------------------------------
+    def __setitem__(self, key, value):
+        """A functional update, as in the JAX package: the write goes into
+        a new tensor that replaces ``_data``."""
+        data = self._data
+        if isinstance(value, NDArray):
+            value = value._data
+        elif not isinstance(value, torch.Tensor):
+            value = torch.as_tensor(np.asarray(value))
+        # cast to x's dtype first, as jnp.asarray(value, dtype) does
+        value = value.to(device=data.device, dtype=data.dtype)
+        self._data = _write(data, slice(None) if key is None else key, value)
+
+    def __getitem__(self, key):
+        return NDArray(_read(self._data, key), self._ctx)
+
+    # -- operator overloads (dispatch to registered ops, reference
+    #    ndarray.py __add__ etc -> broadcast_add/_plus_scalar) -------------
+    def __add__(self, other):
+        return _binary(self, other, 'broadcast_add', '_plus_scalar')
+
+    def __radd__(self, other):
+        return self.__add__(other)
+
+    def __iadd__(self, other):
+        self._data = self.__add__(other)._data
+        return self
+
+    def __sub__(self, other):
+        return _binary(self, other, 'broadcast_sub', '_minus_scalar')
+
+    def __rsub__(self, other):
+        return _scalar(self, other, '_rminus_scalar')
+
+    def __isub__(self, other):
+        self._data = self.__sub__(other)._data
+        return self
+
+    def __mul__(self, other):
+        return _binary(self, other, 'broadcast_mul', '_mul_scalar')
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    def __imul__(self, other):
+        self._data = self.__mul__(other)._data
+        return self
+
+    def __truediv__(self, other):
+        return _binary(self, other, 'broadcast_div', '_div_scalar')
+
+    def __rtruediv__(self, other):
+        return _scalar(self, other, '_rdiv_scalar')
+
+    def __itruediv__(self, other):
+        self._data = self.__truediv__(other)._data
+        return self
+
+    def __mod__(self, other):
+        return _binary(self, other, 'broadcast_mod', '_mod_scalar')
+
+    def __rmod__(self, other):
+        return _scalar(self, other, '_rmod_scalar')
+
+    def __pow__(self, other):
+        return _binary(self, other, 'broadcast_power', '_power_scalar')
+
+    def __rpow__(self, other):
+        return _scalar(self, other, '_rpower_scalar')
+
+    def __neg__(self):
+        return invoke('negative', [self], {})
+
+    def __abs__(self):
+        return invoke('abs', [self], {})
+
+    def __eq__(self, other):
+        return _binary(self, other, 'broadcast_equal', '_equal_scalar')
+
+    def __ne__(self, other):
+        return _binary(self, other, 'broadcast_not_equal', '_not_equal_scalar')
+
+    def __gt__(self, other):
+        return _binary(self, other, 'broadcast_greater', '_greater_scalar')
+
+    def __ge__(self, other):
+        return _binary(self, other, 'broadcast_greater_equal',
+                       '_greater_equal_scalar')
+
+    def __lt__(self, other):
+        return _binary(self, other, 'broadcast_lesser', '_lesser_scalar')
+
+    def __le__(self, other):
+        return _binary(self, other, 'broadcast_lesser_equal',
+                       '_lesser_equal_scalar')
+
+    def __hash__(self):
+        return id(self)
+
+
+def _binary(lhs, rhs, op_broadcast, op_scalar):
+    if isinstance(rhs, NDArray):
+        return invoke(op_broadcast, [lhs, rhs], {})
+    if isinstance(rhs, _NUMERIC):
+        return invoke(op_scalar, [lhs], {'scalar': float(rhs)})
+    raise TypeError('type %s not supported' % str(type(rhs)))
+
+
+def _scalar(lhs, rhs, op_scalar):
+    return invoke(op_scalar, [lhs], {'scalar': float(rhs)})
+
+
+def _reduce_method(name):
+    def method(self, axis=None, keepdims=False, **kwargs):
+        attrs = {'axis': axis if axis is None or isinstance(axis, int)
+                 else tuple(axis), 'keepdims': keepdims}
+        attrs.update(kwargs)
+        return invoke(name, [self], attrs)
+    method.__name__ = name
+    return method
+
+
+def _unary_method(name):
+    def method(self, **kwargs):
+        return invoke(name, [self], kwargs)
+    method.__name__ = name
+    return method
+
+
+for _n in ['sum', 'nansum', 'prod', 'nanprod', 'mean', 'max', 'min', 'norm',
+           'argmax', 'argmin']:
+    setattr(NDArray, _n, _reduce_method(_n))
+# the JAX package's list, less log_softmax (not ported yet)
+for _n in ['abs', 'sign', 'round', 'rint', 'fix', 'floor', 'ceil', 'trunc',
+           'sin', 'cos', 'tan', 'arcsin', 'arccos', 'arctan', 'degrees',
+           'radians', 'sinh', 'cosh', 'tanh', 'arcsinh', 'arccosh', 'arctanh',
+           'exp', 'expm1', 'log', 'log10', 'log2', 'log1p', 'sqrt', 'rsqrt',
+           'cbrt', 'square', 'reciprocal', 'relu', 'sigmoid', 'softmax',
+           'zeros_like', 'ones_like']:
+    setattr(NDArray, _n, _unary_method(_n))
+
+
+# ---------------------------------------------------------------------------
+# indexing with jnp's rules for integer index arrays
+# ---------------------------------------------------------------------------
+
+def _key_items(key):
+    return key if isinstance(key, tuple) else (key,)
+
+
+def _as_index(k, device):
+    """An index item as torch takes it: NDArrays, numpy arrays and lists
+    become tensors on ``device`` (integer ones int64; MXNet's float index
+    arrays are truncated to integers)."""
+    if isinstance(k, NDArray):
+        k = k._data
+    elif isinstance(k, (np.ndarray, list)):
+        k = torch.as_tensor(np.asarray(k))
+    if isinstance(k, torch.Tensor):
+        k = k.to(device)
+        if k.dtype != torch.bool:
+            k = k.long()
+    return k
+
+
+def _array_axes(key, ndim, device):
+    """(key items as torch takes them, {position in key: the axis an
+    integer index array indexes})."""
+    items = [_as_index(k, device) for k in _key_items(key)]
+    used = sum(k.dim() if isinstance(k, torch.Tensor) and k.dtype == torch.bool
+               else 0 if k is None or k is Ellipsis else 1 for k in items)
+    axes, dim = {}, 0
+    for i, k in enumerate(items):
+        if k is Ellipsis:
+            dim += ndim - used
+        elif k is None:
+            continue
+        elif isinstance(k, torch.Tensor) and k.dtype == torch.bool:
+            dim += k.dim()
+        else:
+            if isinstance(k, torch.Tensor):
+                axes[i] = dim
+            dim += 1
+    return items, axes
+
+
+def _wrap(idx, n):
+    return torch.where(idx < 0, idx + n, idx)
+
+
+def _read(data, key):
+    """``data[key]`` as a new tensor: integer index arrays wrap negative
+    indices once and clamp the rest into range, as jnp's gather does."""
+    items, axes = _array_axes(key, data.dim(), data.device)
+    for i, ax in axes.items():
+        n = data.shape[ax]
+        items[i] = _wrap(items[i], n).clamp(0, max(n - 1, 0))
+    out = data[tuple(items)]
+    if out.untyped_storage().data_ptr() == data.untyped_storage().data_ptr():
+        out = out.clone()          # a view from basic indexing: copy it
+    return out
+
+
+def _write(data, key, value):
+    """A copy of ``data`` with ``value`` written at ``key``. Integer index
+    arrays wrap negative indices once; a write to an index still out of
+    range is dropped, as jnp's ``.at[].set`` drops it: such indices go to a
+    scratch slot appended to their axis, which is cut off afterwards."""
+    items, axes = _array_axes(key, data.dim(), data.device)
+    new = data
+    padded = []
+    for i, ax in axes.items():
+        n = data.shape[ax]
+        idx = _wrap(items[i], n)
+        bad = (idx < 0) | (idx >= n)
+        if bool(bad.any()):
+            idx = torch.where(bad, torch.full_like(idx, n), idx)
+            pad = list(new.shape)
+            pad[ax] = 1
+            new = torch.cat([new, new.new_zeros(pad)], ax)
+            padded.append((ax, n))
+        items[i] = idx
+    if new is data:
+        new = data.clone(memory_format=torch.contiguous_format)
+    new[tuple(items)] = value
+    for ax, n in padded:
+        new = new.narrow(ax, 0, n)
+    return new.contiguous()
+
+
+@_reg.register('_slice_like_getitem')
+def _slice_like_getitem(attrs, x):
+    return _read(x, _thaw_key(attrs['key']))
+
+
+def _freeze_key(key):
+    """Make an indexing key hashable for the attr dict."""
+    if isinstance(key, tuple):
+        return tuple(_freeze_key(k) for k in key)
+    if isinstance(key, slice):
+        return ('__slice__', key.start, key.stop, key.step)
+    if isinstance(key, NDArray):
+        key = key._data
+    if isinstance(key, (torch.Tensor, np.ndarray)):
+        arr = key.cpu().numpy() if isinstance(key, torch.Tensor) else key
+        return ('__array__', tuple(arr.ravel().tolist()), tuple(arr.shape))
+    return key
+
+
+def _thaw_key(key):
+    if isinstance(key, tuple):
+        if len(key) == 4 and key[0] == '__slice__':
+            return slice(key[1], key[2], key[3])
+        if len(key) == 3 and key[0] == '__array__':
+            return np.array(key[1]).reshape(key[2]).astype(np.int64)
+        return tuple(_thaw_key(k) for k in key)
+    return key
 
 
 def _infer_reshape(src, target):
@@ -257,6 +545,22 @@ def array(source_array, ctx=None, dtype=None):
     else:
         t = torch.from_numpy(np.array(src, dtype=d))
     return _place(t, ctx)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype='float32'):
+    """Reference ndarray.py arange: numpy's arange in ``dtype`` (as jnp
+    computes it for concrete arguments), each value ``repeat`` times."""
+    d = np_dtype(dtype)
+    arr = np.arange(start, stop, step, dtype=np.float32 if
+                    torch_dtype(d) == torch.bfloat16 else d)
+    if repeat > 1:
+        arr = np.repeat(arr, repeat)
+    return array(arr, ctx, d)
+
+
+def moveaxis(tensor, source, destination):
+    return NDArray(torch.movedim(tensor._data, source, destination),
+                   tensor._ctx)
 
 
 def empty(shape, ctx=None, dtype='float32'):

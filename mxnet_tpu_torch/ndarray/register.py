@@ -1,6 +1,6 @@
 """Generation of the nd.* operator namespace from the registry: the
 counterpart of ``mxnet_tpu/ndarray/register.py``, without its sparse
-routes (sparse storage is not ported) and variadic ops (none is ported).
+routes (sparse storage is not ported).
 """
 from ..context import Context as _Ctx
 from ..ops import registry as _reg
@@ -13,7 +13,9 @@ def make_nd_function(op_name):
     """A function ``fn(*args, out=None, name=None, **kwargs)`` for op
     ``op_name``: NDArray arguments fill the op's ``input_names`` in order
     (or by keyword), scalar positional arguments its ``param_defaults`` in
-    order, and the remaining keywords are its attrs."""
+    order, and the remaining keywords are its attrs. A variadic op takes
+    every positional NDArray and gets their count in its
+    ``key_var_num_args`` attr."""
     op = _reg.get(op_name)
 
     def fn(*args, **kwargs):
@@ -37,6 +39,10 @@ def make_nd_function(op_name):
                     break
                 if pname not in kwargs:
                     kwargs[pname] = pos_attrs.pop(0)
+        if op.variadic:
+            if op.key_var_num_args and op.key_var_num_args not in kwargs:
+                kwargs[op.key_var_num_args] = len(pos_inputs)
+            return invoke(op_name, pos_inputs, kwargs, out)
         named = {}
         for k in list(kwargs):
             if k in op.input_names and isinstance(kwargs[k], NDArray):

@@ -16,7 +16,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ['load', 'build_log']
+__all__ = ['load', 'build_log', 'toolkit_root']
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / 'build'
@@ -38,6 +38,12 @@ def _nvcc():
     raise RuntimeError('nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): '
                        'the CUDA kernels are built on the machine with the '
                        'card')
+
+
+def toolkit_root():
+    """The CUDA toolkit's root directory: the parent of the ``bin/`` that
+    holds the nvcc :func:`load` uses. Raises RuntimeError without one."""
+    return os.path.dirname(os.path.dirname(os.path.realpath(_nvcc())))
 
 
 def _library_path(name):

@@ -22,8 +22,9 @@
 //     f32 accumulate). The scores are scaled in f32 after the product, which
 //     equals the TPU's (q * scale) . k without rounding q * scale to bf16.
 //     p is rounded to bf16 for the p v product (as the TPU feeds its MXU).
-//   * flash_fwd_simt<T>: f32 or bf16, any D <= 256, any row alignment. Scalar
-//     f32 FMAs; q is scaled in f32 before the dot exactly as the TPU does.
+//   * flash_fwd_simt<T>: f32, bf16 or f16, any D <= 256, any row alignment.
+//     Scalar f32 FMAs; q is scaled in f32 before the dot exactly as the TPU
+//     does.
 // What bounds it on an H100: at the served shape ([8, 1024, 8, 128] bf16,
 // causal) the bytes (q, k, v, o once each: 67 MB, ~20 us at 3.35 TB/s) and
 // the causal FLOPs (17.2 GFLOP, ~17 us at 989 TFLOP/s) are close. This first
@@ -32,6 +33,7 @@
 // keeps its measured time.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -247,7 +249,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Scalar body: f32 or bf16, any D <= 256
+// Scalar body: f32, bf16 or f16, any D <= 256
 // ---------------------------------------------------------------------------
 
 constexpr int kSimtRows = 32;   // q rows per block
@@ -257,10 +259,14 @@ constexpr int kSimtMaxD = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 size_t simt_smem_bytes(int D) {
@@ -398,7 +404,8 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// variant: 0 = scalar body, 1 = mma body. dtype: 0 = float32, 1 = bfloat16.
+// variant: 0 = scalar body, 1 = mma body. dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16 (scalar body only).
 // Strides are in elements, for [B, T, H, D] with a d stride of 1.
 // Returns the launch's cudaError_t (0 on success); the launch is
 // asynchronous on `stream`.
@@ -440,6 +447,7 @@ int mxtt_flash_fwd(int variant, int dtype, const void* q, const void* k,
   if (dtype == 0) return int(launch(flash_fwd_simt<float>, grid, smem, s, p, kSimtThreads));
   if (dtype == 1)
     return int(launch(flash_fwd_simt<__nv_bfloat16>, grid, smem, s, p, kSimtThreads));
+  if (dtype == 2) return int(launch(flash_fwd_simt<__half>, grid, smem, s, p, kSimtThreads));
   return int(cudaErrorInvalidValue);
 }
 

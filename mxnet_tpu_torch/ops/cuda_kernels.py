@@ -35,7 +35,7 @@ __all__ = ['flash_attention', 'flash_attention_lse', 'flash_attention_ref',
 _NEG = -1e30
 MAX_HEAD_DIM = 256          # largest head dim the kernel takes
 _MMA_HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _INT32_MAX = 2 ** 31 - 1
 _MAX_Q_TILES = 65535      # the grid's y extent; the smallest q tile is 32 rows
 
@@ -128,8 +128,8 @@ def _launch_cuda(q, k, v, causal, scale):
         if t.dtype != q.dtype:
             raise TypeError('%s is %s, q is %s' % (name, t.dtype, q.dtype))
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError('the flash kernel takes float32 or bfloat16, got %s'
-                        % q.dtype)
+        raise TypeError('the flash kernel takes float32, bfloat16 or float16, '
+                        'got %s' % q.dtype)
     if D > MAX_HEAD_DIM:
         raise ValueError('the flash kernel takes head dims up to %d, got %d'
                          % (MAX_HEAD_DIM, D))

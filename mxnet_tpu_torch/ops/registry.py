@@ -12,12 +12,14 @@ Conventions kept from the JAX registry:
   outputs back into the input NDArrays.
 - ``train_aware`` ops receive ``__is_train__`` in attrs.
 - ``needs_rng`` ops receive a generator as their LAST argument.
+- ``variadic`` ops take any number of inputs (``add_n``); the attr named by
+  ``key_var_num_args`` carries their count.
 
 What the JAX registry has and this one does not: PyTorch runs eagerly, so
 ``jitted`` (a cached ``jax.jit`` closure per op and attrs) has no
 counterpart and an op is a plain call; ``host_bridge`` (host ops inside
-traced programs) comes with the Symbol executor; the execution-coverage
-bookkeeping comes with the rest of the op library.
+traced programs) comes with the Symbol executor; optional inputs and the
+execution-coverage bookkeeping come with the rest of the op library.
 """
 __all__ = ['OpDef', 'register', 'register_alias', 'get', 'exists',
            'list_ops', 'apply_op', 'lazy_op_module']
@@ -28,7 +30,8 @@ _OPS = {}
 class OpDef:
     def __init__(self, name, fn, num_outputs=1, input_names=None,
                  param_defaults=None, mutate_inputs=None, needs_rng=False,
-                 num_visible_outputs=None, train_aware=False, doc=None):
+                 num_visible_outputs=None, train_aware=False, variadic=False,
+                 key_var_num_args=None, doc=None):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs  # int or callable(attrs)->int
@@ -41,6 +44,8 @@ class OpDef:
         self.needs_rng = needs_rng
         self.num_visible_outputs = num_visible_outputs  # int or callable
         self.train_aware = train_aware
+        self.variadic = variadic  # takes *args (add_n style)
+        self.key_var_num_args = key_var_num_args  # attr naming the input count
         self.doc = doc or (fn.__doc__ or '')
 
     def n_outputs(self, attrs):

@@ -11,6 +11,9 @@ same plain version on the card by chip_smoke.py.
 Tolerances: f32 on both sides with the sums taken in another order, 2e-5
 for out and lse (the JAX package's own kernel-test tolerance) and 1e-4 for
 gradients (test_pallas.py's, a backward adds a second reordered sum).
+float16 inputs: both sides compute in f32 and round the output to f16 once,
+so the outputs agree within one f16 ulp (rtol 2**-10; atol 1e-6 for f16's
+subnormals) and the f32 lse within 2e-5.
 """
 import numpy as np
 import pytest
@@ -53,6 +56,22 @@ def test_forward_and_lse_match_pallas(causal, B, Tq, Tk, H, D):
     assert t_out.shape == j_out.shape and t_lse.shape == j_lse.shape == (B, H, Tq)
     np.testing.assert_allclose(t_out, j_out, **FWD_TOL)
     np.testing.assert_allclose(t_lse, j_lse, **FWD_TOL)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_float16_matches_pallas(causal):
+    """float16 runs (the JAX kernel takes any float type; the card's kernel
+    takes f16 in its scalar body) and gives f16 out, f32 lse."""
+    arrays = [a.astype(np.float16) for a in _inputs(2, 40, 40, 2, 16, seed=5)]
+    j_out, j_lse = pk.flash_attention_lse(*(jnp.asarray(a) for a in arrays),
+                                          causal, None, 32, 32)
+    t_out, t_lse = ck.flash_attention_lse(*(torch.from_numpy(a) for a in arrays),
+                                          causal)
+    assert t_out.dtype == torch.float16 and np.asarray(j_out).dtype == np.float16
+    np.testing.assert_allclose(t_out.numpy().astype(np.float32),
+                               np.asarray(j_out).astype(np.float32),
+                               rtol=2 ** -10, atol=1e-6)
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse), **FWD_TOL)
 
 
 def test_explicit_scale_and_out_only_entry():

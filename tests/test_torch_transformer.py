@@ -121,12 +121,19 @@ def test_model_defaults_to_the_card():
 
 
 def test_import_leaves_jax_and_the_jax_package_out():
-    """The port and chip_smoke.py import neither JAX nor the JAX package."""
+    """The port and chip_smoke.py import neither JAX nor the JAX package,
+    and importing them loads no CUDA library."""
     code = ('import sys, mxnet_tpu_torch, mxnet_tpu_torch.transformer, '
             'mxnet_tpu_torch.serving, mxnet_tpu_torch.ops.cuda_kernels, '
-            'mxnet_tpu_torch.ops.nn, mxnet_tpu_torch.ndarray, chip_smoke\n'
+            'mxnet_tpu_torch.ops.nn, mxnet_tpu_torch.ops.elemwise, '
+            'mxnet_tpu_torch.ops.reduce_ops, mxnet_tpu_torch.ops.nvrtc, '
+            'mxnet_tpu_torch.rtc, mxnet_tpu_torch.ndarray, chip_smoke\n'
             'from mxnet_tpu_torch import nd\n'
-            'nd.LayerNorm, nd.softmax, nd.softmax_cross_entropy\n'
+            'from mxnet_tpu_torch.rtc import Rtc\n'
+            'nd.LayerNorm, nd.softmax, nd.softmax_cross_entropy, nd.add_n, '
+            'nd.broadcast_add, nd.sum, nd.arange, nd.waitall\n'
+            '# NVRTC and the driver are loaded at the first compile, not here\n'
+            'assert not mxnet_tpu_torch.ops.nvrtc._libs\n'
             'bad = sorted(m for m in sys.modules if m == "jax" '
             'or m.startswith("jax.") or m == "mxnet_tpu" '
             'or m.startswith("mxnet_tpu."))\n'
