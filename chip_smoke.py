@@ -10,28 +10,37 @@ order they run:
 (b) build: every CUDA source of the port (flash_attention.cu,
     row_kernels.cu), compiled in parallel from the sources in this checkout
     with nvcc for sm_90a (timed), with ptxas' register and spill lines;
-(c) flash kernel vs plain version on the card, for its out and lse: the
-    served shape, contiguous and as the strided views of the fused qkv that
-    the model passes, small f32 shapes, decode shapes (Tq < Tk), a ragged
-    T = 1006, head dims 16/40/64/256, f16 at a small and the served shape,
-    the empty cases, the two ValueError cases, and the autograd gradient;
+(c) flash kernel vs plain version on the card, for its out and lse, each
+    case on the body the wrapper must pick (printed, and held to the body's
+    launch count): the served shape, contiguous and as the strided views of
+    the fused qkv that the model passes, causal and not (the wgmma body),
+    and with K/V broadcast over heads or batch by a zero stride (the
+    mma.sync body at D = 128); small f32 shapes, decode shapes
+    (Tq < Tk: Tq = 1, 16, 77), a ragged T = 1006, B*H = 1, Tq = Tk = 1000,
+    head dims 16/40/64/256, f16 at a small and the served shape, the empty
+    cases, the two ValueError cases, and the autograd gradient;
 (g) row kernels vs plain versions on the card (layernorm, rmsnorm, softmax,
     softmax_xent): f32, bf16 and f16 at the model's shapes, a ragged
     N = 1006, widths 32, 50 and 1000, N = 0, an input at an odd offset,
     labels -1 and V, gamma/beta in another dtype than x, rows with a large
-    mean; the dtype errors; each autograd Function's gradient;
+    mean; LayerNorm's two bodies at 8 x 1024 rows (the warp body at widths
+    1024, 2048 and 1000 in bf16 and 1024 in f32; the block body at widths 50
+    and 4096 and at an odd offset); the dtype errors; each autograd
+    Function's gradient;
 (d) serving: the bench transformer at full width (D=1024, 8 layers,
     8 heads x 128, S=1024, V=16384, bf16, weights from seed 0) behind
     ServingEngine(max_batch=8) answers requests of 8, 5 and 11 rows.
     Their logits are held against a reference forward built on the plain
-    attention, and the kernel's launch count must be 8 layers x chunks;
+    attention, and the kernel's launch count, all on the wgmma body, must be
+    8 layers x chunks;
 (h) the NDArray path at full width, through mxnet_tpu_torch.nd on gpu(0):
-    nd.LayerNorm on [8, 1024, 1024] bf16, nd.softmax on one layer's
-    attention scores [8, 8, 1024, 1024] bf16, ops.fused_rmsnorm on
-    [8, 1024, 1024] bf16, and bench's training loss: the full-width model on
-    bench's 8 x 1024 tokens, its logits cast to f32, through
-    nd.softmax_cross_entropy / N against bench's labels. Each is held to its
-    plain version, and each kernel's launch count must grow by its calls;
+    nd.LayerNorm on [8, 1024, 1024] bf16 (on the warp body), nd.softmax on
+    one layer's attention scores [8, 8, 1024, 1024] bf16,
+    ops.fused_rmsnorm on [8, 1024, 1024] bf16, and bench's training loss:
+    the full-width model on bench's 8 x 1024 tokens, its logits cast to f32,
+    through nd.softmax_cross_entropy / N against bench's labels. Each is
+    held to its plain version, and each kernel's launch count must grow by
+    its calls;
 (i) mx.rtc on the card (K7): NVRTC's library and version; user kernels
     written in CUDA C and compiled at run time through
     mxnet_tpu_torch.rtc.Rtc(mode='cuda') for sm_90a: k7a the reference's
@@ -45,12 +54,14 @@ order they run:
     x + y, a slice, .sum()) on layer 0's MLP input, with each user kernel's
     launch count; the step is held to torch on the same tensors and to the
     plain chain, and each user kernel to its plain version;
-(e) times from CUDA events: the flash kernel, its plain version and
-    PyTorch's scaled_dot_product_attention at the served shape, the
-    kernel's bound, the full-width forward's tokens/s, and each request's
-    latency; each row kernel, its plain version and one PyTorch call at the
-    shapes of (h), with their bounds; each user kernel of (i), its plain
-    version and one PyTorch call where there is one, with their bounds;
+(e) times from CUDA events: the flash kernel (wgmma body), its plain
+    version and PyTorch's scaled_dot_product_attention at the served shape
+    and at [1, 16384, 8, 128], the kernel's bound, the host time of one
+    call, the full-width forward's tokens/s, and each request's latency;
+    each row kernel (LayerNorm on its warp body), its plain version and one
+    PyTorch call at the shapes of (h), with their bounds; each user kernel
+    of (i), its plain version and one PyTorch call where there is one, with
+    their bounds;
 (f) where the forward's device time goes (torch.profiler).
 
 The second-to-last line of its output is the kernel record
@@ -107,31 +118,46 @@ def card_identity():
 # (c) kernel vs plain version
 # ---------------------------------------------------------------------------
 
-# (label, B, Tq, Tk, H, D, dtype, causal). Kernel bodies: bf16 at
-# D in {16, 32, 64, 128} with aligned rows runs the mma.sync body; f32, and
-# bf16 at other head dims, the scalar body. The served layout's q, k, v are
-# the strided views the model gives the kernel: [B, T, H, 3*D] split on the
-# last axis (token stride 3*H*D, head stride 3*D, offsets 0, D and 2*D).
+# (label, B, Tq, Tk, H, D, dtype, causal, body): body is the one the
+# wrapper must pick. bf16 at D = 128 with 16-byte aligned bases and
+# positive 16-byte strides runs the wgmma body (TMA, mbarriers, wgmma);
+# bf16 at D in {16, 32, 64}, and at D = 128 with K/V broadcast by a zero
+# stride (which no TMA map takes), the mma.sync body; f32, f16 and other
+# head dims the scalar body. The served layout's q, k, v are the strided
+# views the model gives the kernel: [B, T, H, 3*D] split on the last axis
+# (token stride 3*H*D, head stride 3*D, offsets 0, D and 2*D). The
+# broadcast cases expand one K/V head over H heads (multi-query attention)
+# or one K/V batch row over B.
 SERVED_LAYOUT = 'served layout (qkv views)'
+BROADCAST = {'K/V expanded over heads': 'heads',
+             'K/V expanded over batch': 'batch'}
 CASES = [
-    ('served shape', 8, 1024, 1024, 8, 128, 'bfloat16', True),
-    (SERVED_LAYOUT, 8, 1024, 1024, 8, 128, 'bfloat16', True),
-    ('f32 small', 2, 128, 128, 4, 64, 'float32', False),
-    ('f32 small causal', 2, 128, 128, 4, 64, 'float32', True),
-    ('decode Tq=1 Tk=32', 4, 1, 32, 8, 128, 'bfloat16', True),
-    ('decode Tq=16 Tk=32', 4, 16, 32, 8, 128, 'bfloat16', True),
-    ('decode Tq=1 Tk=1024', 4, 1, 1024, 8, 128, 'bfloat16', True),
-    ('decode Tq=16 Tk=1024', 4, 16, 1024, 8, 128, 'bfloat16', True),
-    ('decode f32 Tq=16 Tk=1024', 2, 16, 1024, 4, 64, 'float32', True),
-    ('ragged T=1006', 1, 1006, 1006, 2, 128, 'bfloat16', True),
-    ('ragged f32 T=1006', 1, 1006, 1006, 2, 64, 'float32', False),
-    ('D=16', 2, 256, 256, 4, 16, 'bfloat16', True),
-    ('D=16 f32', 2, 256, 256, 4, 16, 'float32', True),
-    ('D=64', 2, 256, 256, 4, 64, 'bfloat16', False),
-    ('D=40 scalar body', 2, 200, 200, 2, 40, 'bfloat16', True),
-    ('D=256 scalar body', 1, 128, 128, 2, 256, 'bfloat16', True),
-    ('f16 small', 2, 128, 128, 4, 64, 'float16', False),
-    ('f16 served shape', 8, 1024, 1024, 8, 128, 'float16', True),
+    ('served shape', 8, 1024, 1024, 8, 128, 'bfloat16', True, 'wgmma'),
+    ('served shape', 8, 1024, 1024, 8, 128, 'bfloat16', False, 'wgmma'),
+    (SERVED_LAYOUT, 8, 1024, 1024, 8, 128, 'bfloat16', True, 'wgmma'),
+    (SERVED_LAYOUT, 8, 1024, 1024, 8, 128, 'bfloat16', False, 'wgmma'),
+    ('K/V expanded over heads', 8, 1024, 1024, 8, 128, 'bfloat16', True, 'mma'),
+    ('K/V expanded over batch', 2, 256, 256, 4, 128, 'bfloat16', False, 'mma'),
+    ('f32 small', 2, 128, 128, 4, 64, 'float32', False, 'scalar'),
+    ('f32 small causal', 2, 128, 128, 4, 64, 'float32', True, 'scalar'),
+    ('decode Tq=1 Tk=32', 4, 1, 32, 8, 128, 'bfloat16', True, 'wgmma'),
+    ('decode Tq=16 Tk=32', 4, 16, 32, 8, 128, 'bfloat16', True, 'wgmma'),
+    ('decode Tq=1 Tk=1024', 4, 1, 1024, 8, 128, 'bfloat16', True, 'wgmma'),
+    ('decode Tq=16 Tk=1024', 4, 16, 1024, 8, 128, 'bfloat16', True, 'wgmma'),
+    ('decode Tq=77 Tk=1024', 4, 77, 1024, 8, 128, 'bfloat16', True, 'wgmma'),
+    ('decode f32 Tq=16 Tk=1024', 2, 16, 1024, 4, 64, 'float32', True, 'scalar'),
+    ('ragged T=1006', 1, 1006, 1006, 2, 128, 'bfloat16', True, 'wgmma'),
+    ('ragged f32 T=1006', 1, 1006, 1006, 2, 64, 'float32', False, 'scalar'),
+    ('B*H=1', 1, 1024, 1024, 1, 128, 'bfloat16', True, 'wgmma'),
+    ('Tq=Tk=1000', 2, 1000, 1000, 4, 128, 'bfloat16', True, 'wgmma'),
+    ('Tq=Tk=1000', 2, 1000, 1000, 4, 128, 'bfloat16', False, 'wgmma'),
+    ('D=16', 2, 256, 256, 4, 16, 'bfloat16', True, 'mma'),
+    ('D=16 f32', 2, 256, 256, 4, 16, 'float32', True, 'scalar'),
+    ('D=64', 2, 256, 256, 4, 64, 'bfloat16', False, 'mma'),
+    ('D=40 scalar body', 2, 200, 200, 2, 40, 'bfloat16', True, 'scalar'),
+    ('D=256 scalar body', 1, 128, 128, 2, 256, 'bfloat16', True, 'scalar'),
+    ('f16 small', 2, 128, 128, 4, 64, 'float16', False, 'scalar'),
+    ('f16 served shape', 8, 1024, 1024, 8, 128, 'float16', True, 'scalar'),
 ]
 
 # Tolerances (|kernel - plain| <= atol + rtol * |plain|), with their reasons:
@@ -150,21 +176,25 @@ TOL = {'float32': (2e-5, 2e-5), 'bfloat16': (1e-2, 1e-2),
 LSE_TOL = (1e-4, 1e-4)
 
 
-def qkv(B, Tq, Tk, H, D, dtype, device, seed=0, interleaved=False):
+def qkv(B, Tq, Tk, H, D, dtype, device, seed=0, interleaved=False,
+        broadcast=None):
     """q, k, v from ``seed``: contiguous, or (``interleaved``, Tq == Tk)
     views of one head-interleaved [B, T, H, 3*D] tensor, as the model
-    splits its fused qkv projection."""
+    splits its fused qkv projection, or (``broadcast`` 'heads' or 'batch')
+    with k and v of one head or batch row expanded to [B, Tk, H, D]."""
     import torch
     rng = np.random.RandomState(seed)
+    cast = dict(device=device, dtype=getattr(torch, dtype))
     if interleaved:
         fused = rng.standard_normal((B, Tq, H, 3 * D)).astype(np.float32)
-        return torch.from_numpy(fused).to(
-            device=device, dtype=getattr(torch, dtype)).split(D, dim=-1)
+        return torch.from_numpy(fused).to(**cast).split(D, dim=-1)
+    kv_shape = {None: (B, Tk, H, D), 'heads': (B, Tk, 1, D),
+                'batch': (1, Tk, H, D)}[broadcast]
     q = rng.standard_normal((B, Tq, H, D)).astype(np.float32)
-    k = rng.standard_normal((B, Tk, H, D)).astype(np.float32)
-    v = rng.standard_normal((B, Tk, H, D)).astype(np.float32)
-    return [torch.from_numpy(a).to(device=device, dtype=getattr(torch, dtype))
-            for a in (q, k, v)]
+    k = rng.standard_normal(kv_shape).astype(np.float32)
+    v = rng.standard_normal(kv_shape).astype(np.float32)
+    q, k, v = (torch.from_numpy(a).to(**cast) for a in (q, k, v))
+    return q, k.expand(B, Tk, H, D), v.expand(B, Tk, H, D)
 
 
 def excess(got, want, atol, rtol):
@@ -176,24 +206,31 @@ def excess(got, want, atol, rtol):
 def kernel_vs_plain(device):
     import torch
     from mxnet_tpu_torch.ops import cuda_kernels as ck
+    device = torch.device(device)
     errs = {}
-    for label, B, Tq, Tk, H, D, dtype, causal in CASES:
+    for label, B, Tq, Tk, H, D, dtype, causal, want_body in CASES:
         q, k, v = qkv(B, Tq, Tk, H, D, dtype, device,
-                      interleaved=label == SERVED_LAYOUT)
+                      interleaved=label == SERVED_LAYOUT,
+                      broadcast=BROADCAST.get(label))
+        before = dict(ck.flash_fwd.launches_by_body)
         out, lse = ck.flash_fwd(q, k, v, causal)
+        ran = {b for b, n in ck.flash_fwd.launches_by_body.items()
+               if n != before[b]}
         ref_out, ref_lse = ck.flash_attention_lse_ref(q, k, v, causal)
         atol, rtol = TOL[dtype]
         err = float((out.float() - ref_out.float()).abs().max())
         lse_err = float((lse - ref_lse).abs().max())
         ok = (bool(torch.isfinite(out).all())
               and excess(out, ref_out, atol, rtol) <= atol
-              and excess(lse, ref_lse, *LSE_TOL) <= LSE_TOL[0])
-        log('  %-26s %-8s causal=%d body=%s  max|out err| %.3e  '
-            'max|lse err| %.3e  %s' % (label, dtype, causal,
-                                       'mma' if ck._variant(q, k, v) else 'scalar',
-                                       err, lse_err, 'ok' if ok else 'FAIL'))
-        check(ok, 'kernel disagrees with its plain version: %s' % label)
-        errs[label] = err
+              and excess(lse, ref_lse, *LSE_TOL) <= LSE_TOL[0]
+              and ran == ({want_body} if device.type == 'cuda' else set()))
+        log('  %-26s %-8s causal=%d body=%-6s max|out err| %.3e  '
+            'max|lse err| %.3e  %s' % (label, dtype, causal, want_body, err,
+                                       lse_err, 'ok' if ok else 'FAIL'))
+        check(ok, 'kernel disagrees with its plain version: %s causal=%d '
+              'body=%s (ran %s)' % (label, causal, want_body, sorted(ran)))
+        errs[(label, causal)] = err
+        del q, k, v, out, lse, ref_out, ref_lse
 
     # empty: zeros and no launch
     for shape_q, shape_kv in (((0, 8, 2, 16), (0, 8, 2, 16)),
@@ -297,6 +334,7 @@ def serve(device, cfg, rows_list, max_batch):
 
     # the main path: counts are zeroed just before and read just after
     ck.flash_fwd.launches = 0
+    ck.flash_fwd.launches_by_body = dict.fromkeys(ck._BODIES, 0)
     answers, latencies = [], []
     for req in requests:
         t = time.perf_counter()
@@ -305,13 +343,15 @@ def serve(device, cfg, rows_list, max_batch):
         answers.append(engine.fetch_chunks(chunks, timings=timings)[0])
         latencies.append((time.perf_counter() - t, timings))
     launches = ck.flash_fwd.launches
+    by_body = dict(ck.flash_fwd.launches_by_body)
 
-    check(launches == cfg.n_layers * n_chunks,
-          'flash launches %d != %d layers x %d chunks'
-          % (launches, cfg.n_layers, n_chunks))
+    check(launches == cfg.n_layers * n_chunks
+          and by_body['wgmma'] == launches,
+          'flash launches %d (by body %s) != %d layers x %d chunks on the '
+          'wgmma body' % (launches, by_body, cfg.n_layers, n_chunks))
     log('  %d requests (%s rows) in %d chunks: %d flash launches = %d layers '
-        'x %d chunks' % (len(requests), list(rows_list), n_chunks, launches,
-                         cfg.n_layers, n_chunks))
+        'x %d chunks, by body %s' % (len(requests), list(rows_list), n_chunks,
+                                     launches, cfg.n_layers, n_chunks, by_body))
 
     worst = {'rel_rms': 0.0, 'agree': 1.0, 'max_abs': 0.0, 'top_gap': 0.0}
     with torch.inference_mode():
@@ -471,6 +511,48 @@ def row_cases(cfg):
     return cases
 
 
+# LayerNorm's two bodies at the model's row count (8 x 1024 rows): (label,
+# width, dtype, offset, the body the wrapper must pick). The warp body takes
+# rows of whole 16-byte vectors up to 4 KB that start 16-byte aligned; the
+# block body every other row.
+LN_BODY_CASES = [
+    ('warp body, width 1024', 1024, 'bfloat16', False, 'warp'),
+    ('warp body, width 2048', 2048, 'bfloat16', False, 'warp'),
+    ('warp body, width 1000', 1000, 'bfloat16', False, 'warp'),
+    ('warp body, width 1024', 1024, 'float32', False, 'warp'),
+    ('block body, width 50', 50, 'bfloat16', False, 'block'),
+    ('block body, width 4096', 4096, 'bfloat16', False, 'block'),
+    ('block body, odd offset', 1024, 'bfloat16', True, 'block'),
+]
+
+
+def layernorm_bodies_vs_plain(device, cfg):
+    """Phase (g): each LayerNorm body on the shapes it takes, with the body
+    the wrapper picked."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    rows = MAX_BATCH * cfg.seq_len
+    for i, (label, D, dtype, offset, body) in enumerate(LN_BODY_CASES):
+        x, g, b = row_inputs('layernorm', (rows, D), dtype, device, seed=60 + i,
+                             offset=offset)
+        before = dict(ck.layernorm_fwd.launches_by_body)
+        got = ck.layernorm_fwd(x, g, b)
+        want = ck.layernorm_ref(x, g, b)
+        ran = {k for k, n in ck.layernorm_fwd.launches_by_body.items()
+               if n != before[k]}
+        atol, rtol = ROW_TOL[dtype]
+        err = float((got.float() - want.float()).abs().max())
+        ok = (got.shape == want.shape and got.dtype == want.dtype
+              and bool(torch.isfinite(got).all())
+              and excess(got, want, atol, rtol) <= atol
+              and ran == ({body} if device.type == 'cuda' else set()))
+        log('  layernorm    %-30s %-8s %-22s body=%-5s max|err| %.3e  %s'
+            % (label, dtype, (rows, D), body, err, 'ok' if ok else 'FAIL'))
+        check(ok, 'layernorm %s %s disagrees with its plain version or ran '
+              '%s' % (label, dtype, sorted(ran)))
+        del x, got, want
+
+
 def row_kernels_vs_plain(device, cfg):
     """Phase (g)."""
     import torch
@@ -491,6 +573,8 @@ def row_kernels_vs_plain(device, cfg):
         check(ok, '%s disagrees with its plain version: %s %s %s'
               % (kernel, label, dtype, tuple(shape)))
         del args, got, want
+
+    layernorm_bodies_vs_plain(device, cfg)
 
     # the two-pass variance: rows with a mean of 1000, against float64 too
     for dtype in ('float32', 'bfloat16'):
@@ -579,6 +663,8 @@ def nd_path(device, cfg, model):
     # the main path: counts are zeroed just before and read just after
     for fwd in counters:
         fwd.launches = 0
+        if hasattr(fwd, 'launches_by_body'):
+            fwd.launches_by_body = dict.fromkeys(fwd.launches_by_body, 0)
     ln = nd.LayerNorm(x_nd, g_nd, b_nd, eps=1e-5)
     sm = nd.softmax(s_nd)
     rms = mt.ops.fused_rmsnorm(x, gamma)
@@ -588,13 +674,18 @@ def nd_path(device, cfg, model):
                                     lab)
     loss.wait_to_read()
     launches = {fwd.__name__: fwd.launches for fwd in counters}
+    ln_bodies = dict(ck.layernorm_fwd.launches_by_body)
 
     want = {'flash_fwd': cfg.n_layers, 'layernorm_fwd': 1, 'rmsnorm_fwd': 1,
             'softmax_fwd': 1, 'softmax_xent_fwd': 1}
+    want_bodies = {'block': 0, 'warp': 1}
     if device.type != 'cuda':
         want = dict.fromkeys(want, 0)                # plain versions on the CPU
-    log('  launches: %s' % launches)
-    check(launches == want, 'launch counts %s != %s' % (launches, want))
+        want_bodies = dict.fromkeys(want_bodies, 0)
+    log('  launches: %s; layernorm by body %s' % (launches, ln_bodies))
+    check(launches == want and ln_bodies == want_bodies,
+          'launch counts %s (layernorm by body %s) != %s (%s)'
+          % (launches, ln_bodies, want, want_bodies))
 
     errs = {}
     for kernel, got, ref_args in (('layernorm', ln.handle, (x, gamma, beta)),
@@ -1123,9 +1214,14 @@ def row_times(device, cfg):
         lib = library_call(kernel, args)
         library_ms = device_ms(lib, flush=flush) if lib is not None else None
         bound_ms, bound_by, nbytes, ops = row_bound_ms(kernel, args, fwd(*args))
-        log('  %-12s %-22s %-8s kernel %.4f ms, plain %.4f ms, library %s ms, '
-            'bound %.4f ms (%s: %.1f MB, %.2f GFLOP), bound / kernel %.3f'
-            % (kernel, tuple(shapes[kernel]), dtype, kernel_ms, plain_ms,
+        extra = ''
+        if kernel == 'layernorm':
+            from mxnet_tpu_torch.ops import cuda_kernels as ck
+            check(ck._layernorm_body(args[0]) == 'warp', 'layernorm body')
+            extra = ' (warp body)'
+        log('  %-12s %-22s %-8s kernel %.4f ms%s, plain %.4f ms, library %s '
+            'ms, bound %.4f ms (%s: %.1f MB, %.2f GFLOP), bound / kernel %.3f'
+            % (kernel, tuple(shapes[kernel]), dtype, kernel_ms, extra, plain_ms,
                'n/a' if library_ms is None else '%.4f' % library_ms, bound_ms,
                bound_by, nbytes / 1e6, ops / 1e9, bound_ms / kernel_ms))
         out[kernel] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -1181,16 +1277,40 @@ def times(device, model, ref, cfg):
     from mxnet_tpu_torch.transformer import HEAD_DIM
     B, T, H, D = MAX_BATCH, cfg.seq_len, cfg.n_heads, HEAD_DIM
     q, k, v = qkv(B, T, T, H, D, 'bfloat16', device, seed=5)
+    check(ck._BODIES[ck._variant(q, k, v)] == 'wgmma', 'served shape body')
     kernel_ms = device_ms(lambda: ck.flash_fwd(q, k, v, True))
     plain_ms = device_ms(lambda: ck.flash_attention_lse_ref(q, k, v, True))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = device_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
     bound_ms, bound_by, nbytes, flops = flash_bound_ms(B, T, H, D)
-    log('  flash at [%d, %d, %d, %d] bf16 causal: kernel %.4f ms, plain %.4f ms, '
-        'SDPA %.4f ms, bound %.4f ms (%s: %.1f MB, %.2f GFLOP)'
-        % (B, T, H, D, kernel_ms, plain_ms, library_ms, bound_ms, bound_by,
-           nbytes / 1e6, flops / 1e9))
+    log('  flash at [%d, %d, %d, %d] bf16 causal: wgmma body %.4f ms, plain '
+        '%.4f ms, SDPA %.4f ms, bound %.4f ms (%s: %.1f MB, %.2f GFLOP), '
+        'bound / kernel %.3f'
+        % (B, T, H, D, kernel_ms, plain_ms, library_ms, bound_ms,
+           bound_by, nbytes / 1e6, flops / 1e9, bound_ms / kernel_ms))
+    nc_ms = device_ms(lambda: ck.flash_fwd(q, k, v, False))
+    nc_lib = device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=False))
+    log('  flash non-causal at the same shape: wgmma body %.4f ms, SDPA %.4f ms'
+        % (nc_ms, nc_lib))
+    # the steady state of the tile loop, where a work item has 128 tiles
+    ql, kl, vl = (t.transpose(1, 2) for t in qkv(1, 16384, 16384, H, D,
+                                                  'bfloat16', device, seed=6))
+    for causal in (True, False):
+        pairs = 16384 * 16385 // 2 if causal else 16384 ** 2
+        gflop = 4 * D * pairs * H / 1e9
+        k_ms = device_ms(lambda: ck.flash_fwd(*(t.transpose(1, 2) for t in
+                                                (ql, kl, vl)), causal), runs=10)
+        l_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=causal), runs=10)
+        log('  flash at [1, 16384, %d, %d] bf16 causal=%d: wgmma body %.4f ms '
+            '(%.0f TFLOP/s), SDPA %.4f ms (%.0f TFLOP/s)'
+            % (H, D, causal, k_ms, gflop / k_ms, l_ms, gflop / l_ms))
+    del ql, kl, vl
+    log('  host time of one flash_fwd call (enqueue, 200 back to back, the '
+        'card busy): wgmma body %.1f us (three tensor maps encoded)'
+        % host_us(lambda: ck.flash_fwd(q, k, v, True)))
 
     tokens = torch.from_numpy(np.random.RandomState(2).randint(
         0, cfg.vocab, (MAX_BATCH, cfg.seq_len)).astype(np.int32)).to(device)
@@ -1205,6 +1325,21 @@ def times(device, model, ref, cfg):
     return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, fwd_ms=fwd_ms,
                 ref_fwd_ms=ref_fwd_ms)
+
+
+def host_us(fn, n=200):
+    """Host time of one ``fn()`` call in us: ``n`` calls enqueued behind a
+    sleep kernel that keeps the card busy, so that no call waits on it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / n * 1e6
 
 
 def profile_forward(device, model, cfg, n=3):
@@ -1307,7 +1442,8 @@ def main():
         'name': 'flash_attention', 'route': 'cuda',
         'source': 'mxnet_tpu_torch/ops/csrc/flash_attention.cu',
         'replaces': 'mxnet_tpu/ops/pallas_kernels.py:90',
-        'launches': launches, 'max_abs_err': errs[SERVED_LAYOUT],
+        'body': 'wgmma', 'launches': launches,
+        'max_abs_err': errs[(SERVED_LAYOUT, True)],
         'ms': t['kernel_ms'], 'plain_ms': t['plain_ms'],
         'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'],
         'library_ms': t['library_ms']}]}
@@ -1316,6 +1452,7 @@ def main():
             'name': kernel, 'route': 'cuda',
             'source': 'mxnet_tpu_torch/ops/csrc/row_kernels.cu',
             'replaces': ROW_REPLACES[kernel],
+            **({'body': 'warp'} if kernel == 'layernorm' else {}),
             'launches': row_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):

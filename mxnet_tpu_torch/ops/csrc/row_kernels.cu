@@ -32,15 +32,20 @@
 //
 // What bounds them on an H100: bytes. Each reads its input once from device
 // memory and writes its output once; the FLOPs (a handful per element, one
-// exp for the softmax and xent) are far below the f32 rate. This first
-// version makes two or three passes over a row (statistics, then output),
-// the later passes hitting L1/L2, and reduces with warp shuffles and one
-// shared-memory exchange between warps. PERF.md keeps its measured times.
+// exp for the softmax and xent) are far below the f32 rate. The block-per-row
+// bodies make two or three passes over a row (statistics, then output), the
+// later passes hitting L1/L2, and reduce with warp shuffles and one
+// shared-memory exchange between warps. LayerNorm has a second body for rows
+// of at most 4 KB that start 16-byte aligned, layernorm_rows_kernel: one warp
+// a row, eight rows a block, the row read once into registers (RegRow) and
+// reduced twice from there by shuffles alone, with no shared memory and no
+// barrier. PERF.md keeps the measured times.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -172,6 +177,110 @@ __device__ __forceinline__ float block_reduce(float v, Op op, float identity, fl
   return red[0];
 }
 
+// --- a row held in registers by one warp ------------------------------------
+
+// A row of nvec 16-byte vectors held by the 32 lanes of a warp: lane l holds
+// vectors l, l + 32, ..., l + 32 * (VPL - 1), read once with 16-byte loads
+// (vectors at or past nvec are not read). The row must start 16-byte aligned.
+// Rows of up to 32 * VPL * 16 bytes: 4 KB at VPL = 8.
+template <typename T, int VPL>
+struct RegRow {
+  static constexpr int E = Vec<T>::n;  // elements a vector
+  uint4 v[VPL];
+  int lane, nvec;
+
+  __device__ __forceinline__ RegRow(const T* row, int nvec_) : lane(threadIdx.x & 31), nvec(nvec_) {
+    const uint4* src = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int k = lane + 32 * i;
+      v[i] = k < nvec ? src[k] : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __device__ __forceinline__ bool held(int i) const { return lane + 32 * i < nvec; }
+  __device__ __forceinline__ float at(int i, int j) const {
+    return to_float(reinterpret_cast<const T*>(&v[i])[j]);
+  }
+  // The reduction by `op` of f(x) over the row, returned to every lane.
+  template <typename Op, typename F>
+  __device__ __forceinline__ float reduce(Op op, float identity, F&& f) const {
+    float acc = identity;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+      if (held(i)) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) acc = op(acc, f(at(i, j)));
+      }
+    return warp_reduce(acc, op);
+  }
+  // For each vector i this lane holds, f(c0, i, y) fills y[0..E) with the
+  // outputs of the row's elements c0 .. c0 + E - 1 (c0 = (lane + 32 i) E;
+  // at(i, j) is x[c0 + j]), which go to `out` rounded to T with one 16-byte
+  // store; `out` must start 16-byte aligned.
+  template <typename F>
+  __device__ __forceinline__ void store(T* out, F&& f) const {
+    uint4* dst = reinterpret_cast<uint4*>(out);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+      if (held(i)) {
+        const int k = lane + 32 * i;
+        float y[E];
+        f(k * E, i, y);
+        uint4 res;
+        T* r = reinterpret_cast<T*>(&res);
+#pragma unroll
+        for (int j = 0; j < E; ++j) r[j] = from_float<T>(y[j]);
+        dst[k] = res;
+      }
+  }
+};
+
+// E parameters from index c0 on as f32 (from f32, bf16 or f16), with one or
+// two 16-byte loads (8 bytes for four 2-byte values) where `vec` says the
+// array starts 16-byte aligned, else one element at a time.
+template <int E>
+__device__ __forceinline__ void load_params(const void* p, int code, bool vec, long long c0,
+                                            float (&out)[E]) {
+  if (!vec) {
+#pragma unroll
+    for (int j = 0; j < E; ++j) out[j] = load_param(p, code, c0 + j);
+    return;
+  }
+  if (code == 0) {
+    const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(p) + c0);
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+      const float4 f = src[q];
+      out[4 * q] = f.x; out[4 * q + 1] = f.y; out[4 * q + 2] = f.z; out[4 * q + 3] = f.w;
+    }
+    return;
+  }
+  const uint16_t* half_src = static_cast<const uint16_t*>(p) + c0;
+  uint16_t raw[E];
+  if constexpr (E == 8) {
+    const uint4 w = *reinterpret_cast<const uint4*>(half_src);
+    memcpy(raw, &w, sizeof w);
+  } else {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+      const uint2 w = reinterpret_cast<const uint2*>(half_src)[q];
+      memcpy(raw + 4 * q, &w, sizeof w);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    if (code == 1) {
+      __nv_bfloat16 b;
+      *reinterpret_cast<uint16_t*>(&b) = raw[j];
+      out[j] = __bfloat162float(b);
+    } else {
+      __half hv;
+      *reinterpret_cast<uint16_t*>(&hv) = raw[j];
+      out[j] = __half2float(hv);
+    }
+  }
+}
+
 // --- the kernels -------------------------------------------------------------
 
 template <typename T>
@@ -193,6 +302,37 @@ __global__ void layernorm_kernel(const T* __restrict__ x, const void* gamma, int
   const float rstd = rsqrtf(var + eps);
   map_row(xr, y + row * D, D, [&](long long i, float v) {
     return (v - mean) * rstd * load_param(gamma, g_code, i) + load_param(beta, b_code, i);
+  });
+}
+
+// LayerNorm with one warp a row and the row in registers: the same
+// arithmetic as layernorm_kernel (f32 mean, then the centred variance, then
+// (x - mean) * rstd * gamma + beta), read once from device memory.
+constexpr int kRowsPerBlock = 8;
+
+template <typename T, int VPL>
+__global__ void __launch_bounds__(32 * kRowsPerBlock)
+    layernorm_rows_kernel(const T* __restrict__ x, const void* gamma, int g_code,
+                          const void* beta, int b_code, T* __restrict__ y, long long N,
+                          int D, float eps) {
+  const long long row = (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= N) return;
+  constexpr int E = Vec<T>::n;
+  const RegRow<T, VPL> r(x + row * D, D / E);
+  const float mean = r.reduce(SumOp(), 0.f, [](float v) { return v; }) / float(D);
+  const float var = r.reduce(SumOp(), 0.f, [&](float v) {
+    const float d = v - mean;
+    return d * d;
+  }) / float(D);
+  const float rstd = rsqrtf(var + eps);
+  const bool g_vec = (reinterpret_cast<uintptr_t>(gamma) & 15) == 0;
+  const bool b_vec = (reinterpret_cast<uintptr_t>(beta) & 15) == 0;
+  r.store(y + row * D, [&](long long c0, int i, float (&out)[E]) {
+    float g[E], b[E];
+    load_params<E>(gamma, g_code, g_vec, c0, g);
+    load_params<E>(beta, b_code, b_vec, c0, b);
+#pragma unroll
+    for (int j = 0; j < E; ++j) out[j] = (r.at(i, j) - mean) * rstd * g[j] + b[j];
   });
 }
 
@@ -268,6 +408,28 @@ cudaError_t launch_layernorm(const void* x, const void* g, int gc, const void* b
   return cudaGetLastError();
 }
 
+// The register-row LayerNorm: x's rows start 16-byte aligned and hold a
+// whole number of 16-byte vectors, at most 4 KB (checked by the entry).
+template <typename T>
+cudaError_t launch_layernorm_rows(const void* x, const void* g, int gc, const void* b, int bc,
+                                  void* y, long long N, long long D, float eps,
+                                  cudaStream_t s) {
+  const long long nvec = D / Vec<T>::n;
+  const dim3 grid(unsigned((N + kRowsPerBlock - 1) / kRowsPerBlock));
+  const int threads = 32 * kRowsPerBlock;
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (nvec <= 32)
+    layernorm_rows_kernel<T, 1><<<grid, threads, 0, s>>>(xt, g, gc, b, bc, yt, N, int(D), eps);
+  else if (nvec <= 64)
+    layernorm_rows_kernel<T, 2><<<grid, threads, 0, s>>>(xt, g, gc, b, bc, yt, N, int(D), eps);
+  else if (nvec <= 128)
+    layernorm_rows_kernel<T, 4><<<grid, threads, 0, s>>>(xt, g, gc, b, bc, yt, N, int(D), eps);
+  else
+    layernorm_rows_kernel<T, 8><<<grid, threads, 0, s>>>(xt, g, gc, b, bc, yt, N, int(D), eps);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_rmsnorm(const void* x, const void* g, int gc, void* y, long long N,
                            long long D, float eps, cudaStream_t s) {
@@ -309,17 +471,31 @@ extern "C" {
 // success), or cudaErrorInvalidValue for a shape or code it does not take
 // (N in 1..2^31-1, D >= 1); the launch is asynchronous on `stream`.
 
-int mxtt_layernorm(int dtype, const void* x, const void* gamma, int gamma_dtype,
+// body: 0 = one block a row (any row), 1 = one warp a row with the row in
+// registers (x 16-byte aligned, rows of a whole number of 16-byte vectors up
+// to 4 KB; cudaErrorInvalidValue otherwise).
+int mxtt_layernorm(int body, int dtype, const void* x, const void* gamma, int gamma_dtype,
                    const void* beta, int beta_dtype, void* y, long long N, long long D,
                    float eps, void* stream) {
-  if (bad_shape(N, D) || bad_code(gamma_dtype) || bad_code(beta_dtype))
+  if (bad_shape(N, D) || bad_code(gamma_dtype) || bad_code(beta_dtype) || bad_code(dtype) ||
+      (body != 0 && body != 1))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    const long long row_bytes = D * (dtype == 0 ? 4 : 2);
+    if (row_bytes % 16 || row_bytes > 4096 || reinterpret_cast<uintptr_t>(x) % 16 ||
+        reinterpret_cast<uintptr_t>(y) % 16)
+      return int(cudaErrorInvalidValue);
+    switch (dtype) {
+      case 0: return int(launch_layernorm_rows<float>(x, gamma, gamma_dtype, beta, beta_dtype, y, N, D, eps, s));
+      case 1: return int(launch_layernorm_rows<__nv_bfloat16>(x, gamma, gamma_dtype, beta, beta_dtype, y, N, D, eps, s));
+      default: return int(launch_layernorm_rows<__half>(x, gamma, gamma_dtype, beta, beta_dtype, y, N, D, eps, s));
+    }
+  }
   switch (dtype) {
     case 0: return int(launch_layernorm<float>(x, gamma, gamma_dtype, beta, beta_dtype, y, N, D, eps, s));
     case 1: return int(launch_layernorm<__nv_bfloat16>(x, gamma, gamma_dtype, beta, beta_dtype, y, N, D, eps, s));
-    case 2: return int(launch_layernorm<__half>(x, gamma, gamma_dtype, beta, beta_dtype, y, N, D, eps, s));
-    default: return int(cudaErrorInvalidValue);
+    default: return int(launch_layernorm<__half>(x, gamma, gamma_dtype, beta, beta_dtype, y, N, D, eps, s));
   }
 }
 

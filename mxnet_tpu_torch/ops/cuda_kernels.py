@@ -15,7 +15,11 @@ kernel does not take; it runs the plain PyTorch version beside it only
 for tensors on the CPU (the role interpret mode plays for Pallas). Each
 wrapper counts its launches in a plain integer (``flash_fwd.launches``,
 ``layernorm_fwd.launches``, ...), so a run can show that its path went
-through the kernel. Backward passes
+through the kernel. Where a kernel has several bodies, the wrapper picks
+one from the call's dtype, shape, strides and addresses before it
+launches (:func:`_variant` for attention, :func:`_layernorm_body`), never
+retries with another, and counts each body's launches in
+``launches_by_body``. Backward passes
 recompute through the plain version (a ``torch.autograd.Function``),
 as the JAX package's ``custom_vjp`` does: the kernels are forward-only.
 """
@@ -107,19 +111,36 @@ def _check_shapes(q, k, v, causal):
     return B, Tq, H, D, Tk
 
 
-def _variant(q, k, v):
-    """1 (the mma.sync body) for bf16 at a head dim it is built for with
-    16-byte aligned rows, else 0 (the scalar body)."""
+_BODIES = ('scalar', 'mma', 'wgmma')    # by variant number
+
+
+def _variant(q, k, v, scale=None):
+    """The flash body for these tensors: 2 (wgmma, with TMA) for bf16 at
+    D = 128 with a positive scale (its softmax runs in base 2 from the
+    row max of the unscaled scores) and positive strides (a TMA map takes
+    no zero stride, so K/V broadcast with ``expand`` stay on mma.sync),
+    1 (mma.sync) for bf16 at another head dim it is built for or at
+    D = 128 outside those limits, 0 (scalar) otherwise. Both tensor-core
+    bodies need 16-byte aligned bases and every stride but the last a
+    multiple of 8 elements (TMA's 16-byte strides); ``scale`` defaults to
+    D**-0.5."""
     D = q.shape[-1]
     if q.dtype != torch.bfloat16 or D not in _MMA_HEAD_DIMS:
         return 0
     for t in (q, k, v):
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             return 0
-    return 1
+    scale = D ** -0.5 if scale is None else scale
+    B, Tq, H = q.shape[:3]
+    items = B * H * -(-Tq // 128)          # the wgmma body's work items
+    strided = all(s > 0 for t in (q, k, v) for s in t.stride()[:3])
+    return 2 if (D == 128 and scale > 0 and strided
+                 and items <= _INT32_MAX) else 1
 
 
 def _launch_cuda(q, k, v, causal, scale):
+    """Launch the flash kernel on CUDA tensors with the body :func:`_variant`
+    picks."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     for name, t in (('k', k), ('v', v)):
@@ -143,18 +164,21 @@ def _launch_cuda(q, k, v, causal, scale):
     out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     lib = _lib()
+    variant = _variant(q, k, v, scale)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mxtt_flash_fwd(
-            _variant(q, k, v), _DTYPE_CODE[q.dtype], q.data_ptr(),
+            variant, _DTYPE_CODE[q.dtype], q.data_ptr(),
             k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             B, H, Tq, Tk, D, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], float(scale), int(causal),
             stream)
     if err:
-        raise RuntimeError('flash attention kernel launch failed: %s (%d)'
-                           % (lib.mxtt_error_string(err).decode(), err))
+        raise RuntimeError('flash attention kernel launch failed (%s body): '
+                           '%s (%d)' % (_BODIES[variant],
+                                        lib.mxtt_error_string(err).decode(), err))
     flash_fwd.launches += 1
+    flash_fwd.launches_by_body[_BODIES[variant]] += 1
     return out, lse
 
 
@@ -178,6 +202,7 @@ def flash_fwd(q, k, v, causal=False, scale=None):
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_body = dict.fromkeys(_BODIES, 0)
 
 
 class _FlashFunction(torch.autograd.Function):
@@ -279,8 +304,8 @@ def _row_lib():
     if lib.mxtt_softmax.argtypes is None:
         vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                              ctypes.c_float)
-        lib.mxtt_layernorm.argtypes = [i32, vp, vp, i32, vp, i32, vp, i64, i64,
-                                       f32, vp]
+        lib.mxtt_layernorm.argtypes = [i32, i32, vp, vp, i32, vp, i32, vp, i64,
+                                       i64, f32, vp]
         lib.mxtt_rmsnorm.argtypes = [i32, vp, vp, i32, vp, i64, i64, f32, vp]
         lib.mxtt_softmax.argtypes = [i32, vp, vp, i64, i64, vp]
         lib.mxtt_softmax_xent.argtypes = [i32, vp, vp, i32, vp, i64, i64, vp]
@@ -341,9 +366,26 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_LN_BODIES = ('block', 'warp')          # by body number
+_MAX_WARP_ROW_BYTES = 4096
+
+
+def _layernorm_body(x):
+    """The LayerNorm body for the contiguous ``x``: 'warp' (one warp a row,
+    the row in registers) where its rows start 16-byte aligned and are a
+    whole number of 16-byte vectors up to 4 KB, else 'block' (one block a
+    row, any width and alignment)."""
+    row_bytes = x.shape[-1] * x.element_size()
+    if (x.dtype in _ROW_DTYPES and 0 < row_bytes <= _MAX_WARP_ROW_BYTES
+            and row_bytes % 16 == 0 and x.data_ptr() % 16 == 0):
+        return 'warp'
+    return 'block'
+
+
 def _launch_norm(fwd, kind, x, params, eps):
     """Launch the layernorm or rmsnorm kernel over x's rows and count the
-    launch on ``fwd``."""
+    launch on ``fwd``. LayerNorm takes the body :func:`_layernorm_body`
+    picks."""
     N, D = _check_row_input(x, kind)
     params = [_check_param(p, n, x, D, kind)
               for p, n in zip(params, ('gamma', 'beta'))]
@@ -356,11 +398,19 @@ def _launch_norm(fwd, kind, x, params, eps):
     for p in params:
         args += [p.data_ptr(), _ROW_DTYPES[p.dtype]]
     with torch.cuda.device(x.device):
-        fn = lib.mxtt_layernorm if kind == 'layernorm' else lib.mxtt_rmsnorm
-        err = fn(_ROW_DTYPES[x.dtype], x.data_ptr(), *args, out.data_ptr(), N,
-                 D, float(eps), _stream(x.device))
+        if kind == 'layernorm':
+            body = _layernorm_body(x)
+            err = lib.mxtt_layernorm(_LN_BODIES.index(body), _ROW_DTYPES[x.dtype],
+                                     x.data_ptr(), *args, out.data_ptr(), N, D,
+                                     float(eps), _stream(x.device))
+        else:
+            err = lib.mxtt_rmsnorm(_ROW_DTYPES[x.dtype], x.data_ptr(), *args,
+                                   out.data_ptr(), N, D, float(eps),
+                                   _stream(x.device))
     _raise_on(err, lib, kind)
     fwd.launches += 1
+    if kind == 'layernorm':
+        fwd.launches_by_body[body] += 1
     return out
 
 
@@ -381,6 +431,7 @@ def layernorm_fwd(x, gamma, beta, eps=1e-5):
 
 
 layernorm_fwd.launches = 0
+layernorm_fwd.launches_by_body = dict.fromkeys(_LN_BODIES, 0)
 
 
 def rmsnorm_fwd(x, gamma, eps=1e-6):

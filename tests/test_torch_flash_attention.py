@@ -149,12 +149,68 @@ def test_no_fallback_off_the_cpu():
 
 
 def test_kernel_body_choice():
-    """The mma.sync body takes bf16 at D in {16, 32, 64, 128} with 16-byte
-    aligned rows, as the served model's q/k/v views are; everything else
-    goes to the scalar body."""
+    """The wgmma body takes bf16 at D = 128 with 16-byte aligned bases and
+    strides, as the served model's q/k/v views are; the mma.sync body other
+    bf16 head dims in {16, 32, 64, 128}; everything else goes to the scalar
+    body."""
     qkv = torch.zeros(2, 8, 4, 3 * 128, dtype=torch.bfloat16)
     q, k, v = qkv.split(128, dim=-1)
-    assert ck._variant(q, k, v) == 1
+    assert ck._variant(q, k, v) == 2
     assert ck._variant(q.float(), k.float(), v.float()) == 0
     odd = torch.zeros(2, 8, 4, 40, dtype=torch.bfloat16)
     assert ck._variant(odd, odd, odd) == 0
+    d64 = torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16)
+    assert ck._variant(d64, d64, d64) == 1
+
+
+def _body_case(kind):
+    """(q, k, v) of one case of test_flash_body_choice. Tensors are made
+    with torch.empty: the choice reads dtype, shape, strides and data_ptr
+    only."""
+    bf16 = torch.bfloat16
+    if kind == 'served layout':           # views of the fused qkv projection
+        return torch.empty(8, 1024, 8, 384, dtype=bf16).split(128, dim=-1)
+    if kind == 'contiguous':
+        return [torch.empty(2, 256, 2, 128, dtype=bf16) for _ in range(3)]
+    if kind in ('float32', 'float16'):
+        dt = getattr(torch, kind)
+        return [torch.empty(2, 256, 2, 128, dtype=dt) for _ in range(3)]
+    if kind in ('D=40', 'D=256'):
+        D = int(kind[2:])
+        return [torch.empty(2, 256, 2, D, dtype=bf16) for _ in range(3)]
+    if kind == 'odd offset':               # data_ptr 2 bytes past a 16-byte start
+        flat = torch.empty(2 * 256 * 2 * 128 + 1, dtype=bf16)
+        q = flat[1:].view(2, 256, 2, 128)
+        return q, q, q
+    if kind in ('K/V expanded over heads', 'K/V expanded over batch'):
+        # one K/V head (multi-query attention) or one K/V batch row,
+        # broadcast with a zero stride
+        q = torch.empty(2, 256, 2, 128, dtype=bf16)
+        shape = (2, 256, 1, 128) if 'heads' in kind else (1, 256, 2, 128)
+        k, v = (torch.empty(shape, dtype=bf16).expand(q.shape) for _ in 'kv')
+        return q, k, v
+    assert kind == 'stride not a multiple of 8'   # head stride 132
+    q = torch.empty(2, 256, 2, 132, dtype=bf16)[..., :128]
+    return q, q, q
+
+
+@pytest.mark.parametrize('kind,body', [
+    ('served layout', 'wgmma'),
+    ('contiguous', 'wgmma'),
+    ('float32', 'scalar'),
+    ('float16', 'scalar'),
+    ('D=40', 'scalar'),
+    ('D=256', 'scalar'),
+    ('odd offset', 'scalar'),
+    ('stride not a multiple of 8', 'scalar'),
+    ('K/V expanded over heads', 'mma'),
+    ('K/V expanded over batch', 'mma'),
+])
+def test_flash_body_choice(kind, body):
+    """Which body a call on the card takes, fixed before any launch from
+    dtype, head dim, strides and base addresses. A zero stride (K/V
+    broadcast with ``expand``) has no TMA map, so it stays on mma.sync."""
+    q, k, v = _body_case(kind)
+    assert ck._BODIES[ck._variant(q, k, v)] == body
+    if body == 'wgmma':   # a scale the base-2 softmax does not take
+        assert ck._BODIES[ck._variant(q, k, v, scale=-0.1)] == 'mma'

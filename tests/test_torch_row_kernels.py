@@ -221,3 +221,20 @@ def test_empty_rows_count_no_launch():
     # the plain versions run here: no kernel was launched
     assert (ck.layernorm_fwd.launches, ck.rmsnorm_fwd.launches,
             ck.softmax_fwd.launches, ck.softmax_xent_fwd.launches) == before
+
+
+@pytest.mark.parametrize('D,dtype,offset,body', [
+    (1024, 'bfloat16', False, 'warp'),
+    (2048, 'bfloat16', False, 'warp'),     # 4 KB rows: the register body's widest
+    (1000, 'bfloat16', False, 'warp'),     # 125 vectors: the last lanes masked
+    (1024, 'float32', False, 'warp'),
+    (50, 'bfloat16', False, 'block'),      # 100-byte rows: not whole vectors
+    (4096, 'bfloat16', False, 'block'),    # 8 KB rows: past the registers
+    (1024, 'bfloat16', True, 'block'),     # rows start 2 bytes past 16
+])
+def test_layernorm_body_choice(D, dtype, offset, body):
+    """Which LayerNorm body a call on the card takes, from the contiguous
+    input's dtype, row width and base address (no launch here)."""
+    flat = torch.empty(4 * D + 1, dtype=getattr(torch, dtype))
+    x = (flat[1:] if offset else flat[:4 * D]).view(4, D)
+    assert ck._layernorm_body(x) == body
