@@ -23,10 +23,15 @@ order they run:
     softmax_xent): f32, bf16 and f16 at the model's shapes, a ragged
     N = 1006, widths 32, 50 and 1000, N = 0, an input at an odd offset,
     labels -1 and V, gamma/beta in another dtype than x, rows with a large
-    mean; LayerNorm's two bodies at 8 x 1024 rows (the warp body at widths
+    mean; the two bodies of LayerNorm, RMSNorm and softmax at 8 x 1024 rows
+    (LayerNorm's warp body and the ring body of the other two at widths
     1024, 2048 and 1000 in bf16 and 1024 in f32; the block body at widths 50
-    and 4096 and at an odd offset); the dtype errors; each autograd
-    Function's gradient;
+    and 4096 and at an odd offset), each on the body the wrapper must pick;
+    edge rows on both bodies of softmax (one layer's causal scores with the
+    upper triangle -inf, a row all -inf, a NaN row) and RMSNorm (a zero row,
+    a row all -inf, a NaN row), NaN at the same places as the plain version
+    and a -inf score exactly 0; the dtype errors; each autograd Function's
+    gradient;
 (d) serving: the bench transformer at full width (D=1024, 8 layers,
     8 heads x 128, S=1024, V=16384, bf16, weights from seed 0) behind
     ServingEngine(max_batch=8) answers requests of 8, 5 and 11 rows.
@@ -35,8 +40,9 @@ order they run:
     8 layers x chunks;
 (h) the NDArray path at full width, through mxnet_tpu_torch.nd on gpu(0):
     nd.LayerNorm on [8, 1024, 1024] bf16 (on the warp body), nd.softmax on
-    one layer's attention scores [8, 8, 1024, 1024] bf16,
-    ops.fused_rmsnorm on [8, 1024, 1024] bf16, and bench's training loss:
+    one layer's attention scores [8, 8, 1024, 1024] bf16 and
+    ops.fused_rmsnorm on [8, 1024, 1024] bf16 (both on the ring body), and
+    bench's training loss:
     the full-width model on bench's 8 x 1024 tokens, its logits cast to f32,
     through nd.softmax_cross_entropy / N against bench's labels. Each is
     held to its plain version, and each kernel's launch count must grow by
@@ -58,8 +64,12 @@ order they run:
     version and PyTorch's scaled_dot_product_attention at the served shape
     and at [1, 16384, 8, 128], the kernel's bound, the host time of one
     call, the full-width forward's tokens/s, and each request's latency;
-    each row kernel (LayerNorm on its warp body), its plain version and one
-    PyTorch call at the shapes of (h), with their bounds; each user kernel
+    each row kernel (LayerNorm on its warp body, softmax and RMSNorm on the
+    ring body), its plain version and one PyTorch call at the shapes of (h),
+    with their bounds; for softmax and RMSNorm also the block and the ring
+    body in turns (block, ring, ring, block) through the C entry, a copy of
+    the same x, and the ring body and library call with a clean L2; each
+    user kernel
     of (i), its plain version and one PyTorch call where there is one, with
     their bounds;
 (f) where the forward's device time goes (torch.profiler).
@@ -511,46 +521,125 @@ def row_cases(cfg):
     return cases
 
 
-# LayerNorm's two bodies at the model's row count (8 x 1024 rows): (label,
-# width, dtype, offset, the body the wrapper must pick). The warp body takes
-# rows of whole 16-byte vectors up to 4 KB that start 16-byte aligned; the
-# block body every other row.
-LN_BODY_CASES = [
-    ('warp body, width 1024', 1024, 'bfloat16', False, 'warp'),
-    ('warp body, width 2048', 2048, 'bfloat16', False, 'warp'),
-    ('warp body, width 1000', 1000, 'bfloat16', False, 'warp'),
-    ('warp body, width 1024', 1024, 'float32', False, 'warp'),
-    ('block body, width 50', 50, 'bfloat16', False, 'block'),
-    ('block body, width 4096', 4096, 'bfloat16', False, 'block'),
-    ('block body, odd offset', 1024, 'bfloat16', True, 'block'),
+# The bodies of LayerNorm, RMSNorm and softmax at the model's row count
+# (8 x 1024 rows): (label, width, dtype, offset, whether the rows are ones a
+# register-row body takes). Rows of whole 16-byte vectors up to 4 KB that
+# start 16-byte aligned take LayerNorm's warp body and the ring body of
+# RMSNorm and softmax (REGISTER_BODY); every other row the block body.
+BODY_CASES = [
+    ('width 1024', 1024, 'bfloat16', False, True),
+    ('width 2048', 2048, 'bfloat16', False, True),
+    ('width 1000', 1000, 'bfloat16', False, True),
+    ('width 1024', 1024, 'float32', False, True),
+    ('width 50', 50, 'bfloat16', False, False),
+    ('width 4096', 4096, 'bfloat16', False, False),
+    ('odd offset', 1024, 'bfloat16', True, False),
 ]
+BODY_KERNELS = ('layernorm', 'rmsnorm', 'softmax')
+REGISTER_BODY = {'layernorm': 'warp', 'rmsnorm': 'ring', 'softmax': 'ring'}
 
 
-def layernorm_bodies_vs_plain(device, cfg):
-    """Phase (g): each LayerNorm body on the shapes it takes, with the body
-    the wrapper picked."""
+def bodies_ran(fwd, before):
+    """The bodies whose launch counts moved since ``before``."""
+    return {k for k, n in fwd.launches_by_body.items() if n != before[k]}
+
+
+def row_bodies_vs_plain(device, cfg):
+    """Phase (g): each body of LayerNorm, RMSNorm and softmax on the rows it
+    takes, with the body the wrapper picked."""
     import torch
-    from mxnet_tpu_torch.ops import cuda_kernels as ck
     rows = MAX_BATCH * cfg.seq_len
-    for i, (label, D, dtype, offset, body) in enumerate(LN_BODY_CASES):
-        x, g, b = row_inputs('layernorm', (rows, D), dtype, device, seed=60 + i,
-                             offset=offset)
-        before = dict(ck.layernorm_fwd.launches_by_body)
-        got = ck.layernorm_fwd(x, g, b)
-        want = ck.layernorm_ref(x, g, b)
-        ran = {k for k, n in ck.layernorm_fwd.launches_by_body.items()
-               if n != before[k]}
-        atol, rtol = ROW_TOL[dtype]
-        err = float((got.float() - want.float()).abs().max())
-        ok = (got.shape == want.shape and got.dtype == want.dtype
-              and bool(torch.isfinite(got).all())
-              and excess(got, want, atol, rtol) <= atol
-              and ran == ({body} if device.type == 'cuda' else set()))
-        log('  layernorm    %-30s %-8s %-22s body=%-5s max|err| %.3e  %s'
-            % (label, dtype, (rows, D), body, err, 'ok' if ok else 'FAIL'))
-        check(ok, 'layernorm %s %s disagrees with its plain version or ran '
-              '%s' % (label, dtype, sorted(ran)))
-        del x, got, want
+    for kernel in BODY_KERNELS:
+        fwd, ref, _ = row_fns(kernel)
+        for i, (label, D, dtype, offset, fits) in enumerate(BODY_CASES):
+            body = REGISTER_BODY[kernel] if fits else 'block'
+            args = row_inputs(kernel, (rows, D), dtype, device, seed=60 + i,
+                              offset=offset)
+            before = dict(fwd.launches_by_body)
+            got = fwd(*args)
+            want = ref(*args)
+            ran = bodies_ran(fwd, before)
+            atol, rtol = ROW_TOL[dtype]
+            err = float((got.float() - want.float()).abs().max())
+            ok = (got.shape == want.shape and got.dtype == want.dtype
+                  and bool(torch.isfinite(got).all())
+                  and excess(got, want, atol, rtol) <= atol
+                  and ran == ({body} if device.type == 'cuda' else set()))
+            log('  %-12s %-30s %-8s %-22s body=%-5s max|err| %.3e  %s'
+                % (kernel, label, dtype, (rows, D), body, err, 'ok' if ok else 'FAIL'))
+            check(ok, '%s %s %s disagrees with its plain version or ran %s'
+                  % (kernel, label, dtype, sorted(ran)))
+            del args, got, want
+
+
+def edge_rows(kernel, cfg, device):
+    """x of ``kernel`` (and gamma) at the model's row width with edge rows,
+    and a description of them. softmax: one layer's causal scores of one
+    sequence, [n_heads, S, S] bf16 with the upper triangle -inf, then one
+    row all -inf and one holding a NaN; RMSNorm: [8 x 1024, D] bf16 with
+    rows all zero, all -inf and holding a NaN."""
+    import torch
+    if kernel == 'softmax':
+        S = cfg.seq_len
+        x, = row_inputs('softmax', (cfg.n_heads, S, S), 'bfloat16', device, seed=70)
+        mask = torch.ones(S, S, dtype=torch.bool, device=device).triu(1)
+        x.masked_fill_(mask, float('-inf'))
+        x[0, 5] = float('-inf')
+        x[-1, S - 3, 3] = float('nan')
+        return [x], 'causal -inf upper triangle, a row all -inf, a NaN row'
+    x, g = row_inputs('rmsnorm', (MAX_BATCH * cfg.seq_len, cfg.d_model),
+                      'bfloat16', device, seed=71)
+    x[3] = 0
+    x[4] = float('-inf')
+    x[5, 17] = float('nan')
+    return [x, g], 'a zero row, a row all -inf, a NaN row'
+
+
+def nan_aware_excess(got, want, atol, rtol):
+    """(whether got and want are NaN at the same places, excess of the rest
+    as :func:`excess` gives it)."""
+    import torch
+    got, want = got.float(), want.float()
+    nan = torch.isnan(want)
+    same = bool(torch.equal(torch.isnan(got), nan))
+    keep = ~nan
+    return same, excess(got[keep], want[keep], atol, rtol)
+
+
+def edge_rows_vs_plain(device, cfg):
+    """Phase (g): RMSNorm and softmax on rows with -inf, NaN and zeros, on
+    both bodies (the ring body on aligned rows, the block body on the same
+    rows one element past an aligned start), against the plain version with
+    NaN positions equal. A -inf score must give exactly 0."""
+    import torch
+    for kernel in ('softmax', 'rmsnorm'):
+        fwd, ref, _ = row_fns(kernel)
+        args, what = edge_rows(kernel, cfg, device)
+        x = args[0]
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+        shifted = flat[1:].view(x.shape)
+        shifted.copy_(x)
+        for body, xin in ((REGISTER_BODY[kernel], x), ('block', shifted)):
+            before = dict(fwd.launches_by_body)
+            got = fwd(xin, *args[1:])
+            want = ref(xin, *args[1:])
+            ran = bodies_ran(fwd, before)
+            atol, rtol = ROW_TOL['bfloat16']
+            same_nan, ex = nan_aware_excess(got, want, atol, rtol)
+            zeros = ''
+            if kernel == 'softmax':     # masked scores of rows with a finite max
+                masked = torch.isinf(xin) & ~torch.isnan(want)
+                zeros = ', -inf scores exactly 0 %s' % bool((got[masked] == 0).all())
+            ok = (same_nan and ex <= atol and not zeros.endswith('False')
+                  and got.dtype == xin.dtype
+                  and ran == ({body} if device.type == 'cuda' else set()))
+            log('  %-12s edge rows %-22s body=%-5s NaN at the same places %s%s, '
+                'excess %.3e  %s' % (kernel, tuple(x.shape), body, same_nan, zeros,
+                                     ex, 'ok' if ok else 'FAIL'))
+            check(ok, '%s edge rows (%s) on the %s body disagree with the plain '
+                  'version or ran %s' % (kernel, what, body, sorted(ran)))
+            del got, want
+        del args, x, flat, shifted
 
 
 def row_kernels_vs_plain(device, cfg):
@@ -574,7 +663,8 @@ def row_kernels_vs_plain(device, cfg):
               % (kernel, label, dtype, tuple(shape)))
         del args, got, want
 
-    layernorm_bodies_vs_plain(device, cfg)
+    row_bodies_vs_plain(device, cfg)
+    edge_rows_vs_plain(device, cfg)
 
     # the two-pass variance: rows with a mean of 1000, against float64 too
     for dtype in ('float32', 'bfloat16'):
@@ -674,18 +764,21 @@ def nd_path(device, cfg, model):
                                     lab)
     loss.wait_to_read()
     launches = {fwd.__name__: fwd.launches for fwd in counters}
-    ln_bodies = dict(ck.layernorm_fwd.launches_by_body)
+    bodies = {kernel: dict(row_fns(kernel)[0].launches_by_body)
+              for kernel in BODY_KERNELS}
 
     want = {'flash_fwd': cfg.n_layers, 'layernorm_fwd': 1, 'rmsnorm_fwd': 1,
             'softmax_fwd': 1, 'softmax_xent_fwd': 1}
-    want_bodies = {'block': 0, 'warp': 1}
-    if device.type != 'cuda':
-        want = dict.fromkeys(want, 0)                # plain versions on the CPU
-        want_bodies = dict.fromkeys(want_bodies, 0)
-    log('  launches: %s; layernorm by body %s' % (launches, ln_bodies))
-    check(launches == want and ln_bodies == want_bodies,
-          'launch counts %s (layernorm by body %s) != %s (%s)'
-          % (launches, ln_bodies, want, want_bodies))
+    on_card = device.type == 'cuda'
+    # each on its register-row body; plain versions on the CPU
+    want_bodies = {kernel: {b: int(on_card and b == REGISTER_BODY[kernel])
+                            for b in bodies[kernel]} for kernel in BODY_KERNELS}
+    if not on_card:
+        want = dict.fromkeys(want, 0)
+    log('  launches: %s; by body %s' % (launches, bodies))
+    check(launches == want and bodies == want_bodies,
+          'launch counts %s (by body %s) != %s (%s)'
+          % (launches, bodies, want, want_bodies))
 
     errs = {}
     for kernel, got, ref_args in (('layernorm', ln.handle, (x, gamma, beta)),
@@ -1195,11 +1288,62 @@ def library_call(kernel, args):
     return lambda: F.cross_entropy(logits, labels, reduction='none')
 
 
+def row_body_call(kernel, body, args):
+    """(a call of the softmax or rmsnorm C entry on ``args`` with ``body``,
+    its output): how (e) times one body beside another. The wrapper itself
+    takes no body argument."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    lib = ck._row_lib()
+    x = args[0]
+    out = torch.empty_like(x)
+    N, D = ck._rows(x, kernel)
+    b, dt = ck._ROW_BODIES.index(body), ck._ROW_DTYPES[x.dtype]
+    stream = ck._stream(x.device)
+    if kernel == 'softmax':
+        def launch():
+            return lib.mxtt_softmax(b, dt, x.data_ptr(), out.data_ptr(), N, D, stream)
+    else:
+        g = args[1]
+
+        def launch():
+            return lib.mxtt_rmsnorm(b, dt, x.data_ptr(), g.data_ptr(),
+                                    ck._ROW_DTYPES[g.dtype], out.data_ptr(), N, D,
+                                    1e-6, stream)
+
+    def call():
+        err = launch()
+        check(err == 0, '%s %s body launch failed (%d)' % (kernel, body, err))
+    return call, out
+
+
+# The bodies of softmax and RMSNorm timed in turns, block first and last.
+BODY_TURNS = ('block', 'ring', 'ring', 'block')
+
+
+def body_times(kernel, args, ref_out, flush):
+    """{body: mean of its device times in BODY_TURNS} of ``kernel`` on
+    ``args`` through the C entry, each body's output held to the plain
+    version."""
+    import torch
+    calls = {b: row_body_call(kernel, b, args) for b in set(BODY_TURNS)}
+    got = {b: [] for b in calls}
+    for b in BODY_TURNS:
+        got[b].append(device_ms(calls[b][0], flush=flush))
+    atol, rtol = ROW_TOL[str(args[0].dtype).replace('torch.', '')]
+    for b, (_, out) in calls.items():
+        check(excess(out, ref_out, atol, rtol) <= atol and bool(torch.isfinite(out).all()),
+              '%s %s body disagrees with its plain version in (e)' % (kernel, b))
+    return {b: sum(t) / len(t) for b, t in got.items()}, got
+
+
 def row_times(device, cfg):
     """Each row kernel at its shape on the model's path (bf16 activations
     and scores, f32 logits), from a cold L2: its time, its plain version's,
-    one PyTorch call's and its bound."""
+    one PyTorch call's and its bound. For softmax and RMSNorm, also each
+    body's time in turns through the C entry."""
     import torch
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     shapes = model_shapes(cfg)
     out = {}
@@ -1214,18 +1358,43 @@ def row_times(device, cfg):
         lib = library_call(kernel, args)
         library_ms = device_ms(lib, flush=flush) if lib is not None else None
         bound_ms, bound_by, nbytes, ops = row_bound_ms(kernel, args, fwd(*args))
-        extra = ''
-        if kernel == 'layernorm':
-            from mxnet_tpu_torch.ops import cuda_kernels as ck
-            check(ck._layernorm_body(args[0]) == 'warp', 'layernorm body')
-            extra = ' (warp body)'
+        body, extra = {}, ''
+        if kernel in REGISTER_BODY:
+            pick = ck._layernorm_body if kernel == 'layernorm' else ck._row_body
+            body = {'body': REGISTER_BODY[kernel]}
+            check(pick(args[0]) == body['body'], '%s body' % kernel)
+            extra = ' (%s body)' % body['body']
         log('  %-12s %-22s %-8s kernel %.4f ms%s, plain %.4f ms, library %s '
             'ms, bound %.4f ms (%s: %.1f MB, %.2f GFLOP), bound / kernel %.3f'
             % (kernel, tuple(shapes[kernel]), dtype, kernel_ms, extra, plain_ms,
                'n/a' if library_ms is None else '%.4f' % library_ms, bound_ms,
                bound_by, nbytes / 1e6, ops / 1e9, bound_ms / kernel_ms))
+        if body.get('body') == 'ring':
+            mean, turns = body_times(kernel, args, ref(*args), flush)
+            lib2 = device_ms(lib, flush=flush) if lib is not None else None
+            # a device copy of x: the bytes without the arithmetic
+            dst = torch.empty_like(args[0])
+            copy_ms = device_ms(lambda: dst.copy_(args[0]), flush=flush)
+            log('    bodies in turns %s: %s; library again %s ms; a copy of x '
+                '%.4f ms; bound / ring body %.3f, ring / block %.3f'
+                % ('-'.join(BODY_TURNS),
+                   ', '.join('%s %s ms' % (b, '/'.join('%.4f' % t for t in turns[b]))
+                             for b in ('block', 'ring')),
+                   'n/a' if lib2 is None else '%.4f' % lib2, copy_ms,
+                   bound_ms / mean['ring'], mean['ring'] / mean['block']))
+            del dst
+            # the same with an L2 left clean (the flush read, not written):
+            # what the write-back of the flush's dirty lines costs the call
+            def clean():
+                flush.sum(dtype=torch.int64)
+            ring_call = row_body_call(kernel, 'ring', args)[0]
+            log('    with a clean L2 (flush read, not written): ring body %.4f '
+                'ms, library %s ms'
+                % (device_ms(ring_call, flush=clean),
+                   'n/a' if lib is None else '%.4f' % device_ms(lib, flush=clean)))
+            body['block_ms'] = mean['block']
         out[kernel] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                           bound_ms=bound_ms, bound_by=bound_by, **body)
         del args
     del flush
     return out
@@ -1240,7 +1409,9 @@ def device_ms(fn, runs=TIMED_RUNS, warmup=3, flush=None):
     A sleep kernel ahead of each start event lets the host enqueue the
     launch before the device reaches it, so host overhead is not timed.
     ``flush``: a buffer larger than the L2 cache, overwritten before each
-    start event, so that ``fn`` finds its inputs in device memory."""
+    start event, so that ``fn`` finds its inputs in device memory (and the
+    L2 full of dirty lines, as a kernel that wrote its output leaves it), or
+    a function called there instead."""
     import torch
     for _ in range(warmup):
         fn()
@@ -1249,7 +1420,9 @@ def device_ms(fn, runs=TIMED_RUNS, warmup=3, flush=None):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
-        if flush is not None:
+        if callable(flush):
+            flush()
+        elif flush is not None:
             flush.zero_()
         start.record()
         fn()
@@ -1452,7 +1625,6 @@ def main():
             'name': kernel, 'route': 'cuda',
             'source': 'mxnet_tpu_torch/ops/csrc/row_kernels.cu',
             'replaces': ROW_REPLACES[kernel],
-            **({'body': 'warp'} if kernel == 'layernorm' else {}),
             'launches': row_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):

@@ -2,16 +2,16 @@
 // (mxnet_tpu_torch/ops/cuda_kernels.py loads it with ctypes). Four kernels,
 // each over N rows of a row-major [N, D] array:
 //
-//   * layernorm_kernel replaces mxnet_tpu/ops/pallas_kernels.py::
-//     _layernorm_kernel (fused_layernorm, via _norm_call): f32 mean, then the
-//     two-pass variance mean((x - mean)^2) (not E[x^2] - mean^2, which loses
-//     the variance of rows with a large mean), y = (x - mean) * rsqrt(var +
-//     eps) * gamma + beta in f32, stored in x's type;
-//   * rmsnorm_kernel replaces _rmsnorm_kernel (fused_rmsnorm):
+//   * layernorm replaces mxnet_tpu/ops/pallas_kernels.py::_layernorm_kernel
+//     (fused_layernorm, via _norm_call): f32 mean, then the two-pass
+//     variance mean((x - mean)^2) (not E[x^2] - mean^2, which loses the
+//     variance of rows with a large mean), y = (x - mean) * rsqrt(var + eps)
+//     * gamma + beta in f32, stored in x's type;
+//   * rmsnorm replaces _rmsnorm_kernel (fused_rmsnorm):
 //     y = x * rsqrt(mean(x^2) + eps) * gamma, f32 inside, stored in x's type;
-//   * softmax_kernel replaces _softmax_kernel (fused_softmax): the row max,
-//     the sum of exp(x - max), then exp(x - max) / sum, f32 inside, stored in
-//     x's type;
+//   * softmax replaces _softmax_kernel (fused_softmax): the row max, the sum
+//     of exp(x - max), then exp(x - max) / sum, f32 inside, stored in x's
+//     type;
 //   * xent_kernel replaces _xent_kernel (softmax_xent): per row
 //     log(sum(exp(x - max))) + max - x[label] as f32. A label outside
 //     [0, V) matches no column, as the TPU kernel's one-hot compare does:
@@ -23,23 +23,32 @@
 //
 // What the TPU version did that this one does not: it padded N to a
 // Mosaic-legal block (_pad_and_block) and walked blocks of rows in order.
-// Here one thread block takes one row (rows on gridDim.x, which reaches
-// 2^31 - 1 where y and z stop at 65535), nothing is padded, and the row's
-// ragged head and tail are handled in the kernel: each row is read with
-// 16-byte vector loads from its first 16-byte boundary on, with scalar
-// loads before it and after the last whole vector, so any row width and any
-// row alignment work. Offsets are 64-bit.
+// Here nothing is padded and every kernel takes any row count up to
+// 2^31 - 1 with 64-bit offsets.
 //
 // What bounds them on an H100: bytes. Each reads its input once from device
 // memory and writes its output once; the FLOPs (a handful per element, one
-// exp for the softmax and xent) are far below the f32 rate. The block-per-row
-// bodies make two or three passes over a row (statistics, then output), the
-// later passes hitting L1/L2, and reduce with warp shuffles and one
-// shared-memory exchange between warps. LayerNorm has a second body for rows
-// of at most 4 KB that start 16-byte aligned, layernorm_rows_kernel: one warp
-// a row, eight rows a block, the row read once into registers (RegRow) and
-// reduced twice from there by shuffles alone, with no shared memory and no
-// barrier. PERF.md keeps the measured times.
+// exp for the softmax and xent) are far below the f32 rate.
+//
+// Each kernel has a block-per-row body that takes any row: one block a row
+// (rows on gridDim.x), the row's ragged head and tail handled in the kernel
+// (16-byte vector loads from its first 16-byte boundary on, scalar loads
+// before it and after the last whole vector), two or three passes over the
+// row (statistics, then output; the later passes hit L1/L2), reduced with
+// warp shuffles and one shared-memory exchange between warps. Rows of at
+// most 4 KB that start 16-byte aligned and hold a whole number of 16-byte
+// vectors take a second body that reads the row once into registers
+// (RegRow) and reduces it by shuffles alone, with no barrier:
+//
+//   * LayerNorm: layernorm_rows_kernel, one warp a row, eight rows a block;
+//   * softmax and RMSNorm: row_stream_kernel, a persistent kernel (two
+//     blocks an SM) that streams groups of eight rows through a ring of
+//     stages in shared memory, each stage filled by one bulk async copy
+//     (TMA's 1-D form) on an mbarrier, one consumer warp a row. The loads of
+//     later groups are in flight while earlier rows reduce and store, and
+//     the softmax takes one exp an element, kept in registers.
+//
+// The wrapper picks the body; PERF.md keeps the measured times.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -364,6 +373,202 @@ __global__ void softmax_kernel(const T* __restrict__ x, T* __restrict__ y, long 
   map_row(xr, y + row * D, D, [&](long long, float v) { return expf(v - m) / s; });
 }
 
+// --- the row-streaming body (softmax, RMSNorm) -----------------------------
+
+// One row held in registers (RegRow) turned into its output. Each op reduces
+// the row by warp shuffles, calls release() once every lane's values have
+// been consumed by the first reduction (so the row's loads have completed),
+// then writes the row to `out` with 16-byte stores.
+
+// softmax: the row max (NaN kept, as MaxOp does), e = 2^((x - max) log2 e)
+// once an element, kept in registers, their sum, and e times one
+// reciprocal of the sum. A -inf element gives exactly 0; a row that is all
+// -inf or holds a NaN gives NaN, as the plain version does.
+struct SoftmaxRowOp {
+  template <typename T, int VPL, typename R>
+  __device__ __forceinline__ void operator()(const RegRow<T, VPL>& r, T* out,
+                                             R&& release) const {
+    constexpr int E = Vec<T>::n;
+    constexpr float kLog2e = 1.4426950408889634f;
+    const float m = r.reduce(MaxOp(), -INFINITY, [](float v) { return v; });
+    release();
+    float e[VPL][E];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+      if (r.held(i)) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          e[i][j] = exp2f((r.at(i, j) - m) * kLog2e);
+          s += e[i][j];
+        }
+      }
+    const float inv = 1.f / warp_reduce(s, SumOp());
+    r.store(out, [&](long long, int i, float (&y)[E]) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) y[j] = e[i][j] * inv;
+    });
+  }
+};
+
+// RMSNorm: x * rsqrt(mean(x^2) + eps) * gamma, the arithmetic of
+// rmsnorm_kernel, gamma read as f32 from f32, bf16 or f16.
+struct RmsNormRowOp {
+  const void* gamma;
+  int g_code;
+  bool g_vec;  // gamma starts 16-byte aligned
+  int D;
+  float eps;
+
+  template <typename T, int VPL, typename R>
+  __device__ __forceinline__ void operator()(const RegRow<T, VPL>& r, T* out,
+                                             R&& release) const {
+    constexpr int E = Vec<T>::n;
+    const float q = r.reduce(SumOp(), 0.f, [](float v) { return v * v; });
+    release();
+    const float inv = rsqrtf(q / float(D) + eps);
+    r.store(out, [&](long long c0, int i, float (&y)[E]) {
+      float g[E];
+      load_params<E>(gamma, g_code, g_vec, c0, g);
+#pragma unroll
+      for (int j = 0; j < E; ++j) y[j] = r.at(i, j) * inv * g[j];
+    });
+  }
+};
+
+// mbarriers and the bulk copy (TMA's 1-D form: no tensor map, 16-byte
+// aligned addresses, a size that is a multiple of 16).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+  }
+}
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
+// The row-streaming kernel: softmax (K5) and RMSNorm (K6) on rows that
+// start 16-byte aligned, hold a whole number of 16-byte vectors and are at
+// most 4 KB. Bytes bound it, as they bound every row kernel: each element
+// is read once and written once, with one exp (softmax) or two multiplies
+// (RMSNorm) beside it.
+//
+// A persistent grid (two blocks an SM) walks groups of kStreamWarps
+// contiguous rows, a block taking every gridDim.x-th group. Each block keeps
+// a ring of `stages` groups in dynamic shared memory. One producer thread
+// fills a stage with a single bulk async copy of the group's rows (the last
+// group copies only the rows that exist), posting the byte count on the
+// stage's "full" mbarrier; each consumer warp waits on it, reads its row
+// into registers with 16-byte shared loads, arrives on the stage's "empty"
+// mbarrier once its first reduction has consumed them, finishes the row by
+// shuffles alone and stores it with 16-byte stores. The producer refills a
+// stage when all consumer warps have arrived on its empty barrier, so the
+// next stages' loads are in flight while a group reduces and stores.
+//
+// What this does about the block-per-row bodies' costs: one read of the row
+// from device memory instead of two or three passes, no __syncthreads and
+// no shared-memory exchange for the reductions, one exp an element (the
+// block softmax took two expf and an IEEE divide), and loads that overlap
+// the stores of earlier rows (a one-wave warp-per-row kernel loads, then
+// stores).
+constexpr int kStreamWarps = 8;                 // consumer warps: rows a stage
+constexpr int kStreamThreads = 32 * (kStreamWarps + 1);
+constexpr int kStreamBlocksPerSm = 2;
+constexpr int kStreamRingBytes = 96 * 1024;     // the ring, at most, a block
+constexpr int kStreamMaxStages = 8;
+constexpr int kStreamBarBytes = 16 * kStreamMaxStages;  // full and empty barriers
+
+template <typename T, int VPL, typename Op>
+__global__ void __launch_bounds__(kStreamThreads, kStreamBlocksPerSm)
+    row_stream_kernel(const T* __restrict__ x, T* __restrict__ y, long long N, int D,
+                      int stages, Op op) {
+  extern __shared__ __align__(16) unsigned char stream_smem[];
+  const uint32_t bars = smem_u32(stream_smem);  // full[s] at 8 s, empty[s] after them
+  const unsigned char* ring = stream_smem + kStreamBarBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t row_bytes = uint32_t(D) * uint32_t(sizeof(T));
+  const uint32_t stage_bytes = kStreamWarps * row_bytes;
+  const long long groups = (N + kStreamWarps - 1) / kStreamWarps;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStreamMaxStages + s), kStreamWarps);  // lane 0 of each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kStreamWarps) {
+    // ---- producer: one thread ----
+    if (lane == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+        mbar_wait(bars + 8 * (kStreamMaxStages + s), phase ^ 1);
+        const long long row0 = g * kStreamWarps;
+        const long long rows = N - row0 < kStreamWarps ? N - row0 : kStreamWarps;
+        const uint32_t bytes = uint32_t(rows) * row_bytes;
+        mbar_expect_tx(bars + 8 * s, bytes);
+        bulk_load(smem_u32(ring + size_t(s) * stage_bytes), x + row0 * D, bytes, bars + 8 * s);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: one row a warp ----
+  constexpr int E = Vec<T>::n;
+  int s = 0;
+  uint32_t phase = 0;
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const uint32_t empty = bars + 8 * (kStreamMaxStages + s);
+    mbar_wait(bars + 8 * s, phase);
+    const long long row = g * kStreamWarps + warp;
+    if (row < N) {
+      const T* src = reinterpret_cast<const T*>(ring + size_t(s) * stage_bytes +
+                                                size_t(warp) * row_bytes);
+      const RegRow<T, VPL> r(src, D / E);
+      op(r, y + row * D, [&] {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty);
+      });
+    } else if (lane == 0) {
+      mbar_arrive(empty);
+    }
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+}
+
 template <typename T, typename L>
 __global__ void xent_kernel(const T* __restrict__ logits, const L* __restrict__ labels,
                             float* __restrict__ loss, long long V) {
@@ -398,6 +603,15 @@ int threads_for(long long D) {
 
 bool bad_shape(long long N, long long D) { return N <= 0 || N > kMaxRows || D <= 0; }
 bool bad_code(int code) { return code < 0 || code > 2; }
+bool bad_body(int body) { return body != 0 && body != 1; }
+
+// Rows that a register-row body takes: x and y 16-byte aligned, rows of a
+// whole number of 16-byte vectors, at most 4 KB.
+bool fits_register_row(int dtype, const void* x, const void* y, long long D) {
+  const long long row_bytes = D * (dtype == 0 ? 4 : 2);
+  return row_bytes % 16 == 0 && row_bytes <= 4096 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(y) % 16 == 0;
+}
 
 template <typename T>
 cudaError_t launch_layernorm(const void* x, const void* g, int gc, const void* b, int bc,
@@ -430,9 +644,59 @@ cudaError_t launch_layernorm_rows(const void* x, const void* g, int gc, const vo
   return cudaGetLastError();
 }
 
+// The row-streaming kernel at one register-row size: two blocks an SM
+// (the SM count read once a card, when the kernel's shared-memory limit is
+// set), as many ring stages of kStreamWarps rows as kStreamRingBytes holds.
+template <typename T, int VPL, typename Op>
+cudaError_t launch_stream_vpl(const T* x, T* y, long long N, int D, Op op, cudaStream_t s) {
+  static int sms_of[64] = {};
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64) sms = sms_of[device];
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(row_stream_kernel<T, VPL, Op>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kStreamBarBytes + kStreamRingBytes);
+    if (err != cudaSuccess) return err;
+    if (device < 64) sms_of[device] = sms;
+  }
+  const int stage_bytes = kStreamWarps * D * int(sizeof(T));
+  int stages = kStreamRingBytes / stage_bytes;
+  if (stages > kStreamMaxStages) stages = kStreamMaxStages;
+  const long long groups = (N + kStreamWarps - 1) / kStreamWarps;
+  const long long blocks = groups < (long long)kStreamBlocksPerSm * sms
+                               ? groups : (long long)kStreamBlocksPerSm * sms;
+  const size_t smem = kStreamBarBytes + size_t(stages) * stage_bytes;
+  row_stream_kernel<T, VPL, Op><<<dim3(unsigned(blocks)), kStreamThreads, smem, s>>>(
+      x, y, N, D, stages, op);
+  return cudaGetLastError();
+}
+
+// The row-streaming kernel on rows of whole 16-byte vectors up to 4 KB
+// (checked by the entry), with the register row sized to the width.
+template <typename T, typename Op>
+cudaError_t launch_stream(const void* xv, void* yv, long long N, long long D, Op op,
+                          cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  T* y = static_cast<T*>(yv);
+  const long long nvec = D / Vec<T>::n;
+  const int d = int(D);
+  if (nvec <= 32) return launch_stream_vpl<T, 1>(x, y, N, d, op, s);
+  if (nvec <= 64) return launch_stream_vpl<T, 2>(x, y, N, d, op, s);
+  if (nvec <= 128) return launch_stream_vpl<T, 4>(x, y, N, d, op, s);
+  return launch_stream_vpl<T, 8>(x, y, N, d, op, s);
+}
+
 template <typename T>
-cudaError_t launch_rmsnorm(const void* x, const void* g, int gc, void* y, long long N,
+cudaError_t launch_rmsnorm(int body, const void* x, const void* g, int gc, void* y, long long N,
                            long long D, float eps, cudaStream_t s) {
+  if (body == 1) {
+    const RmsNormRowOp op{g, gc, (reinterpret_cast<uintptr_t>(g) & 15) == 0, int(D), eps};
+    return launch_stream<T>(x, y, N, D, op, s);
+  }
   const int threads = threads_for<T>(D);
   rmsnorm_kernel<T><<<dim3(unsigned(N)), threads, 0, s>>>(
       static_cast<const T*>(x), g, gc, static_cast<T*>(y), D, eps);
@@ -440,7 +704,9 @@ cudaError_t launch_rmsnorm(const void* x, const void* g, int gc, void* y, long l
 }
 
 template <typename T>
-cudaError_t launch_softmax(const void* x, void* y, long long N, long long D, cudaStream_t s) {
+cudaError_t launch_softmax(int body, const void* x, void* y, long long N, long long D,
+                           cudaStream_t s) {
+  if (body == 1) return launch_stream<T>(x, y, N, D, SoftmaxRowOp(), s);
   const int threads = threads_for<T>(D);
   softmax_kernel<T><<<dim3(unsigned(N)), threads, 0, s>>>(
       static_cast<const T*>(x), static_cast<T*>(y), D);
@@ -478,14 +744,11 @@ int mxtt_layernorm(int body, int dtype, const void* x, const void* gamma, int ga
                    const void* beta, int beta_dtype, void* y, long long N, long long D,
                    float eps, void* stream) {
   if (bad_shape(N, D) || bad_code(gamma_dtype) || bad_code(beta_dtype) || bad_code(dtype) ||
-      (body != 0 && body != 1))
+      bad_body(body))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 1) {
-    const long long row_bytes = D * (dtype == 0 ? 4 : 2);
-    if (row_bytes % 16 || row_bytes > 4096 || reinterpret_cast<uintptr_t>(x) % 16 ||
-        reinterpret_cast<uintptr_t>(y) % 16)
-      return int(cudaErrorInvalidValue);
+    if (!fits_register_row(dtype, x, y, D)) return int(cudaErrorInvalidValue);
     switch (dtype) {
       case 0: return int(launch_layernorm_rows<float>(x, gamma, gamma_dtype, beta, beta_dtype, y, N, D, eps, s));
       case 1: return int(launch_layernorm_rows<__nv_bfloat16>(x, gamma, gamma_dtype, beta, beta_dtype, y, N, D, eps, s));
@@ -499,26 +762,33 @@ int mxtt_layernorm(int body, int dtype, const void* x, const void* gamma, int ga
   }
 }
 
-int mxtt_rmsnorm(int dtype, const void* x, const void* gamma, int gamma_dtype, void* y,
-                 long long N, long long D, float eps, void* stream) {
-  if (bad_shape(N, D) || bad_code(gamma_dtype)) return int(cudaErrorInvalidValue);
+// body: 0 = one block a row (any row), 1 = the row-streaming kernel (x and
+// y 16-byte aligned, rows of a whole number of 16-byte vectors up to 4 KB;
+// cudaErrorInvalidValue otherwise).
+int mxtt_rmsnorm(int body, int dtype, const void* x, const void* gamma, int gamma_dtype,
+                 void* y, long long N, long long D, float eps, void* stream) {
+  if (bad_shape(N, D) || bad_code(gamma_dtype) || bad_code(dtype) || bad_body(body) ||
+      (body == 1 && !fits_register_row(dtype, x, y, D)))
+    return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return int(launch_rmsnorm<float>(x, gamma, gamma_dtype, y, N, D, eps, s));
-    case 1: return int(launch_rmsnorm<__nv_bfloat16>(x, gamma, gamma_dtype, y, N, D, eps, s));
-    case 2: return int(launch_rmsnorm<__half>(x, gamma, gamma_dtype, y, N, D, eps, s));
-    default: return int(cudaErrorInvalidValue);
+    case 0: return int(launch_rmsnorm<float>(body, x, gamma, gamma_dtype, y, N, D, eps, s));
+    case 1: return int(launch_rmsnorm<__nv_bfloat16>(body, x, gamma, gamma_dtype, y, N, D, eps, s));
+    default: return int(launch_rmsnorm<__half>(body, x, gamma, gamma_dtype, y, N, D, eps, s));
   }
 }
 
-int mxtt_softmax(int dtype, const void* x, void* y, long long N, long long D, void* stream) {
-  if (bad_shape(N, D)) return int(cudaErrorInvalidValue);
+// body as for mxtt_rmsnorm.
+int mxtt_softmax(int body, int dtype, const void* x, void* y, long long N, long long D,
+                 void* stream) {
+  if (bad_shape(N, D) || bad_code(dtype) || bad_body(body) ||
+      (body == 1 && !fits_register_row(dtype, x, y, D)))
+    return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return int(launch_softmax<float>(x, y, N, D, s));
-    case 1: return int(launch_softmax<__nv_bfloat16>(x, y, N, D, s));
-    case 2: return int(launch_softmax<__half>(x, y, N, D, s));
-    default: return int(cudaErrorInvalidValue);
+    case 0: return int(launch_softmax<float>(body, x, y, N, D, s));
+    case 1: return int(launch_softmax<__nv_bfloat16>(body, x, y, N, D, s));
+    default: return int(launch_softmax<__half>(body, x, y, N, D, s));
   }
 }
 

@@ -17,7 +17,8 @@ wrapper counts its launches in a plain integer (``flash_fwd.launches``,
 ``layernorm_fwd.launches``, ...), so a run can show that its path went
 through the kernel. Where a kernel has several bodies, the wrapper picks
 one from the call's dtype, shape, strides and addresses before it
-launches (:func:`_variant` for attention, :func:`_layernorm_body`), never
+launches (:func:`_variant` for attention, :func:`_layernorm_body`,
+:func:`_row_body` for softmax and RMSNorm), never
 retries with another, and counts each body's launches in
 ``launches_by_body``. Backward passes
 recompute through the plain version (a ``torch.autograd.Function``),
@@ -306,8 +307,9 @@ def _row_lib():
                              ctypes.c_float)
         lib.mxtt_layernorm.argtypes = [i32, i32, vp, vp, i32, vp, i32, vp, i64,
                                        i64, f32, vp]
-        lib.mxtt_rmsnorm.argtypes = [i32, vp, vp, i32, vp, i64, i64, f32, vp]
-        lib.mxtt_softmax.argtypes = [i32, vp, vp, i64, i64, vp]
+        lib.mxtt_rmsnorm.argtypes = [i32, i32, vp, vp, i32, vp, i64, i64, f32,
+                                     vp]
+        lib.mxtt_softmax.argtypes = [i32, i32, vp, vp, i64, i64, vp]
         lib.mxtt_softmax_xent.argtypes = [i32, vp, vp, i32, vp, i64, i64, vp]
         for fn in (lib.mxtt_layernorm, lib.mxtt_rmsnorm, lib.mxtt_softmax,
                    lib.mxtt_softmax_xent):
@@ -366,26 +368,40 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-_LN_BODIES = ('block', 'warp')          # by body number
-_MAX_WARP_ROW_BYTES = 4096
+_LN_BODIES = ('block', 'warp')          # LayerNorm's, by body number
+_ROW_BODIES = ('block', 'ring')        # softmax's and RMSNorm's
+_MAX_REGISTER_ROW_BYTES = 4096
+
+
+def _fits_register_row(x):
+    """Whether the contiguous ``x``'s rows start 16-byte aligned and are a
+    whole number of 16-byte vectors up to 4 KB: the rows a body that holds
+    its row in registers takes."""
+    row_bytes = x.shape[-1] * x.element_size()
+    return (x.dtype in _ROW_DTYPES and 0 < row_bytes <= _MAX_REGISTER_ROW_BYTES
+            and row_bytes % 16 == 0 and x.data_ptr() % 16 == 0)
 
 
 def _layernorm_body(x):
     """The LayerNorm body for the contiguous ``x``: 'warp' (one warp a row,
-    the row in registers) where its rows start 16-byte aligned and are a
-    whole number of 16-byte vectors up to 4 KB, else 'block' (one block a
-    row, any width and alignment)."""
-    row_bytes = x.shape[-1] * x.element_size()
-    if (x.dtype in _ROW_DTYPES and 0 < row_bytes <= _MAX_WARP_ROW_BYTES
-            and row_bytes % 16 == 0 and x.data_ptr() % 16 == 0):
-        return 'warp'
-    return 'block'
+    the row in registers) where :func:`_fits_register_row`, else 'block'
+    (one block a row, any width and alignment)."""
+    return 'warp' if _fits_register_row(x) else 'block'
+
+
+def _row_body(x):
+    """The softmax and RMSNorm body for the contiguous ``x``: 'ring' (the
+    persistent row-streaming kernel: rows brought into a shared-memory ring
+    by bulk async copies, one warp a row, the row in registers) where
+    :func:`_fits_register_row`, else 'block' (one block a row, any width and
+    alignment)."""
+    return 'ring' if _fits_register_row(x) else 'block'
 
 
 def _launch_norm(fwd, kind, x, params, eps):
     """Launch the layernorm or rmsnorm kernel over x's rows and count the
-    launch on ``fwd``. LayerNorm takes the body :func:`_layernorm_body`
-    picks."""
+    launch on ``fwd``, with the body :func:`_layernorm_body` or
+    :func:`_row_body` picks."""
     N, D = _check_row_input(x, kind)
     params = [_check_param(p, n, x, D, kind)
               for p, n in zip(params, ('gamma', 'beta'))]
@@ -404,19 +420,23 @@ def _launch_norm(fwd, kind, x, params, eps):
                                      x.data_ptr(), *args, out.data_ptr(), N, D,
                                      float(eps), _stream(x.device))
         else:
-            err = lib.mxtt_rmsnorm(_ROW_DTYPES[x.dtype], x.data_ptr(), *args,
-                                   out.data_ptr(), N, D, float(eps),
-                                   _stream(x.device))
-    _raise_on(err, lib, kind)
+            body = _row_body(x)
+            err = lib.mxtt_rmsnorm(_ROW_BODIES.index(body), _ROW_DTYPES[x.dtype],
+                                   x.data_ptr(), *args, out.data_ptr(), N, D,
+                                   float(eps), _stream(x.device))
+    _raise_on(err, lib, '%s (%s body)' % (kind, body))
     fwd.launches += 1
-    if kind == 'layernorm':
-        fwd.launches_by_body[body] += 1
+    fwd.launches_by_body[body] += 1
     return out
 
 
 def layernorm_fwd(x, gamma, beta, eps=1e-5):
     """LayerNorm over the last axis: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. No autograd; see :func:`fused_layernorm`.
+    On the card, rows that start 16-byte aligned and hold a whole number of
+    16-byte vectors up to 4 KB take the 'warp' body (one warp a row, the row
+    in registers), every other row the 'block' body (one block a row);
+    ``launches_by_body`` counts each.
 
     x is float32, bfloat16 or float16 of any shape (its leading axes are the
     rows); gamma and beta are [D] in any of those three dtypes, read as f32.
@@ -437,7 +457,14 @@ layernorm_fwd.launches_by_body = dict.fromkeys(_LN_BODIES, 0)
 def rmsnorm_fwd(x, gamma, eps=1e-6):
     """RMSNorm over the last axis: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. No autograd; see :func:`fused_rmsnorm`.
-    Takes what :func:`layernorm_fwd` takes, without beta."""
+    Takes what :func:`layernorm_fwd` takes, without beta.
+
+    On the card, rows that start 16-byte aligned and hold a whole number of
+    16-byte vectors up to 4 KB take the 'ring' body (a persistent kernel
+    that streams groups of rows through a shared-memory ring by bulk async
+    copies, one warp a row), every other row the 'block' body (one block a
+    row, any width and alignment); ``launches_by_body`` counts each. A
+    failed launch raises: no other body and no plain version is tried."""
     _rows(x, 'rmsnorm')
     if x.device.type == 'cuda':
         return _launch_norm(rmsnorm_fwd, 'rmsnorm', x, (gamma,), eps)
@@ -447,13 +474,21 @@ def rmsnorm_fwd(x, gamma, eps=1e-6):
 
 
 rmsnorm_fwd.launches = 0
+rmsnorm_fwd.launches_by_body = dict.fromkeys(_ROW_BODIES, 0)
 
 
 def softmax_fwd(x):
     """Last-axis softmax: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. No autograd; see :func:`fused_softmax`.
     x is float32, bfloat16 or float16 (TypeError otherwise); the result has
-    its shape and dtype. Raises ValueError on a 0-d x."""
+    its shape and dtype. Raises ValueError on a 0-d x.
+
+    On the card the rows take the bodies :func:`rmsnorm_fwd` names: 'ring'
+    for rows that start 16-byte aligned and hold a whole number of 16-byte
+    vectors up to 4 KB (one exp an element, kept in registers), 'block' for
+    every other row; ``launches_by_body`` counts each. A failed launch
+    raises. A -inf score gives exactly 0; a row that is all -inf or holds a
+    NaN gives NaN, on either body as in the plain version."""
     _rows(x, 'softmax')
     if x.device.type == 'cuda':
         N, D = _check_row_input(x, 'softmax')
@@ -462,11 +497,14 @@ def softmax_fwd(x):
             return out
         x = x.contiguous()
         lib = _row_lib()
+        body = _row_body(x)
         with torch.cuda.device(x.device):
-            err = lib.mxtt_softmax(_ROW_DTYPES[x.dtype], x.data_ptr(),
-                                   out.data_ptr(), N, D, _stream(x.device))
-        _raise_on(err, lib, 'softmax')
+            err = lib.mxtt_softmax(_ROW_BODIES.index(body), _ROW_DTYPES[x.dtype],
+                                   x.data_ptr(), out.data_ptr(), N, D,
+                                   _stream(x.device))
+        _raise_on(err, lib, 'softmax (%s body)' % body)
         softmax_fwd.launches += 1
+        softmax_fwd.launches_by_body[body] += 1
         return out
     _check_on_cpu('softmax', x)
     with torch.no_grad():
@@ -474,6 +512,7 @@ def softmax_fwd(x):
 
 
 softmax_fwd.launches = 0
+softmax_fwd.launches_by_body = dict.fromkeys(_ROW_BODIES, 0)
 
 
 def softmax_xent_fwd(logits, labels):

@@ -223,18 +223,79 @@ def test_empty_rows_count_no_launch():
             ck.softmax_fwd.launches, ck.softmax_xent_fwd.launches) == before
 
 
-@pytest.mark.parametrize('D,dtype,offset,body', [
-    (1024, 'bfloat16', False, 'warp'),
-    (2048, 'bfloat16', False, 'warp'),     # 4 KB rows: the register body's widest
-    (1000, 'bfloat16', False, 'warp'),     # 125 vectors: the last lanes masked
-    (1024, 'float32', False, 'warp'),
-    (50, 'bfloat16', False, 'block'),      # 100-byte rows: not whole vectors
-    (4096, 'bfloat16', False, 'block'),    # 8 KB rows: past the registers
-    (1024, 'bfloat16', True, 'block'),     # rows start 2 bytes past 16
-])
-def test_layernorm_body_choice(D, dtype, offset, body):
-    """Which LayerNorm body a call on the card takes, from the contiguous
-    input's dtype, row width and base address (no launch here)."""
+# (D, dtype, offset, whether the rows fit a register row): rows of whole
+# 16-byte vectors up to 4 KB that start 16-byte aligned take LayerNorm's warp
+# body and the ring body of softmax and RMSNorm, every other row the block
+# body.
+_BODY_ROWS = [
+    (1024, 'bfloat16', False, True),
+    (2048, 'bfloat16', False, True),     # 4 KB rows: the register bodies' widest
+    (1000, 'bfloat16', False, True),     # 125 vectors: the last lanes masked
+    (1024, 'float32', False, True),
+    (50, 'bfloat16', False, False),      # 100-byte rows: not whole vectors
+    (4096, 'bfloat16', False, False),    # 8 KB rows: past the registers
+    (1024, 'bfloat16', True, False),     # rows start 2 bytes past 16
+]
+_PICKERS = {'layernorm': (ck._layernorm_body, 'warp'),
+            'softmax': (ck._row_body, 'ring'),
+            'rmsnorm': (ck._row_body, 'ring')}
+
+
+@pytest.mark.parametrize('D,dtype,offset,fits', _BODY_ROWS)
+@pytest.mark.parametrize('kernel', list(_PICKERS))
+def test_body_choice(kernel, D, dtype, offset, fits):
+    """Which body a call on the card takes, from the contiguous input's
+    dtype, row width and base address (no launch here)."""
     flat = torch.empty(4 * D + 1, dtype=getattr(torch, dtype))
     x = (flat[1:] if offset else flat[:4 * D]).view(4, D)
-    assert ck._layernorm_body(x) == body
+    pick, register_body = _PICKERS[kernel]
+    assert pick(x) == (register_body if fits else 'block')
+
+
+def _edge_rows(kernel, case):
+    """x (numpy f32) with the edge rows of ``case``: a causal score block
+    [2, 16, 16] with the upper triangle -inf, or 8 rows of width D with one
+    row all zero, all -inf, or holding a NaN."""
+    rng = np.random.RandomState(9)
+    if case == 'causal -inf':
+        x = (rng.standard_normal((2, 16, 16)) * 1.5).astype(np.float32)
+        x[:, np.triu(np.ones((16, 16), bool), 1)] = -np.inf
+        return x
+    x = (rng.standard_normal((8, D)) * 1.5).astype(np.float32)
+    x[5] = {'zero row': 0.0, 'all -inf row': -np.inf, 'NaN row': x[5]}[case]
+    if case == 'NaN row':
+        x[5, 7] = np.nan
+    return x
+
+
+@pytest.mark.parametrize('kernel,case,dtype', [
+    ('softmax', 'causal -inf', 'bfloat16'),
+    ('softmax', 'all -inf row', 'float32'),
+    ('softmax', 'NaN row', 'float32'),
+    ('rmsnorm', 'zero row', 'bfloat16'),
+    ('rmsnorm', 'all -inf row', 'float32'),
+    ('rmsnorm', 'NaN row', 'float32'),
+])
+def test_edge_rows_match_pallas(kernel, case, dtype):
+    """The plain versions (which every body on the card is held to) against
+    the Pallas kernels in interpret mode on rows of -inf, NaN and zeros: NaN
+    at the same places, a -inf score exactly 0 where its row has a finite
+    max, and the file's tolerance elsewhere."""
+    x = _edge_rows(kernel, case)
+    jx, tx = _both(x, dtype)
+    if kernel == 'softmax':
+        got = ck.softmax_ref(tx)
+        want = jax.jit(pk.fused_softmax)(jx)
+    else:
+        g = (np.random.RandomState(10).standard_normal(D) * 0.5 + 1).astype(np.float32)
+        jg, tg = _both(g, 'float32')
+        got = ck.rmsnorm_ref(tx, tg)
+        want = jax.jit(pk.fused_rmsnorm)(jx, jg)
+    got, want = _np(got), _np(want)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_allclose(got[~nan], want[~nan], **TOL[dtype])
+    if kernel == 'softmax':
+        masked = np.isinf(x) & ~nan
+        assert masked.any() == (case == 'causal -inf')
+        assert (got[masked] == 0).all() and (want[masked] == 0).all()
