@@ -60,6 +60,19 @@ order they run:
     x + y, a slice, .sum()) on layer 0's MLP input, with each user kernel's
     launch count; the step is held to torch on the same tensors and to the
     plain chain, and each user kernel to its plain version;
+(j) bench's training step at full width (make_train_step: bf16 copies of
+    the f32 masters through the model on the flash kernel, the loss
+    mean(logsumexp - gold) on f32 logits, one mp_sgd_mom_update per master)
+    for five steps from seed 0, and the same steps on the plain attention:
+    the first three steps' losses and the masters after step 1 held to the
+    plain attention's, the loss falling from step 1 to step 5 (bench's step
+    raises it for two steps first), and the kernel's launches growing by 8
+    (one a layer, on the wgmma body) each step; the loss along the first
+    step's gradient at three step sizes; then
+    one update through optimizer.create('sgd', momentum=0.9,
+    learning_rate=0.01, multi_precision=True) and get_updater on NDArrays of
+    the bf16 weights, held bit for bit to the registry op's on the same
+    gradients;
 (e) times from CUDA events: the flash kernel (wgmma body), its plain
     version and PyTorch's scaled_dot_product_attention at the served shape
     and at [1, 16384, 8, 128], the kernel's bound, the host time of one
@@ -71,7 +84,9 @@ order they run:
     the same x, and the ring body and library call with a clean L2; each
     user kernel
     of (i), its plain version and one PyTorch call where there is one, with
-    their bounds;
+    their bounds; the training step of (j) (step ms and tokens/s, on the
+    kernel and on the plain attention), its forward, backward and update,
+    and one layer's plain-attention recompute in the backward;
 (f) where the forward's device time goes (torch.profiler).
 
 The second-to-last line of its output is the kernel record
@@ -1243,6 +1258,217 @@ def rtc_times(device, cfg, rtcs):
 
 
 # ---------------------------------------------------------------------------
+# (j) bench's training step at full width
+# ---------------------------------------------------------------------------
+
+# Bench's step at full width raises the loss for two steps before it falls:
+# lr 0.01 overshoots along the first gradient (the loss along it is lowest
+# near a tenth of that step, printed below), and the momentum carries the
+# overshoot into step 3. Bench's own JAX step does the same at full width
+# and depth (seen at batch 1 on the CPU). So the run takes five steps, and
+# the loss must fall from step 1 to step 5.
+TRAIN_STEPS = 5
+HELD_STEPS = 3          # the steps whose losses are held to the reference
+TIMED_STEPS = 5
+# Tolerances of the kernel path's step against the same step on the plain
+# attention, both on the card, with their reasons. The two differ only in
+# the forward's attention: the kernel rounds p to bf16 before p.v, so each
+# layer's output may differ by a bf16 rounding (phase (d) holds the two
+# forwards' logits within a relative RMS of 2e-2); both backwards recompute
+# through the plain version. Each bf16 gradient element carries those
+# roundings through the backward, and the embedding's bf16 scatter-add runs
+# with atomics, in another order on each run.
+# - the loss of each of the first HELD_STEPS steps, a mean of 8,192 f32 rows
+#   of logsumexp - gold: rtol 2e-3, the bound tests/test_torch_train_step.py
+#   holds the port's three steps to against bench's own (measured there: 9e-5
+#   to 4.4e-4). Later steps drift further apart, as any two trajectories of
+#   a step that overshoots do, and are printed, not held;
+# - the update each master took in step 1 (-lr * its gradient): a relative
+#   RMS error of at most 3e-2 per tensor, the same test's bound (measured
+#   there: 6e-3 to 1.4e-2, the rounding of bf16 gradients).
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_REL_RMS = 3e-2
+
+
+def train_step(device, cfg):
+    """Phase (j): bench's step (make_train_step) for TRAIN_STEPS steps on
+    the kernel path and on the plain attention, the loss along the first
+    step's gradient, and one update through
+    optimizer.create('sgd', ...) and get_updater. Returns (the flash
+    kernel's launches over the steps, the step function and its inputs)."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import nd, optimizer
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.transformer import (TRAIN_ATTRS, bench_loss,
+                                             loss_and_grads, make_train_step)
+    on_card = device.type == 'cuda'
+    t0 = time.perf_counter()
+    step, masters0, aux, vel0, tokens, labels = make_train_step(
+        cfg, MAX_BATCH, device)
+    ref_step = make_train_step(cfg, MAX_BATCH, device,
+                               attention=ck.flash_attention_ref)[0]
+    n_params = sum(m.numel() for m in masters0)
+    log('  %d masters (%d f32 parameters) and bench\'s batch %s drawn from '
+        'seed 0 in %.1f s' % (len(masters0), n_params, tuple(tokens.shape),
+                              time.perf_counter() - t0))
+
+    # the main path: counts are zeroed just before and read just after
+    ck.flash_fwd.launches = 0
+    ck.flash_fwd.launches_by_body = dict.fromkeys(ck._BODIES, 0)
+    masters, vel, losses, grew = masters0, vel0, [], []
+    for i in range(TRAIN_STEPS):
+        before = ck.flash_fwd.launches
+        masters, aux, vel, loss = step(masters, aux, vel, tokens, labels)
+        grew.append(ck.flash_fwd.launches - before)
+        losses.append(float(loss))
+        if i == 0:
+            after1 = masters
+    launches = ck.flash_fwd.launches
+    by_body = dict(ck.flash_fwd.launches_by_body)
+    per_step = cfg.n_layers if on_card else 0
+    log('  kernel path: losses %s; flash launches a step %s, by body %s'
+        % (['%.6f' % x for x in losses], grew, by_body))
+    check(grew == [per_step] * TRAIN_STEPS
+          and by_body['wgmma'] == launches == per_step * TRAIN_STEPS,
+          'flash launches a step %s (by body %s) != %d layers on the wgmma '
+          'body' % (grew, by_body, per_step))
+    check(all(m.dtype == torch.float32 and bool(torch.isfinite(m).all())
+              for m in masters + vel), 'masters or velocities not finite f32')
+
+    ref_masters, ref_vel, ref_losses = masters0, vel0, []
+    for i in range(TRAIN_STEPS):
+        ref_masters, _, ref_vel, loss = ref_step(ref_masters, aux, ref_vel,
+                                                 tokens, labels)
+        ref_losses.append(float(loss))
+        if i == 0:
+            ref_after1 = ref_masters
+    check(ck.flash_fwd.launches == launches,
+          'the plain-attention step launched the kernel')
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    held = loss_err[:HELD_STEPS]
+    upd_err = max(rel_rms(a - m0, b - m0)
+                  for a, b, m0 in zip(after1, ref_after1, masters0))
+    log('  plain-attention path: losses %s; loss relative error by step %s; '
+        'the update of step 1, worst relative RMS error of a master %.3e'
+        % (['%.6f' % x for x in ref_losses], ['%.2e' % e for e in loss_err],
+           upd_err))
+    check(all(np.isfinite(losses)) and max(held) <= TRAIN_LOSS_RTOL,
+          'the step\'s losses disagree with the plain-attention step')
+    check(upd_err <= TRAIN_REL_RMS,
+          'the masters after step 1 disagree with the plain-attention step')
+    check(losses[-1] < losses[0], 'the loss did not fall from step 1 to step '
+          '%d: %s' % (TRAIN_STEPS, losses))
+    del masters, vel, after1, ref_masters, ref_vel, ref_after1
+
+    # The user-facing route on the same gradients: optimizer.create and
+    # get_updater over NDArrays of the bf16 weights, with the f32 masters as
+    # the optimizer's master state, against the registry op the step calls.
+    params = tuple(m.to(torch.bfloat16).requires_grad_() for m in masters0)
+    loss0, grads = loss_and_grads(params, tokens, labels)
+    along = []
+    with torch.no_grad():
+        for eps in (1e-4, 1e-3, TRAIN_ATTRS['lr']):
+            moved = tuple((m - eps * g.float()).to(torch.bfloat16)
+                          for m, g in zip(masters0, grads))
+            along.append('%g: %.6f' % (eps, float(bench_loss(moved, tokens,
+                                                               labels))))
+            del moved
+    g2 = sum(float(g.float().square().sum()) for g in grads)
+    log('  the loss along the first gradient g (|g|^2 %.4e) from %.6f, by '
+        'step size: %s' % (g2, float(loss0), ', '.join(along)))
+    update = registry.get('mp_sgd_mom_update').fn
+    opt = optimizer.create('sgd', momentum=TRAIN_ATTRS['momentum'],
+                           learning_rate=TRAIN_ATTRS['lr'], multi_precision=True)
+    updater = optimizer.get_updater(opt)
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    same = True
+    for i, (p, g, v, m) in enumerate(zip(params, grads, vel0, masters0)):
+        with torch.no_grad():
+            _, want_v, want_m = update(TRAIN_ATTRS, p.detach(), g, v, m)
+        w = nd.from_torch(p.detach(), ctx)
+        updater.states[i] = (nd.from_torch(m.clone(), ctx),
+                             nd.from_torch(v.clone(), ctx))
+        updater(i, nd.from_torch(g, ctx), w)
+        w32, mom = updater.states[i]
+        same = (same and torch.equal(w32.handle, want_m)
+                and torch.equal(mom.handle, want_v)
+                and torch.equal(w.handle, want_m.to(torch.bfloat16)))
+    log('  optimizer.create(\'sgd\', momentum=0.9, learning_rate=0.01, '
+        'multi_precision=True) through get_updater on %d NDArrays: masters, '
+        'velocities and bf16 weights %s the registry op\'s'
+        % (len(params), 'equal, bit for bit, to' if same else 'DIFFER from'))
+    check(same, 'the Updater step differs from the registry op\'s')
+    del params, grads, updater
+    return launches, (step, ref_step, masters0, vel0, tokens, labels)
+
+
+def train_times(device, cfg, step, ref_step, masters0, vel0, tokens, labels):
+    """Phase (e) for the step: step ms (CUDA events, median of TIMED_STEPS
+    after a warm-up), tokens/s, where a step's time goes (forward and loss,
+    backward, update), and the share of the plain attention's recompute in
+    the backward."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.transformer import TRAIN_ATTRS, bench_loss
+    tok = tokens.numel()
+    step_ms = device_ms(lambda: step(masters0, (), vel0, tokens, labels),
+                        runs=TIMED_STEPS, warmup=1)
+    ref_ms = device_ms(lambda: ref_step(masters0, (), vel0, tokens, labels),
+                       runs=TIMED_STEPS, warmup=1)
+    log('  training step, batch %d x %d: %.3f ms (%.0f tokens/s); with the '
+        'plain attention forward %.3f ms (%.0f tokens/s)'
+        % (tokens.shape[0], tokens.shape[1], step_ms, tok / step_ms * 1e3,
+           ref_ms, tok / ref_ms * 1e3))
+
+    # the step's arithmetic (transformer.bench_loss, its gradients, the
+    # update), split by CUDA events
+    update = registry.get('mp_sgd_mom_update').fn
+    phases = []
+    for _ in range(TIMED_STEPS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda._sleep(2_000_000)
+        ev[0].record()
+        params = tuple(m.to(torch.bfloat16).requires_grad_() for m in masters0)
+        loss = bench_loss(params, tokens, labels)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, params)
+        ev[2].record()
+        with torch.no_grad():
+            for m, p, g, v in zip(masters0, params, grads, vel0):
+                update(TRAIN_ATTRS, p.detach(), g, v, m)
+        ev[3].record()
+        ev[3].synchronize()
+        phases.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        del params, loss, grads
+    fwd_ms, bwd_ms, upd_ms = (statistics.median(p[i] for p in phases[1:])
+                              for i in range(3))
+
+    # one layer's recompute in the backward (_FlashFunction.backward): the
+    # plain attention's forward and its gradient, at the step's shape, in
+    # flash_attention's softmax form (the step's) and flash_attention_lse's
+    q, k, v = (t.requires_grad_() for t in qkv(
+        MAX_BATCH, cfg.seq_len, cfg.seq_len, cfg.n_heads,
+        cfg.d_model // cfg.n_heads, 'bfloat16', device, seed=9))
+    g = torch.randn_like(q)
+    rec_ms, lse_form_ms = (device_ms(lambda: torch.autograd.grad(
+        [ref(q, k, v, True)], (q, k, v), [g]), runs=10)
+        for ref in (ck.flash_attention_ref,
+                    lambda *a: ck.flash_attention_lse_ref(*a)[0]))
+    log('  where a step goes (medians of %d): forward and loss %.3f ms, '
+        'backward %.3f ms, update (%d mp_sgd_mom_update calls) %.3f ms; one '
+        'layer\'s plain-attention recompute and gradient %.3f ms (the lse '
+        'form %.3f ms), x %d layers = %.3f ms, %.3f of the step'
+        % (TIMED_STEPS, fwd_ms, bwd_ms, len(masters0), upd_ms, rec_ms,
+           lse_form_ms, cfg.n_layers, rec_ms * cfg.n_layers,
+           rec_ms * cfg.n_layers / step_ms))
+    return dict(step_ms=step_ms, ref_step_ms=ref_ms, fwd_ms=fwd_ms,
+                bwd_ms=bwd_ms, update_ms=upd_ms, recompute_ms=rec_ms)
+
+
+# ---------------------------------------------------------------------------
 # (e) times of the row kernels
 # ---------------------------------------------------------------------------
 
@@ -1602,8 +1828,13 @@ def main():
     rtc_launches, rtcs = rtc_path(device, cfg, model)
     rtc_errs = rtc_vs_plain(device, cfg, rtcs)
 
+    log('(j) bench\'s training step at full width')
+    step_launches, step_args = train_step(device, cfg)
+
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
+    tt = train_times(device, cfg, *step_args)
+    del step_args
     rt = row_times(device, cfg)
     rtc_t = rtc_times(device, cfg, rtcs)
     log('(f) where the time goes: torch.profiler over 3 forwards at batch %d'
@@ -1616,6 +1847,7 @@ def main():
         'source': 'mxnet_tpu_torch/ops/csrc/flash_attention.cu',
         'replaces': 'mxnet_tpu/ops/pallas_kernels.py:90',
         'body': 'wgmma', 'launches': launches,
+        'train_step_launches': step_launches,
         'max_abs_err': errs[(SERVED_LAYOUT, True)],
         'ms': t['kernel_ms'], 'plain_ms': t['plain_ms'],
         'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'],

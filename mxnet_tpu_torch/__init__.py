@@ -14,10 +14,13 @@ Ported so far:
   ``nd`` namespace generated from it (:mod:`.ndarray`), and the registry
   ops LayerNorm, softmax and softmax_cross_entropy (:mod:`.ops.nn`) on the
   row kernels; ``fused_rmsnorm`` is exported beside them;
-- the imperative NDArray surface: the elementwise and reduce ops
-  (:mod:`.ops.elemwise`, :mod:`.ops.reduce_ops`), NDArray arithmetic,
-  comparison and indexing, and ``mx.rtc`` (:mod:`.rtc`): CUDA C kernel
-  bodies compiled at run time by NVRTC (:mod:`.ops.nvrtc`).
+- the imperative NDArray surface: the elementwise, reduce and shape ops
+  (:mod:`.ops.elemwise`, :mod:`.ops.reduce_ops`, :mod:`.ops.shape_ops`),
+  NDArray arithmetic, comparison and indexing, and ``mx.rtc`` (:mod:`.rtc`):
+  CUDA C kernel bodies compiled at run time by NVRTC (:mod:`.ops.nvrtc`);
+- bench's training step (:func:`.transformer.make_train_step`) and the
+  optimizer stack under it: the fused update ops
+  (:mod:`.ops.optimizer_ops`), :mod:`.optimizer` and :mod:`.lr_scheduler`.
 
 The kernels and their plain versions are in :mod:`.ops.cuda_kernels`.
 """
@@ -31,9 +34,11 @@ from .ops import fused_rmsnorm
 from . import ndarray
 from . import ndarray as nd
 from . import rtc
+from . import lr_scheduler
+from . import optimizer
 from . import transformer
 from . import serving
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context', 'base',
            'config', 'context', 'ops', 'fused_rmsnorm', 'ndarray', 'nd',
-           'rtc', 'transformer', 'serving']
+           'rtc', 'lr_scheduler', 'optimizer', 'transformer', 'serving']

@@ -1,17 +1,32 @@
 """nd — the imperative tensor namespace: the counterpart of
 ``mxnet_tpu/ndarray/__init__.py``.
 
-NDArray and its constructors, ``waitall`` and ``moveaxis``, and one
-generated function per registered op (``nd.LayerNorm``, ``nd.softmax``,
-``nd.broadcast_add``, ``nd.sum``, ``nd.add_n``, ...), called as in the JAX
-package.
+NDArray and its constructors, ``waitall``, ``concatenate``, ``moveaxis``,
+``maximum`` and ``minimum``, and one generated function per registered op
+(``nd.LayerNorm``, ``nd.softmax``, ``nd.broadcast_add``, ``nd.sum``,
+``nd.add_n``, ``nd.stack``, ``nd.sgd_mom_update``, ...), called as in the
+JAX package.
 """
 from .ndarray import (NDArray, array, zeros, ones, empty, full, arange,
-                      invoke, waitall, moveaxis, from_torch)
+                      invoke, waitall, concatenate, stack, moveaxis, from_torch)
 from . import register as _register
 from . import op  # noqa: F401  (generated-op module path)
 
 _register.install_ops(globals())
+
+
+def maximum(lhs, rhs):
+    """The elementwise maximum of an NDArray and an NDArray or a number."""
+    if isinstance(rhs, NDArray):
+        return invoke('broadcast_maximum', [lhs, rhs], {})
+    return invoke('_maximum_scalar', [lhs], {'scalar': float(rhs)})
+
+
+def minimum(lhs, rhs):
+    """The elementwise minimum of an NDArray and an NDArray or a number."""
+    if isinstance(rhs, NDArray):
+        return invoke('broadcast_minimum', [lhs, rhs], {})
+    return invoke('_minimum_scalar', [lhs], {'scalar': float(rhs)})
 
 
 def __getattr__(name):

@@ -11,7 +11,8 @@ the device.
 Ported here: the properties, host transfer, copies and context moves,
 ``astype``, ``reshape`` (with MXNet's special codes), the arithmetic,
 comparison and in-place dunders (through the registry's elemwise ops),
-indexing, the reduce and unary method forms, the constructors, ``arange``,
+indexing (negative steps included), the reduce, unary and shape-op method
+forms, the constructors, ``arange``, ``concatenate``, ``stack``,
 ``moveaxis``, ``waitall`` and :func:`invoke`.
 
 ``reshape`` and ``moveaxis`` may return torch views of the same storage.
@@ -24,8 +25,8 @@ index still out of range is clamped on a read and its write is dropped
 
 Not yet: the autograd tape (``attach_grad``/``backward`` come with
 ``autograd.py``; :func:`invoke` runs ops under ``torch.no_grad``), the
-method forms of ops that are not ported (``log_softmax``, the shape ops),
-the RNG that ``needs_rng`` ops take, and sparse storage.
+method forms of ops that are not ported (``log_softmax``, ``sort``), the
+RNG that ``needs_rng`` ops take, and sparse storage.
 """
 import numpy as np
 import torch
@@ -33,9 +34,11 @@ import torch
 from ..base import MXNetError, dtype_of, normalize_attrs, np_dtype, torch_dtype
 from ..context import Context, current_context
 from ..ops import registry as _reg
+from ..ops.shape_ops import flip_steps, infer_reshape
 
 __all__ = ['NDArray', 'array', 'zeros', 'ones', 'empty', 'full', 'arange',
-           'invoke', 'waitall', 'moveaxis', 'from_torch']
+           'invoke', 'waitall', 'concatenate', 'stack', 'moveaxis',
+           'from_torch']
 
 _NUMERIC = (float, int, np.generic)
 
@@ -103,6 +106,12 @@ class NDArray:
             raise TypeError('len() of unsized object')
         return self.shape[0]
 
+    def __bool__(self):
+        if self.size != 1:
+            raise ValueError('The truth value of an NDArray with multiple '
+                             'elements is ambiguous.')
+        return bool(self.asscalar())
+
     # -- synchronization --------------------------------------------------
     def wait_to_read(self):
         """Wait until the device has finished the work queued on it
@@ -156,7 +165,7 @@ class NDArray:
         if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
             shape = tuple(shape[0])
         shape = kwargs.get('shape', shape)
-        out = _infer_reshape(list(self.shape), list(shape))
+        out = infer_reshape(list(self.shape), list(shape))
         return NDArray(self._data.reshape(out), self._ctx)
 
     def broadcast_to(self, shape):
@@ -166,6 +175,71 @@ class NDArray:
         return invoke('broadcast_axes', [self],
                       {'axis': (axis,) if isinstance(axis, int) else tuple(axis),
                        'size': (size,) if isinstance(size, int) else tuple(size)})
+
+    # -- method forms of the shape ops ------------------------------------
+    def reshape_like(self, other):
+        return invoke('reshape_like', [self, other], {})
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return invoke('transpose', [self], {'axes': axes} if axes else {})
+
+    @property
+    def T(self):
+        return self.transpose()
+
+    def flatten(self):
+        return invoke('Flatten', [self], {})
+
+    def expand_dims(self, axis):
+        return invoke('expand_dims', [self], {'axis': axis})
+
+    def squeeze(self, axis=None):
+        return invoke('squeeze', [self], {'axis': axis})
+
+    def swapaxes(self, dim1, dim2):
+        return invoke('SwapAxis', [self], {'dim1': dim1, 'dim2': dim2})
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return invoke('SliceChannel', [self],
+                      {'num_outputs': num_outputs, 'axis': axis,
+                       'squeeze_axis': squeeze_axis})
+
+    def slice(self, begin, end, step=None):
+        return invoke('slice', [self], {'begin': tuple(begin), 'end': tuple(end),
+                                        'step': tuple(step) if step else None})
+
+    def slice_axis(self, axis, begin, end):
+        return invoke('slice_axis', [self],
+                      {'axis': axis, 'begin': begin, 'end': end})
+
+    def take(self, indices, axis=0, mode='clip'):
+        return invoke('take', [self, indices], {'axis': axis, 'mode': mode})
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0, dtype='float32'):
+        return invoke('one_hot', [self], {'depth': depth, 'on_value': on_value,
+                                          'off_value': off_value, 'dtype': dtype})
+
+    def pick(self, index, axis=-1, keepdims=False):
+        return invoke('pick', [self, index], {'axis': axis, 'keepdims': keepdims})
+
+    def clip(self, a_min, a_max):
+        return invoke('clip', [self], {'a_min': a_min, 'a_max': a_max})
+
+    def tile(self, reps):
+        return invoke('tile', [self], {'reps': tuple(reps)})
+
+    def repeat(self, repeats, axis=None):
+        return invoke('repeat', [self], {'repeats': repeats, 'axis': axis})
+
+    def flip(self, axis):
+        return invoke('reverse', [self],
+                      {'axis': (axis,) if isinstance(axis, int) else tuple(axis)})
+
+    def pad(self, mode, pad_width, constant_value=0):
+        return invoke('Pad', [self], {'mode': mode, 'pad_width': tuple(pad_width),
+                                      'constant_value': constant_value})
 
     # -- indexing ---------------------------------------------------------
     def __setitem__(self, key, value):
@@ -334,11 +408,12 @@ def _as_index(k, device):
 
 def _array_axes(key, ndim, device):
     """(key items as torch takes them, {position in key: the axis an
-    integer index array indexes})."""
+    integer index array indexes}, {position in key: the axis a slice with
+    a negative step walks})."""
     items = [_as_index(k, device) for k in _key_items(key)]
     used = sum(k.dim() if isinstance(k, torch.Tensor) and k.dtype == torch.bool
                else 0 if k is None or k is Ellipsis else 1 for k in items)
-    axes, dim = {}, 0
+    axes, flips, dim = {}, {}, 0
     for i, k in enumerate(items):
         if k is Ellipsis:
             dim += ndim - used
@@ -349,8 +424,10 @@ def _array_axes(key, ndim, device):
         else:
             if isinstance(k, torch.Tensor):
                 axes[i] = dim
+            elif isinstance(k, slice) and k.step is not None and k.step < 0:
+                flips[i] = dim
             dim += 1
-    return items, axes
+    return items, axes, flips
 
 
 def _wrap(idx, n):
@@ -360,11 +437,11 @@ def _wrap(idx, n):
 def _read(data, key):
     """``data[key]`` as a new tensor: integer index arrays wrap negative
     indices once and clamp the rest into range, as jnp's gather does."""
-    items, axes = _array_axes(key, data.dim(), data.device)
+    items, axes, flips = _array_axes(key, data.dim(), data.device)
     for i, ax in axes.items():
         n = data.shape[ax]
         items[i] = _wrap(items[i], n).clamp(0, max(n - 1, 0))
-    out = data[tuple(items)]
+    out = flip_steps(data, items, flips)[tuple(items)]
     if out.untyped_storage().data_ptr() == data.untyped_storage().data_ptr():
         out = out.clone()          # a view from basic indexing: copy it
     return out
@@ -375,8 +452,8 @@ def _write(data, key, value):
     arrays wrap negative indices once; a write to an index still out of
     range is dropped, as jnp's ``.at[].set`` drops it: such indices go to a
     scratch slot appended to their axis, which is cut off afterwards."""
-    items, axes = _array_axes(key, data.dim(), data.device)
-    new = data
+    items, axes, flips = _array_axes(key, data.dim(), data.device)
+    new = flip_steps(data, items, flips)
     padded = []
     for i, ax in axes.items():
         n = data.shape[ax]
@@ -394,6 +471,8 @@ def _write(data, key, value):
     new[tuple(items)] = value
     for ax, n in padded:
         new = new.narrow(ax, 0, n)
+    if flips:
+        new = new.flip(tuple(flips.values()))
     return new.contiguous()
 
 
@@ -426,52 +505,19 @@ def _thaw_key(key):
     return key
 
 
-def _infer_reshape(src, target):
-    """The output shape of MXNet's Reshape (the JAX package's
-    ``shape_ops._infer_reshape``)."""
-    out = []
-    src_idx = 0
-    i = 0
-    while i < len(target):
-        t = target[i]
-        if t == 0:
-            out.append(src[src_idx]); src_idx += 1
-        elif t == -1:
-            out.append(-1); src_idx += 1
-        elif t == -2:
-            out.extend(src[src_idx:]); src_idx = len(src)
-        elif t == -3:
-            out.append(src[src_idx] * src[src_idx + 1]); src_idx += 2
-        elif t == -4:
-            a, b = target[i + 1], target[i + 2]
-            cur = src[src_idx]
-            if a == -1:
-                a = cur // b
-            if b == -1:
-                b = cur // a
-            out.extend([a, b]); src_idx += 1; i += 2
-        else:
-            out.append(t); src_idx += 1
-        i += 1
-    if -1 in out:
-        known = int(np.prod([d for d in out if d != -1])) or 1
-        total = int(np.prod(src)) if src else 1
-        out[out.index(-1)] = total // known
-    return out
-
-
 def invoke(op_name, inputs, attrs=None, out=None):
     """Execute a registered op imperatively on the inputs' tensors.
 
     The JAX package runs a cached jit closure and records a vjp on the
     autograd tape; here the op's function runs eagerly under
     ``torch.no_grad`` (the tape comes with ``autograd.py``). The outputs
-    live in the first input's context."""
+    live in the first input's context; those of an op without inputs in
+    the ``ctx`` attr's, or the current one."""
     op = _reg.get(op_name)
     attrs = dict(attrs or {})
     # ctx is an op kwarg in the reference: it directs the placement of ops
-    # without inputs (none is ported) and never reaches the op's function
-    attrs.pop('ctx', None)
+    # without inputs and never reaches the op's function
+    req_ctx = attrs.pop('ctx', None)
     attrs = normalize_attrs(attrs)
     if op.train_aware:
         attrs['__is_train__'] = False     # no autograd recording yet
@@ -488,7 +534,11 @@ def invoke(op_name, inputs, attrs=None, out=None):
         if out_idx < len(outs_t):
             inputs[in_idx]._data = outs_t[out_idx]
 
-    ctx = inputs[0]._ctx
+    if inputs:
+        ctx = inputs[0]._ctx
+    else:       # a source op (_zeros, _arange) builds on the host
+        ctx = req_ctx or current_context()
+        outs_t = tuple(o.to(ctx.torch_device()) for o in outs_t)
     results = [NDArray(outs_t[i], ctx)
                for i in range(op.n_visible_outputs(attrs))]
     if out is not None:
@@ -556,6 +606,21 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype='float32'):
     if repeat > 1:
         arr = np.repeat(arr, repeat)
     return array(arr, ctx, d)
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """``arrays`` joined along ``axis`` (the Concat op)."""
+    return invoke('Concat', list(arrays), {'dim': axis, 'num_args': len(arrays)})
+
+
+def stack(*arrays, **kwargs):
+    """``arrays`` (or one list of them) stacked on a new ``axis``. The
+    ``nd`` namespace's ``stack`` is the generated op, as in the JAX
+    package."""
+    axis = kwargs.get('axis', 0)
+    arrs = (list(arrays[0]) if len(arrays) == 1
+            and isinstance(arrays[0], (list, tuple)) else list(arrays))
+    return invoke('stack', arrs, {'axis': axis, 'num_args': len(arrs)})
 
 
 def moveaxis(tensor, source, destination):

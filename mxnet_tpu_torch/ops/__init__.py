@@ -3,14 +3,18 @@
 :mod:`.registry` holds them; :mod:`.nn` registers LayerNorm, softmax and
 softmax_cross_entropy, :mod:`.elemwise` the elementwise unary, binary,
 scalar and comparison ops and ``add_n``, :mod:`.reduce_ops` the reductions
-and broadcasts. :mod:`.cuda_kernels` holds the hand-written CUDA
-kernels (built from ``csrc/`` at first use) beside their plain versions,
-and :mod:`.nvrtc` compiles CUDA C at run time for :mod:`..rtc`.
+and broadcasts, :mod:`.shape_ops` the shape, indexing and init ops, and
+:mod:`.optimizer_ops` the fused optimizer updates. :mod:`.cuda_kernels`
+holds the hand-written CUDA kernels (built from ``csrc/`` at first use)
+beside their plain versions, and :mod:`.nvrtc` compiles CUDA C at run time
+for :mod:`..rtc`.
 """
 from . import registry
 from . import nn                  # noqa: F401  (registers its ops)
 from . import elemwise            # noqa: F401  (registers its ops)
 from . import reduce_ops          # noqa: F401  (registers its ops)
+from . import shape_ops           # noqa: F401  (registers its ops)
+from . import optimizer_ops       # noqa: F401  (registers its ops)
 from .registry import register, get, list_ops, exists
 from .cuda_kernels import (flash_attention, flash_attention_lse,
                            fused_rmsnorm, fused_layernorm, fused_softmax,

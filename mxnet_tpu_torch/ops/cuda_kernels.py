@@ -208,13 +208,16 @@ flash_fwd.launches_by_body = dict.fromkeys(_BODIES, 0)
 
 class _FlashFunction(torch.autograd.Function):
     """The kernel's forward; a backward that recomputes through the plain
-    version (the counterpart of the custom_vjp pair in pallas_kernels)."""
+    version (the counterpart of the custom_vjp pairs in pallas_kernels):
+    :func:`flash_attention`'s through :func:`flash_attention_ref` (softmax,
+    as ``_flash_bwd`` through ``_flash_ref``), :func:`flash_attention_lse`'s
+    through :func:`flash_attention_lse_ref` (as ``_flash_lse_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, with_lse):
         out, lse = flash_fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.with_lse = causal, scale, with_lse
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -222,13 +225,16 @@ class _FlashFunction(torch.autograd.Function):
     def backward(ctx, g_out, g_lse):
         q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
         with torch.enable_grad():
-            out, lse = flash_attention_lse_ref(q, k, v, ctx.causal, ctx.scale)
-            used = [(o, g) for o, g in ((out, g_out), (lse, g_lse))
+            if ctx.with_lse:
+                outs = flash_attention_lse_ref(q, k, v, ctx.causal, ctx.scale)
+            else:
+                outs = (flash_attention_ref(q, k, v, ctx.causal, ctx.scale),)
+            used = [(o, g) for o, g in zip(outs, (g_out, g_lse))
                     if g is not None]
             dq, dk, dv = torch.autograd.grad([o for o, _ in used], (q, k, v),
                                              [g for _, g in used],
                                              allow_unused=True)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_lse(q, k, v, causal=False, scale=None, block_q=128,
@@ -241,14 +247,14 @@ def flash_attention_lse(q, k, v, causal=False, scale=None, block_q=128,
     and on Tk == 0; returns zeros, launching nothing, when B*H == 0 or
     Tq == 0."""
     del block_q, block_k
-    return _FlashFunction.apply(q, k, v, bool(causal), scale)
+    return _FlashFunction.apply(q, k, v, bool(causal), scale, True)
 
 
 def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
                     block_k=128):
     """:func:`flash_attention_lse` without the lse."""
     del block_q, block_k
-    return _FlashFunction.apply(q, k, v, bool(causal), scale)[0]
+    return _FlashFunction.apply(q, k, v, bool(causal), scale, False)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -10,12 +10,15 @@ gives the dtype that the jnp op gives with 64-bit types off:
 - comparisons and the logical ops return the lhs dtype, not bool;
 - a float-valued op of an integer x gives float32 (``jnp.sqrt``), and so
   does a quotient of integers;
-- mod is floor-mod (``jnp.mod``, ``torch.remainder``); cbrt keeps the sign
-  of a negative x; gamma is ``exp(gammaln(x))`` and has no sign.
+- mod is floor-mod (``jnp.mod``, ``torch.remainder``), and an integer mod
+  by zero gives 0; cbrt keeps the sign of a negative x and of -0.0; sign
+  of NaN is NaN; gamma is ``exp(gammaln(x))`` and has no sign;
+- where jnp raises ``TypeError`` (``rsqrt`` and ``sigmoid`` of an integer
+  x, an integer x to a negative power), so does the port.
 """
 import torch
 
-from ..base import torch_dtype
+from ..base import dtype_of, torch_dtype
 from .registry import register, register_alias
 
 
@@ -28,7 +31,41 @@ def _inexact(x):
 def _cbrt(x):
     x = _inexact(x)
     xf = x.float()
-    return (torch.sign(xf) * xf.abs().pow(1.0 / 3.0)).to(x.dtype)
+    # copysign keeps -0.0 (and so rcbrt's -inf), as jnp.cbrt does
+    return torch.copysign(xf.abs().pow(1.0 / 3.0), xf).to(x.dtype)
+
+
+def _sign(x):
+    # torch.sign gives 0 for NaN and +0 for -0.0; jnp.sign gives x for both
+    if not x.is_floating_point():
+        return torch.sign(x)
+    return torch.where(torch.isnan(x) | (x == 0), x, torch.sign(x))
+
+
+def _float_only(name, f):
+    """``f`` for a float x; TypeError for an integer x, as jnp raises."""
+    def op(x):
+        if not x.is_floating_point():
+            raise TypeError('%s does not accept dtype %s'
+                            % (name, dtype_of(x.dtype)))
+        return f(x)
+    return op
+
+
+def _mod(a, b):
+    """jnp.mod: floor-mod; an integer mod by zero gives 0, where
+    torch.remainder raises (and faults on the card)."""
+    if torch.promote_types(a.dtype, b.dtype).is_floating_point:
+        return torch.remainder(a, b)
+    zero = b == 0
+    return torch.remainder(a, b.masked_fill(zero, 1)).masked_fill(zero, 0)
+
+
+def _power_scalar(x, s):
+    if not x.is_floating_point() and s < 0:
+        raise TypeError('Integers cannot be raised to negative powers, got '
+                        '%s to the power %d' % (dtype_of(x.dtype), int(s)))
+    return torch.pow(x, s)
 
 
 def _log2(x):
@@ -58,7 +95,7 @@ def _float_op(f):
 
 # unary math (reference elemwise_unary_op.cc registration list)
 _u('abs', torch.abs)
-_u('sign', torch.sign)
+_u('sign', _sign)
 _u('round', torch.round)
 _u('rint', _float_op(torch.round))
 _u('ceil', torch.ceil)
@@ -67,7 +104,7 @@ _u('trunc', torch.trunc)
 _u('fix', torch.trunc)
 _u('square', torch.square)
 _u('sqrt', _float_op(torch.sqrt))
-_u('rsqrt', torch.rsqrt)
+_u('rsqrt', _float_only('rsqrt', torch.rsqrt))
 _u('cbrt', _cbrt)
 _u('rcbrt', lambda x: 1.0 / _cbrt(x))
 _u('exp', _float_op(torch.exp))
@@ -92,7 +129,7 @@ _u('degrees', _float_op(torch.rad2deg))
 _u('radians', _float_op(torch.deg2rad))
 _u('negative', torch.negative)
 _u('reciprocal', lambda x: 1.0 / x)
-_u('sigmoid', torch.sigmoid)
+_u('sigmoid', _float_only('sigmoid', torch.sigmoid))
 _u('softsign', lambda x: x / (1.0 + torch.abs(x)))
 _u('relu', torch.relu)
 _u('erf', _float_op(torch.special.erf))
@@ -157,7 +194,7 @@ register_alias('_mul', 'broadcast_mul')
 _b('broadcast_div', torch.true_divide, elem_alias='elemwise_div')
 register_alias('_div', 'broadcast_div')
 register_alias('_grad_add', 'broadcast_add')
-_b('broadcast_mod', torch.remainder)
+_b('broadcast_mod', _mod)
 register_alias('_mod', 'broadcast_mod')
 _b('broadcast_power', torch.pow)
 register_alias('_power', 'broadcast_power')
@@ -210,9 +247,9 @@ _s('_rminus_scalar', lambda x, s: s - x)
 _s('_mul_scalar', torch.mul)
 _s('_div_scalar', torch.true_divide)
 _s('_rdiv_scalar', lambda x, s: torch.true_divide(s, x))
-_s('_mod_scalar', torch.remainder)
-_s('_rmod_scalar', lambda x, s: torch.remainder(s, x))
-_s('_power_scalar', torch.pow)
+_s('_mod_scalar', _mod)
+_s('_rmod_scalar', lambda x, s: _mod(s, x))
+_s('_power_scalar', _power_scalar)
 _s('_rpower_scalar', lambda x, s: torch.pow(s, x))
 _s('_maximum_scalar', torch.maximum)
 _s('_minimum_scalar', torch.minimum)

@@ -50,6 +50,8 @@ def _softmax(attrs, x):
     t = attrs.get('temperature', None)
     if t:
         x = x / t
+    if not x.is_floating_point():
+        x = x.float()       # jax.nn.softmax of an integer x is f32
     ax = int(attrs.get('axis', -1)) % x.ndim
     if ax == x.ndim - 1 and use_fused(x):
         return ck.fused_softmax(x)

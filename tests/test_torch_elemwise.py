@@ -149,7 +149,8 @@ DOMAIN = {'arcsin': np.tanh, 'arccos': np.tanh, 'arctanh': lambda x: np.tanh(x) 
           'log2': np.abs, 'sqrt': np.abs, 'rsqrt': lambda x: np.abs(x) + 0.1,
           'log1p': lambda x: np.abs(x) - 0.5, 'gamma': lambda x: np.abs(x) + 0.1,
           'gammaln': lambda x: np.abs(x) + 0.1, 'reciprocal': lambda x: x + 0.05}
-# unary ops the JAX package does not take for an int32 input
+# unary ops the JAX package does not take for an int32 input: both packages
+# raise TypeError (test_op_raises_where_jax_raises)
 NO_INT = {'rsqrt', 'sigmoid'}
 # the int32 input of these avoids 0 (a pole) and negatives (a NaN in f32 that
 # the JAX op gives and torch's gives too, but not at every integer)
@@ -233,10 +234,11 @@ def _cases():
                             _binary_inputs(name, pair)))
         elif 'scalar' in op.param_defaults:
             # an int32 x casts 2.5 to 2 and -1.5 to -1 (the comparisons do
-            # not); int32 to a negative power raises in both packages
+            # not); int32 x to the power -1 raises TypeError in both
+            # packages (test_op_raises_where_jax_raises), (-1) ** x does not
             for dtype in dtypes:
                 for scalar in (2.5, -1.5):
-                    if dtype == 'int32' and scalar < 0 and 'power' in name:
+                    if (dtype, scalar, name) == ('int32', -1.5, '_power_scalar'):
                         continue
                     out.append(('%s-%s-%g' % (name, dtype, scalar), name,
                                 {'scalar': scalar},
@@ -297,6 +299,77 @@ def test_op_matches_jax(case):
     _, name, attrs, arrays = CASES[case]
     got = treg.get(name).fn(dict(attrs), *(_to_torch(a, d) for a, d in arrays))
     _compare(name, got, _jax_results()[case])
+
+
+# Inputs on which the port once differed from the JAX package, each held
+# exactly: equal values, NaN and signed-zero positions equal.
+_EDGE_F = np.array([np.nan, -0.0, 0.0, -2.0, 27.0, -np.inf], np.float32)
+_MOD_L = np.array([5, -5, 0, 7], np.float32)
+_MOD_R = np.array([0, 0, 0, 3], np.float32)
+EXACT_CASES = [
+    ('sign-float32', 'sign', {}, [(_EDGE_F, 'float32')]),
+    ('sign-bfloat16', 'sign', {}, [(_EDGE_F, 'bfloat16')]),
+    ('mod-int32-by-0', 'broadcast_mod', {}, [(_MOD_L, 'int32'), (_MOD_R, 'int32')]),
+    ('mod-float32-by-0', 'broadcast_mod', {}, [(_MOD_L, 'float32'), (_MOD_R, 'float32')]),
+    ('mod_scalar-int32-0', '_mod_scalar', {'scalar': 0.0}, [(_MOD_L, 'int32')]),
+    ('rmod_scalar-int32-0', '_rmod_scalar', {'scalar': 7.0}, [(_MOD_R, 'int32')]),
+    ('softmax-int32', 'softmax', {}, [(_MOD_L, 'int32')]),
+    ('cbrt-float32', 'cbrt', {}, [(_EDGE_F, 'float32')]),
+    ('cbrt-bfloat16', 'cbrt', {}, [(_EDGE_F, 'bfloat16')]),
+    ('rcbrt-float32', 'rcbrt', {}, [(_EDGE_F, 'float32')]),
+]
+
+
+def _exact(got, want, what):
+    got, want = _np(got), _np(want)
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    if want.dtype.kind == 'f' or want.dtype == ml_dtypes.bfloat16:
+        got, want = got.astype(np.float32), want.astype(np.float32)
+        num = ~np.isnan(want)          # a NaN's sign bit carries nothing
+        np.testing.assert_array_equal(np.signbit(got[num]), np.signbit(want[num]),
+                                      what)
+    np.testing.assert_array_equal(got, want, what)   # NaN where NaN
+
+
+@pytest.mark.parametrize('case', EXACT_CASES, ids=[c[0] for c in EXACT_CASES])
+def test_edge_inputs_match_jax_exactly(monkeypatch, case):
+    """sign of NaN and -0.0, integer mod by zero (0, as jnp.mod gives),
+    softmax of int32 (f32), cbrt and rcbrt of -0.0 (-0.0 and -inf)."""
+    monkeypatch.setenv('MXTPU_FORCE_PALLAS', '0')
+    _, name, attrs, arrays = case
+    got = treg.get(name).fn(dict(attrs), *(_to_torch(a, d) for a, d in arrays))
+    want = jax.jit(lambda *xs: jreg.get(name).fn(dict(attrs), *xs))(
+        *(_to_jax(a, d) for a, d in arrays))
+    _exact(got, want, name)
+
+
+RAISES = [('rsqrt-int32', 'rsqrt', {}), ('sigmoid-int32', 'sigmoid', {}),
+          ('_power_scalar-int32--1.5', '_power_scalar', {'scalar': -1.5})]
+
+
+@pytest.mark.parametrize('case', RAISES, ids=[c[0] for c in RAISES])
+def test_op_raises_where_jax_raises(case):
+    """rsqrt and sigmoid of int32, and int32 to a negative power (-1.5 cast
+    to -1), raise TypeError in both packages."""
+    _, name, attrs = case
+    x = np.array([1, 2, 3, 4], np.float32)
+    with pytest.raises(TypeError):
+        jreg.get(name).fn(dict(attrs), _to_jax(x, 'int32'))
+    with pytest.raises(TypeError):
+        treg.get(name).fn(dict(attrs), _to_torch(x, 'int32'))
+
+
+def test_mod_by_zero_through_the_dunders():
+    """NDArray % and the reflected % on int32 with zero divisors."""
+    def steps(lhs, rhs):
+        return [lhs % rhs, lhs % 0, 7 % rhs]
+    got = steps(nd.array(_MOD_L, ctx=cpu(), dtype='int32'),
+                nd.array(_MOD_R, ctx=cpu(), dtype='int32'))
+    want = _mx_jitted(lambda xs: steps(*xs[0]), [[
+        mx.nd.array(_MOD_L, ctx=mx.cpu(), dtype='int32'),
+        mx.nd.array(_MOD_R, ctx=mx.cpu(), dtype='int32')]])
+    for g, w in zip(got, want):
+        _exact(g.asnumpy(), w.asnumpy(), 'mod')
 
 
 def test_traps():
@@ -421,6 +494,16 @@ WRITES = [(np.s_[1:3], 7.0), (np.s_[2], np.arange(6, dtype=np.float32)),
           (np.s_[:, 0], -1), ((_IDX,), 5.0), ((slice(None), _IDX), 3.5),
           ((np.array([0, 5]), np.array([2, 1])), 9.0), (None, 2.0),
           (slice(None), np.arange(6, dtype=np.float32))]
+# negative steps, on arange(60) [3, 4, 5]: reads, then writes of a scalar
+# and of an array in the order the slice walks
+_X60 = np.arange(60, dtype=np.float32).reshape(3, 4, 5)
+STEP_READS = [np.s_[::-1], np.s_[1:, ::-2, ::2], np.s_[:, 10:0:-3],
+              np.s_[5:-10:-1], np.s_[::-1, np.array([0, -1])],
+              np.s_[..., ::-2], np.s_[2:2:-1]]
+STEP_WRITES = [(np.s_[::-1], 7.0),
+               (np.s_[::-2, 1], np.arange(10, dtype=np.float32).reshape(2, 5)),
+               (np.s_[:, ::-1, np.array([4, 0])],
+                np.arange(24, dtype=np.float32).reshape(3, 4, 2))]
 
 
 def _index_steps(base, base_int, key_nd, value_nd):
@@ -454,6 +537,28 @@ def test_setitem_getitem_match_mx_nd():
     assert len(got) == len(want) == len(labels)
     for g, w, label in zip(got, want, labels):
         _same(g, w, label)
+
+
+def _step_indexing(x):
+    out = [x[key] for key in STEP_READS]
+    for key, value in STEP_WRITES:
+        b = x.copy()
+        b[key] = value
+        out.append(b)
+    return out
+
+
+def test_negative_step_slices_match_mx_nd():
+    """Negative-step slices read and write as in mxnet_tpu.nd, exactly."""
+    got = _step_indexing(nd.array(_X60, ctx=cpu()))
+    want = _mx_jitted(lambda xs: _step_indexing(xs[0][0]),
+                      [[mx.nd.array(_X60, ctx=mx.cpu())]])
+    labels = (['read %r' % (k,) for k in STEP_READS]
+              + ['write %r' % (k,) for k, _ in STEP_WRITES])
+    assert len(got) == len(want) == len(labels)
+    for g, w, label in zip(got, want, labels):
+        assert g.shape == w.shape, label
+        _exact(g.asnumpy(), w.asnumpy(), label)
 
 
 def test_writes_do_not_reach_other_ndarrays():

@@ -127,11 +127,15 @@ def test_import_leaves_jax_and_the_jax_package_out():
             'mxnet_tpu_torch.serving, mxnet_tpu_torch.ops.cuda_kernels, '
             'mxnet_tpu_torch.ops.nn, mxnet_tpu_torch.ops.elemwise, '
             'mxnet_tpu_torch.ops.reduce_ops, mxnet_tpu_torch.ops.nvrtc, '
+            'mxnet_tpu_torch.ops.shape_ops, mxnet_tpu_torch.ops.optimizer_ops, '
+            'mxnet_tpu_torch.optimizer, mxnet_tpu_torch.lr_scheduler, '
             'mxnet_tpu_torch.rtc, mxnet_tpu_torch.ndarray, chip_smoke\n'
             'from mxnet_tpu_torch import nd\n'
             'from mxnet_tpu_torch.rtc import Rtc\n'
             'nd.LayerNorm, nd.softmax, nd.softmax_cross_entropy, nd.add_n, '
-            'nd.broadcast_add, nd.sum, nd.arange, nd.waitall\n'
+            'nd.broadcast_add, nd.sum, nd.arange, nd.waitall, nd.Reshape, '
+            'nd.take, nd.concatenate, nd.stack, nd.mp_sgd_mom_update\n'
+            'from mxnet_tpu_torch.transformer import make_train_step\n'
             '# NVRTC and the driver are loaded at the first compile, not here\n'
             'assert not mxnet_tpu_torch.ops.nvrtc._libs\n'
             'bad = sorted(m for m in sys.modules if m == "jax" '
