@@ -73,6 +73,26 @@ order they run:
     learning_rate=0.01, multi_precision=True) and get_updater on NDArrays of
     the bf16 weights, held bit for bit to the registry op's on the same
     gradients;
+(k) bench's default ResNet-50 step and the graph path on the card:
+    (k1) bench.py:291-370 composed from the port's public parts
+    (graph_train.make_train_step: vision.get_model('resnet50_v1'),
+    hybridize, _get_graph with a placeholder of (32, 3, 224, 224),
+    _GraphProgram, infer_shape, make_runner; f32 masters from bench's
+    _host_init on RandomState(0); BN aux cast to bf16 into the graph and
+    stored back as f32; mean(logsumexp - gold) on f32 logits; one
+    mp_sgd_mom_update per master) for five steps, finite and with the loss
+    falling; step 1's loss, gradients and new BN statistics against the
+    same step in f32 compute, and its gradients with the graph in
+    prediction against f32's; the same net through Gluon in f32, its
+    hybridized logits against its imperative ones and the imperative
+    forward's autograd gradients against the runner's; (k2) a Symbol
+    LayerNorm -> FullyConnected -> f32 -> softmax_cross_entropy at bench's
+    transformer widths simple_bind'ed on gpu(0), forward and backward held
+    to the plain versions, with K4's and K3's launches; (k3) nd.LayerNorm,
+    nd.softmax and nd.softmax_cross_entropy at the model's shapes under
+    autograd.record(), backward held to the plain versions, with K3-K5's
+    launches (the kernel record's executor_launches and
+    autograd_launches; K6's are counted in both runs and held at 0);
 (e) times from CUDA events: the flash kernel (wgmma body), its plain
     version and PyTorch's scaled_dot_product_attention at the served shape
     and at [1, 16384, 8, 128], the kernel's bound, the host time of one
@@ -87,7 +107,11 @@ order they run:
     their bounds; the training step of (j) (step ms and tokens/s, on the
     kernel and on the plain attention), its forward, backward and update,
     and one layer's plain-attention recompute in the backward;
-(f) where the forward's device time goes (torch.profiler).
+(f) where the forward's device time goes (torch.profiler);
+(k) the ResNet-50 step's times: step ms and images/s (CUDA events, median
+    of 5 after a warm-up) and the host's wall time, the split into forward
+    and loss, backward and update, and torch.profiler's top device kernels
+    and idle share over 3 steps.
 
 The second-to-last line of its output is the kernel record
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -1469,6 +1493,508 @@ def train_times(device, cfg, step, ref_step, masters0, vel0, tokens, labels):
 
 
 # ---------------------------------------------------------------------------
+# (k) bench's ResNet-50 step through Gluon, the Symbol graph and the
+#     executor; the executor and autograd reaching the row kernels
+# ---------------------------------------------------------------------------
+
+# bench's default model: (zoo name, batch, image side, classes)
+RESNET = ('resnet50_v1', 32, 224, 1000)
+RESNET_STEPS = 5
+RESNET_TIMED = 5
+# What the run holds of the loss over its steps on the fixed batch: that it
+# falls from step 1 to step 2, as the JAX package's own step does at small
+# size (tests/test_torch_resnet_step.py holds both packages to it there).
+# bench's lr 0.1 with momentum 0.9 then overshoots on the fixed batch: the
+# loss rises from step 3 on, in bf16 and in f32 compute alike, and in the
+# JAX package's step at small depth-50 sizes too; the losses are printed,
+# and the f32 steps' beside them.
+# What step 1 in bf16 holds against the same step in f32 compute on the
+# card (the same masters, images and labels), with the reasons:
+# - the loss (a mean of 32 f32 rows of logsumexp - gold): rtol 2e-2. bf16
+#   rounds each activation to 2**-8 relative through 53 convolutions and
+#   BatchNorms; the loss, a smooth function of all of them, moves far less;
+# - the dense layer's gradients (weight and bias): a relative RMS error of
+#   0.15: the bias's is the f32 softmax - onehot of logits that agree to
+#   the loss's precision, the weight's that times the pooled features,
+#   which carry 53 layers of bf16 rounding (several percent; measured
+#   8.6e-2 for the weight and 7.5e-3 for the bias on the H100);
+# - the new BN moving statistics: a relative RMS error of 3e-2 (means and
+#   variances over 1,568-401,408 values a channel of bf16 activations);
+# - the other gradients in training are printed, not held: at bench's
+#   initialisation they move by a few percent in f32 alone for a change of
+#   one part in a million of the images (printed beside them), so bf16's
+#   rounding leaves them far from the f32 ones.
+# What step 1 holds with the graph in prediction (BatchNorm on the moving
+# statistics, 0 and 1 at bench's initialisation), where the f32 gradients
+# move far less for that change of the images (printed): each master's
+# bf16 gradient of bench's loss against its f32 one, relative RMS error
+# median 0.05 and worst 0.2 over the masters (conv biases included). The
+# BatchNorms are then near the identity, the activations grow through the
+# residual sums to logits in the thousands, and bench's loss saturates its
+# softmax, so bf16's rounding of the logits (2**-8 relative) moves the
+# softmax weights of the leading classes and every gradient with them;
+# the largest error is the stem convolution's weight, the end of the
+# longest backward. Measured on the H100: median 1.47e-2, worst 6.69e-2;
+# a gradient lost, or off by a fifth on most masters, fails.
+# tests/test_torch_resnet_step.py holds the port's bf16 gradients in
+# prediction to the JAX package's on a narrow net.
+RESNET_LOSS_RTOL = 2e-2
+RESNET_HEAD_REL_RMS = 0.15
+RESNET_STAT_REL_RMS = 3e-2
+RESNET_PREDICT_REL_RMS = (0.05, 0.2)
+# The same net run imperatively and hybridized in f32, on the same
+# parameters and batch in training: the same ops in the same order, so the
+# logits agree to the f32 rounding of the convolutions' algorithms (cuDNN
+# may pick others for two calls): relative RMS 1e-5. The imperative
+# forward's gradients through autograd against the runner's (its loss
+# through the K3 kernel, the runner's through torch.logsumexp; cuDNN's
+# backward sums in another order on each call): relative RMS 1e-3 a master
+# (the conv biases, noise, excluded as above).
+HYBRID_REL_RMS = 1e-5
+IMPERATIVE_GRAD_REL_RMS = 1e-3
+
+
+def _noise_grad(name):
+    """True for the conv biases, whose gradient is rounding noise."""
+    return '_conv' in name and name.endswith('_bias')
+
+
+def resnet_step(device, spec=RESNET):
+    """Phase (k1): bench's ResNet-50 step (graph_train.make_train_step) for
+    RESNET_STEPS steps; its first step against the same step in f32; the
+    hybridized forward against the imperative one and autograd's gradients
+    against the runner's. Returns what the timing needs."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon, graph_train, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    name, batch, image, classes = spec
+    on_card = device.type == 'cuda'
+    t0 = time.perf_counter()
+    with mt.name.NameManager():
+        step, masters0, aux0, vel0, images, labels, prog = \
+            graph_train.make_train_step(name, batch, image, classes, device)
+    n_params = sum(m.numel() for n, m in zip(prog.arg_names, masters0)
+                   if n != 'data')
+    log('  %s: %d graph ops, %d masters (%d f32 parameters), %d aux states; '
+        'batch %s bf16 and labels from seed 0; built in %.1f s'
+        % (name, len(prog.op_nodes), len(masters0) - 1, n_params,
+           len(aux0), tuple(images.shape), time.perf_counter() - t0))
+
+    masters, aux, vel, losses = masters0, aux0, vel0, []
+    for i in range(RESNET_STEPS):
+        masters, aux, vel, loss = step(masters, aux, vel, images, labels)
+        losses.append(float(loss))
+    finite = all(bool(torch.isfinite(t).all()) for t in masters + aux + vel)
+    del masters, aux, vel
+    with mt.name.NameManager():
+        step32 = graph_train.make_train_step(
+            name, batch, image, classes, device, compute_dtype=torch.float32)[0]
+    masters, aux, vel, losses32 = masters0, aux0, vel0, []
+    for i in range(RESNET_STEPS):
+        masters, aux, vel, loss = step32(masters, aux, vel, images.float(),
+                                         labels)
+        losses32.append(float(loss))
+    del masters, aux, vel, step32
+    log('  %d steps: losses %s; masters, velocities and aux states %s; the '
+        'same steps in f32 compute: losses %s'
+        % (RESNET_STEPS, ['%.6f' % x for x in losses],
+           'finite' if finite else 'NOT FINITE',
+           ['%.6f' % x for x in losses32]))
+    check(finite and all(np.isfinite(losses)), 'the step is not finite')
+    check(losses[1] < losses[0], 'the loss did not fall from step 1 to step '
+          '2: %s' % losses)
+
+    # step 1 against the same step in f32 compute, in training and in
+    # prediction, and the f32 gradients' change for images moved by one
+    # part in a million
+    runner = prog.make_runner()
+    gen = torch.Generator(device=images.device).manual_seed(1)
+    moved = images.float() * (1 + 1e-6 * torch.randn(
+        images.shape, generator=gen, device=images.device))
+    loss16, g16, aux16 = graph_train.loss_and_grads(
+        runner, prog, masters0, aux0, images, labels, torch.bfloat16)
+    loss32, g32, aux32 = graph_train.loss_and_grads(
+        runner, prog, masters0, aux0, images.float(), labels, torch.float32)
+
+    def errs(got, want, keep=lambda n: True):
+        return {n: rel_rms(a, b) for n, a, b in zip(prog.arg_names, got, want)
+                if n != 'data' and keep(n)}
+    grad_err = errs(g16, g32)
+    head = {n: e for n, e in grad_err.items() if '_dense' in n}
+    rest = {n: e for n, e in grad_err.items() if n not in head
+            and not _noise_grad(n)}
+    worst = max(rest, key=rest.get)
+    moved_err = errs(graph_train.loss_and_grads(
+        runner, prog, masters0, aux0, moved, labels, torch.float32)[1], g32,
+        lambda n: n in rest)
+    stat_err = max(rel_rms(a, b) for a, b in zip(aux16, aux32))
+    loss_err = abs(float(loss16) - float(loss32)) / abs(float(loss32))
+    log('  step 1, bf16 against f32 compute: loss %.6f / %.6f (relative error '
+        '%.3e); gradients, relative RMS error: the dense layer\'s %s; the %d '
+        'convolution weights and BatchNorm gammas and betas median %.3e, '
+        'worst %.3e (%s), not held (f32 with the images moved by 1e-6: '
+        'median %.3e, worst %.3e); new BN statistics, worst %.3e'
+        % (float(loss16), float(loss32), loss_err,
+           ', '.join('%.3e' % e for e in head.values()), len(rest),
+           statistics.median(rest.values()), rest[worst], worst,
+           statistics.median(moved_err.values()), max(moved_err.values()),
+           stat_err))
+    check(float(loss16) == losses[0], 'loss_and_grads and the step disagree: '
+          '%r, %r' % (float(loss16), losses[0]))
+    check(loss_err <= RESNET_LOSS_RTOL, 'step 1\'s loss disagrees with f32')
+    check(max(head.values()) <= RESNET_HEAD_REL_RMS,
+          'step 1\'s dense gradients disagree with f32')
+    check(stat_err <= RESNET_STAT_REL_RMS,
+          'step 1\'s new BN statistics disagree with f32')
+    del g16, aux16
+    pred = {}
+    for what, im, dt in (('bf16', images, torch.bfloat16),
+                         ('f32', images.float(), torch.float32),
+                         ('moved', moved, torch.float32)):
+        pred[what] = graph_train.loss_and_grads(
+            runner, prog, masters0, aux0, im, labels, dt, is_train=False)
+    pred_err = errs(pred['bf16'][1], pred['f32'][1])
+    pred_moved = errs(pred['moved'][1], pred['f32'][1])
+    worst_p = max(pred_err, key=pred_err.get)
+    median_p = statistics.median(pred_err.values())
+    log('  step 1 in prediction, bf16 against f32 compute: loss %.6f / %.6f; '
+        'the %d masters\' gradients, relative RMS error median %.3e, worst '
+        '%.3e (%s), held to %s (f32 with the images moved by 1e-6: median '
+        '%.3e, worst %.3e)'
+        % (float(pred['bf16'][0]), float(pred['f32'][0]), len(pred_err),
+           median_p, pred_err[worst_p], worst_p, RESNET_PREDICT_REL_RMS,
+           statistics.median(pred_moved.values()), max(pred_moved.values())))
+    check(median_p <= RESNET_PREDICT_REL_RMS[0]
+          and pred_err[worst_p] <= RESNET_PREDICT_REL_RMS[1],
+          'step 1\'s gradients in prediction disagree with f32')
+    del pred, moved
+
+    # the same net through Gluon, imperative and hybridized, in f32
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    with mt.name.NameManager():
+        net = vision.get_model(name, classes=classes)
+    net.initialize(ctx=ctx)
+    x = nd.from_torch(images.float(), ctx)
+    lab = nd.from_torch(labels, ctx)
+    with autograd.pause():
+        net(x)                              # deferred initialisation
+    values = {n: m.cpu().numpy() for n, m in zip(prog.arg_names, masters0)
+              if n != 'data'}
+    values.update({n: a.cpu().numpy() for n, a in zip(prog.aux_names, aux0)})
+    gluon.params_from_numpy(net, values)
+    del values
+    params = net.collect_params()
+    outs = {}
+    for mode in ('imperative', 'hybridized'):
+        if mode == 'hybridized':
+            net.hybridize()
+        with autograd.record():
+            logits = net(x)
+            loss = nd.softmax_cross_entropy(logits, lab) / batch
+        loss.backward()
+        outs[mode] = (logits.handle.detach(), float(loss.asscalar()),
+                      {n: p.grad(ctx).handle.clone()
+                       for n, p in params.items() if p.grad_req != 'null'})
+    fwd_err = rel_rms(outs['hybridized'][0], outs['imperative'][0])
+    imp_grads = outs['imperative'][2]
+    ag_err = {n: rel_rms(imp_grads[n], g) for n, g in zip(prog.arg_names, g32)
+              if n != 'data' and not _noise_grad(n)}
+    worst_ag = max(ag_err, key=ag_err.get)
+    log('  Gluon %s in f32, training: hybridized logits against the '
+        'imperative forward\'s, relative RMS %.3e (loss %.6f / %.6f; the '
+        'runner\'s %.6f); the imperative forward\'s autograd gradients '
+        'against the runner\'s, worst relative RMS %.3e (%s)'
+        % (name, fwd_err, outs['hybridized'][1], outs['imperative'][1],
+           float(loss32), ag_err[worst_ag], worst_ag))
+    check(fwd_err <= HYBRID_REL_RMS,
+          'the hybridized forward disagrees with the imperative one')
+    check(ag_err[worst_ag] <= IMPERATIVE_GRAD_REL_RMS,
+          'autograd\'s gradients disagree with the runner\'s')
+    del net, params, outs, imp_grads, g32, aux32, x
+    return dict(step=step, masters=masters0, aux=aux0, vel=vel0,
+                images=images, labels=labels, prog=prog, runner=runner,
+                losses=losses)
+
+
+def resnet_times(device, step, masters, aux, vel, images, labels, prog,
+                 runner, losses):
+    """Phase (k1)'s times: step ms and images/s (CUDA events, median of
+    RESNET_TIMED after a warm-up), the host's wall time of a step, the split
+    into forward and loss, backward and update, and the profiler's top
+    device kernels and idle share over 3 steps."""
+    import torch
+    from mxnet_tpu_torch import graph_train
+    from mxnet_tpu_torch.ops.registry import get as get_op
+    batch = images.shape[0]
+
+    def one():
+        return step(masters, aux, vel, images, labels)
+    step_ms = device_ms(one, runs=RESNET_TIMED, warmup=1)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(RESNET_TIMED):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    log('  step, batch %d x 3 x %d x %d: %.3f ms by CUDA events (%.1f '
+        'images/s); host wall time %.3f ms (%.1f images/s)'
+        % (batch, images.shape[2], images.shape[3], step_ms,
+           batch / step_ms * 1e3, wall_ms, batch / wall_ms * 1e3))
+
+    update = get_op('mp_sgd_mom_update').fn
+    data_idx = prog.arg_names.index('data')
+    phases = []
+    for _ in range(RESNET_TIMED + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda._sleep(2_000_000)
+        ev[0].record()
+        args = [images if i == data_idx
+                else m.to(torch.bfloat16).requires_grad_()
+                for i, m in enumerate(masters)]
+        with torch.enable_grad():
+            outs, _ = runner(tuple(args), tuple(a.to(torch.bfloat16)
+                                                for a in aux), 0, True)
+            logits = outs[0].float()
+            loss = (torch.logsumexp(logits, -1) - logits.gather(
+                -1, labels.long()[:, None])[:, 0]).mean()
+        ev[1].record()
+        wrt = [a for i, a in enumerate(args) if i != data_idx]
+        grads = torch.autograd.grad(loss, wrt)
+        ev[2].record()
+        with torch.no_grad():
+            for m, g, v in zip([m for i, m in enumerate(masters)
+                                if i != data_idx], grads,
+                               [v for i, v in enumerate(vel) if i != data_idx]):
+                update(graph_train.TRAIN_ATTRS, m.to(torch.bfloat16), g, v, m)
+        ev[3].record()
+        ev[3].synchronize()
+        phases.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        del args, outs, logits, loss, grads, wrt
+    fwd_ms, bwd_ms, upd_ms = (statistics.median(p[i] for p in phases[1:])
+                              for i in range(3))
+    log('  where a step goes (medians of %d): forward and loss %.3f ms, '
+        'backward %.3f ms, update (%d mp_sgd_mom_update calls) %.3f ms'
+        % (RESNET_TIMED, fwd_ms, bwd_ms, len(masters) - 1, upd_ms))
+    profile_steps(one, set(prog.scope_names))
+    return dict(step_ms=step_ms, wall_ms=wall_ms, fwd_ms=fwd_ms,
+                bwd_ms=bwd_ms, update_ms=upd_ms)
+
+
+def profile_steps(one, ranges, n=3):
+    """Device time by kernel over ``n`` calls of ``one``, the device's idle
+    share of the span from the first kernel's start to the last one's end,
+    and the host time the calls took. ``ranges``: the names of the
+    record_function ranges that ``one`` opens, which the profiler also
+    puts on the device's timeline, over the kernels they hold (not
+    counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            one()
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.name not in ranges
+               and not getattr(e, 'is_user_annotation', False)]
+    if not kernels:
+        log('  the profiler recorded no device activity: not measured')
+        return
+    by_name, count = {}, {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        count[e.name] = count.get(e.name, 0) + 1
+    busy = sum(by_name.values())
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels))
+    log('  torch.profiler over %d steps: %d kernels a step, %.3f ms busy a '
+        'step, idle share %.4f of the %.3f ms span; %.3f ms of host time a '
+        'step under the profiler'
+        % (n, len(kernels) // n, busy / n / 1e3, 1 - busy / span,
+           span / n / 1e3, host_ms))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log('    %6.2f%%  %8.3f ms/step  %5d/step  %s'
+            % (100 * us / busy, us / n / 1e3, count[name] // n, name[:100]))
+
+
+# Phase (k2)'s symbol at bench's transformer widths: LayerNorm over x
+# [8192, 1024] bf16, FullyConnected to V = 16384 without a bias, the logits
+# cast to f32, softmax_cross_entropy against labels. Tolerances against the
+# plain versions composed with torch autograd on the same tensors: the loss
+# (a sum of 8,192 f32 rows of about 10) to 1e-3 relative: the LayerNorm
+# kernel's bf16 output may differ from the plain version's by one bf16 ulp
+# in an element (phase (g)), which moves each logit it feeds by up to
+# 2**-9 of that element's term; each gradient (bf16) to a relative RMS
+# error of 1e-2: LayerNorm's
+# backward recomputes through its plain version on both sides, the
+# cross-entropy's is (softmax - onehot) * g in f32 against autograd's of
+# log_softmax, so each bf16 gradient element may round to a neighbouring
+# value (2**-8 relative, 2**-7 near powers of two).
+EXEC_LOSS_RTOL = 1e-3
+EXEC_GRAD_REL_RMS = 1e-2
+
+
+def executor_kernels(device, cfg):
+    """Phase (k2): a Symbol LayerNorm -> FullyConnected -> Cast ->
+    softmax_cross_entropy simple_bind'ed on the card, forward(is_train=True)
+    and backward, with K4's and K3's launch counts. Returns {wrapper:
+    launches}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    sym = mt.sym
+    N, D, V = MAX_BATCH * cfg.seq_len, cfg.d_model, cfg.vocab
+    ctx = mt.gpu(device.index or 0) if device.type == 'cuda' else mt.cpu()
+    x = sym.var('x')
+    logits = sym.Cast(sym.FullyConnected(sym.LayerNorm(x, name='ln'),
+                                         num_hidden=V, no_bias=True,
+                                         name='head'), dtype='float32')
+    loss = sym.softmax_cross_entropy(logits, sym.var('label'))
+    reqs = {'x': 'write', 'ln_gamma': 'write', 'ln_beta': 'write',
+            'head_weight': 'write', 'label': 'null'}
+    ex = loss.simple_bind(ctx, grad_req=reqs,
+                          type_dict={'x': 'bfloat16', 'label': 'int32'},
+                          x=(N, D), label=(N,))
+    g = torch.Generator(device=device).manual_seed(21)
+    vals = {'x': torch.randn(N, D, generator=g, device=device),
+            'ln_gamma': 1 + 0.1 * torch.randn(D, generator=g, device=device),
+            'ln_beta': 0.1 * torch.randn(D, generator=g, device=device),
+            'head_weight': torch.randn(V, D, generator=g, device=device)
+            / math.sqrt(D)}
+    vals = {n: v.to(torch.bfloat16) for n, v in vals.items()}
+    vals['label'] = torch.randint(0, V, (N,), generator=g, device=device,
+                                  dtype=torch.int32)
+    for n, v in vals.items():
+        check(ex.arg_dict[n].handle.dtype == v.dtype,
+              'simple_bind gave %s %s' % (n, ex.arg_dict[n].handle.dtype))
+        ex.arg_dict[n]._data = v
+
+    counters = (ck.layernorm_fwd, ck.rmsnorm_fwd, ck.softmax_fwd,
+                ck.softmax_xent_fwd)
+    # the main path: counts are zeroed just before and read just after
+    for fwd in counters:
+        fwd.launches = 0
+    out = ex.forward(is_train=True)[0]
+    ex.backward()
+    out.wait_to_read()
+    launches = {fwd.__name__: fwd.launches for fwd in counters}
+    want = {'layernorm_fwd': 1, 'rmsnorm_fwd': 0, 'softmax_fwd': 0,
+            'softmax_xent_fwd': 1}
+    if device.type != 'cuda':
+        want = dict.fromkeys(want, 0)
+    log('  simple_bind(x [%d, %d] bf16 -> LayerNorm -> FullyConnected to %d '
+        '-> f32 -> softmax_cross_entropy), forward(is_train=True) and '
+        'backward: launches %s' % (N, D, V, launches))
+    check(launches == want, 'executor launches %s != %s' % (launches, want))
+
+    leaves = {n: vals[n].clone().requires_grad_() for n in reqs
+              if reqs[n] != 'null'}
+    h = ck.layernorm_ref(leaves['x'], leaves['ln_gamma'], leaves['ln_beta'])
+    z = (h @ leaves['head_weight'].t()).float()
+    ref = ck.softmax_xent_ref(z, vals['label']).sum()
+    grads = torch.autograd.grad(ref, list(leaves.values()))
+    ref_loss = float(ref.detach())
+    loss_err = abs(float(out.asscalar()) - ref_loss) / abs(ref_loss)
+    errs = {n: rel_rms(ex.grad_dict[n].handle, gr)
+            for n, gr in zip(leaves, grads)}
+    log('  loss %.4f against the plain versions\' %.4f (relative error '
+        '%.3e); gradients, relative RMS error %s'
+        % (float(out.asscalar()), ref_loss, loss_err,
+           ', '.join('%s %.3e' % kv for kv in errs.items())))
+    check(loss_err <= EXEC_LOSS_RTOL, 'the executor\'s loss disagrees')
+    check(max(errs.values()) <= EXEC_GRAD_REL_RMS,
+          'the executor\'s gradients disagree')
+    return launches
+
+
+# Phase (k3)'s tolerances: each gradient against the plain version's
+# autograd gradient on the same tensors and head gradients. LayerNorm's
+# backward recomputes through its plain version: equal up to the order of
+# the sums, relative RMS 1e-3 (bf16 results); softmax's reads the kernel's
+# y, one bf16 rounding from the plain y, relative RMS 1e-2; the
+# cross-entropy's (f32 logits) relative RMS 1e-5.
+AUTOGRAD_REL_RMS = {'layernorm': 1e-3, 'softmax': 1e-2, 'softmax_xent': 1e-5}
+
+
+def autograd_kernels(device, cfg):
+    """Phase (k3): nd.LayerNorm on [8, 1024, 1024] bf16, nd.softmax on one
+    layer's scores [8, 8, 1024, 1024] bf16 and nd.softmax_cross_entropy on
+    f32 logits [8192, 16384] under autograd.record(), then backward, with
+    K3-K5's launch counts. Returns {wrapper: launches}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    ctx = mt.gpu(device.index or 0) if device.type == 'cuda' else mt.cpu()
+    shapes = model_shapes(cfg)
+    x, gamma, beta = row_inputs('layernorm', shapes['layernorm'], 'bfloat16',
+                                device, seed=31)
+    scores, = row_inputs('softmax', shapes['softmax'], 'bfloat16', device,
+                         seed=32)
+    N, V = MAX_BATCH * cfg.seq_len, cfg.vocab
+    g = torch.Generator(device=device).manual_seed(33)
+    logits = 3 * torch.randn(N, V, generator=g, device=device)
+    labels = torch.randint(0, V, (N,), generator=g, device=device,
+                           dtype=torch.int32)
+    heads = [torch.randn(x.shape, generator=g, device=device).to(x.dtype),
+             torch.randn(scores.shape, generator=g,
+                         device=device).to(scores.dtype)]
+    arrays = [nd.from_torch(t.clone(), ctx)
+              for t in (x, gamma, beta, scores, logits)]
+    for a in arrays:
+        a.attach_grad()
+    xa, ga, ba, sa, la = arrays
+
+    counters = (ck.layernorm_fwd, ck.rmsnorm_fwd, ck.softmax_fwd,
+                ck.softmax_xent_fwd)
+    # the main path: counts are zeroed just before and read just after
+    for fwd in counters:
+        fwd.launches = 0
+    with autograd.record():
+        h = nd.LayerNorm(xa, ga, ba, eps=1e-5)
+        p = nd.softmax(sa)
+        loss = nd.softmax_cross_entropy(la, nd.from_torch(labels, ctx))
+    autograd.backward([h, p, loss], [nd.from_torch(heads[0], ctx),
+                                     nd.from_torch(heads[1], ctx), None])
+    loss.wait_to_read()
+    launches = {fwd.__name__: fwd.launches for fwd in counters}
+    want = {'layernorm_fwd': 1, 'rmsnorm_fwd': 0, 'softmax_fwd': 1,
+            'softmax_xent_fwd': 1}
+    if device.type != 'cuda':
+        want = dict.fromkeys(want, 0)
+    log('  autograd.record(): nd.LayerNorm %s, nd.softmax %s, '
+        'nd.softmax_cross_entropy %s, then backward: launches %s'
+        % (tuple(x.shape), tuple(scores.shape), tuple(logits.shape), launches))
+    check(launches == want, 'autograd launches %s != %s' % (launches, want))
+
+    leaves = [t.clone().requires_grad_() for t in (x, gamma, beta, scores,
+                                                    logits)]
+    want_h = ck.layernorm_ref(*leaves[:3], 1e-5)
+    want_p = ck.softmax_ref(leaves[3])
+    want_l = ck.softmax_xent_ref(leaves[4], labels).sum()
+    ref = torch.autograd.grad([want_h, want_p, want_l], leaves,
+                              [heads[0], heads[1], None])
+    errs = {}
+    for kernel, idx in (('layernorm', (0, 1, 2)), ('softmax', (3,)),
+                        ('softmax_xent', (4,))):
+        errs[kernel] = max(rel_rms(arrays[i].grad.handle, ref[i])
+                           for i in idx)
+    log('  gradients against the plain versions\', worst relative RMS error: '
+        '%s' % ', '.join('%s %.3e' % kv for kv in errs.items()))
+    for kernel, e in errs.items():
+        check(e <= AUTOGRAD_REL_RMS[kernel],
+              'autograd\'s %s gradient disagrees' % kernel)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # (e) times of the row kernels
 # ---------------------------------------------------------------------------
 
@@ -1773,6 +2299,20 @@ def profile_forward(device, model, cfg, n=3):
                                                  name[:110]))
 
 
+def phase_k(device, cfg, spec=RESNET):
+    """Phase (k): (k1) bench's ResNet-50 step, (k2) the executor and (k3)
+    autograd reaching the row kernels. Returns ((k2)'s launches, (k3)'s,
+    what (k1)'s times need)."""
+    log('  (k1) bench\'s %s step at batch %d x %d x %d' % (
+        spec[0], spec[1], spec[2], spec[2]))
+    resnet = resnet_step(device, spec)
+    log('  (k2) the executor reaches the kernels')
+    exec_launches = executor_kernels(device, cfg)
+    log('  (k3) autograd reaches the kernels')
+    ag_launches = autograd_kernels(device, cfg)
+    return exec_launches, ag_launches, resnet
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1804,10 +2344,11 @@ def main():
             if 'Function properties' in line or 'registers' in line or 'spill' in line:
                 log('   ', line.strip())
 
+    cfg = TransformerConfig()
+
     log('(c) flash kernel vs plain version')
     errs = kernel_vs_plain(device)
 
-    cfg = TransformerConfig()
     log('(g) row kernels vs plain versions')
     row_kernels_vs_plain(device, cfg)
 
@@ -1831,6 +2372,9 @@ def main():
     log('(j) bench\'s training step at full width')
     step_launches, step_args = train_step(device, cfg)
 
+    log('(k) bench\'s ResNet-50 step, the executor and autograd on the card')
+    exec_launches, ag_launches, resnet = phase_k(device, cfg)
+
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
     tt = train_times(device, cfg, *step_args)
@@ -1840,6 +2384,9 @@ def main():
     log('(f) where the time goes: torch.profiler over 3 forwards at batch %d'
         % MAX_BATCH)
     profile_forward(device, model, cfg)
+    log('(k) times of bench\'s ResNet-50 step')
+    resnet_times(device, **resnet)
+    del resnet
     log('  total %.1f s' % (time.perf_counter() - t_start))
 
     record = {'kernels': [{
@@ -1858,6 +2405,8 @@ def main():
             'source': 'mxnet_tpu_torch/ops/csrc/row_kernels.cu',
             'replaces': ROW_REPLACES[kernel],
             'launches': row_launches[row_fns(kernel)[0].__name__],
+            'executor_launches': exec_launches[row_fns(kernel)[0].__name__],
+            'autograd_launches': ag_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):
         record['kernels'].append({

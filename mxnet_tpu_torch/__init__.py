@@ -20,7 +20,14 @@ Ported so far:
   CUDA C kernel bodies compiled at run time by NVRTC (:mod:`.ops.nvrtc`);
 - bench's training step (:func:`.transformer.make_train_step`) and the
   optimizer stack under it: the fused update ops
-  (:mod:`.ops.optimizer_ops`), :mod:`.optimizer` and :mod:`.lr_scheduler`.
+  (:mod:`.ops.optimizer_ops`), :mod:`.optimizer` and :mod:`.lr_scheduler`;
+- bench's default ResNet-50 step (:func:`.graph_train.make_train_step`)
+  through the layers under it: :mod:`.random` (a torch.Generator per
+  device) and the samplers (:mod:`.ops.random_ops`, ``nd.random``),
+  :mod:`.autograd` (torch's graph as the tape), the ResNet op set of
+  :mod:`.ops.nn`, :mod:`.initializer`, :mod:`.symbol` with its shape and
+  type inference, :mod:`.executor`, and :mod:`.gluon` (parameters, blocks,
+  the ``nn`` layers and the ResNets of ``model_zoo.vision``).
 
 The kernels and their plain versions are in :mod:`.ops.cuda_kernels`.
 """
@@ -38,7 +45,21 @@ from . import lr_scheduler
 from . import optimizer
 from . import transformer
 from . import serving
+from . import random
+from . import autograd
+from . import attribute
+from . import name
+from . import initializer
+from . import initializer as init
+from . import symbol
+from . import symbol as sym
+from . import executor
+from . import gluon
+from . import graph_train
+from .attribute import AttrScope
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context', 'base',
            'config', 'context', 'ops', 'fused_rmsnorm', 'ndarray', 'nd',
-           'rtc', 'lr_scheduler', 'optimizer', 'transformer', 'serving']
+           'rtc', 'lr_scheduler', 'optimizer', 'transformer', 'serving',
+           'random', 'autograd', 'attribute', 'name', 'initializer', 'init',
+           'symbol', 'sym', 'executor', 'gluon', 'graph_train', 'AttrScope']

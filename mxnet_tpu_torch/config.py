@@ -10,7 +10,21 @@ the JAX package's, so one environment drives both packages:
 - ``MXTPU_SERVE_MAX_BATCH``: the serving engine's largest batch bucket;
 - ``MXTPU_FORCE_PALLAS``: take the kernel branch of the registry ops for
   CPU tensors too (their plain versions there), as the JAX package takes
-  its Pallas kernels in interpret mode off the TPU.
+  its Pallas kernels in interpret mode off the TPU;
+- ``MXTPU_BN_ONEPASS``: BatchNorm's training statistics in one pass
+  (shifted moments) or two (mean, then centred squares);
+- ``MXTPU_BACKWARD_DO_MIRROR`` (alias ``MXNET_BACKWARD_DO_MIRROR``): the
+  executor's and hybridized blocks' recompute of the forward in the
+  backward (``torch.utils.checkpoint``);
+- ``MXTPU_CONV_STEM_S2D`` and ``MXTPU_CONV_BWD_PATCHES``: the JAX
+  package's two TPU lowerings of Convolution (space-to-depth for the stem,
+  an im2col matmul for the weight gradient). Both compute the same
+  function as the plain convolution; the port declares them so that one
+  environment drives both packages, and they change nothing here: every
+  Convolution is one ``F.conv1d/2d/3d`` call (cuDNN on the card).
+
+A flag may name aliases (the reference's ``MXNET_*`` spellings), read when
+the flag's own name is unset.
 """
 import os
 import threading
@@ -20,8 +34,9 @@ __all__ = ['Flag', 'FlagRegistry', 'flags']
 
 class Flag:
     def __init__(self, name, type_, default, doc, min_value=None,
-                 max_value=None):
+                 max_value=None, aliases=()):
         self.name = name
+        self.aliases = tuple(aliases)
         self.type = type_
         self.default = default
         self.doc = doc
@@ -66,7 +81,12 @@ class FlagRegistry:
             if name in self._cache:
                 return self._cache[name]
             flag = self._flags[name]  # KeyError = undeclared flag: a bug
-            val = flag.parse(os.environ.get(flag.name))
+            raw = os.environ.get(flag.name)
+            for alias in flag.aliases:
+                if raw is not None:
+                    break
+                raw = os.environ.get(alias)
+            val = flag.parse(raw)
             self._cache[name] = val
             return val
 
@@ -92,3 +112,21 @@ flags.declare('MXTPU_SERVE_MAX_BATCH', int, 32,
               'and requests pad up to the smallest covering bucket or are '
               'cut into chunks of the largest',
               min_value=1, max_value=65536)
+flags.declare('MXTPU_BN_ONEPASS', bool, True,
+              'BatchNorm training statistics by one-pass shifted moments '
+              '(sum and sum of squares of x - pivot, the variance clamped '
+              'at 0) instead of the two-pass mean, then mean of centred '
+              'squares')
+flags.declare('MXTPU_BACKWARD_DO_MIRROR', str, '0',
+              "Recompute the forward in the backward: '1' (any truthy "
+              "value) the whole forward, 'dots' all but the convolution "
+              "and matmul results, '0'/''/'false' off",
+              aliases=('MXNET_BACKWARD_DO_MIRROR',))
+flags.declare('MXTPU_CONV_BWD_PATCHES', bool, False,
+              'Declared for the JAX package, where it computes conv2d weight '
+              'gradients as an im2col matmul; the same function, so it '
+              'changes nothing in the port')
+flags.declare('MXTPU_CONV_STEM_S2D', bool, False,
+              'Declared for the JAX package, where it rewrites thin-input '
+              'strided convolutions as space-to-depth; the same function, '
+              'so it changes nothing in the port')

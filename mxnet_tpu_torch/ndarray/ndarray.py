@@ -23,15 +23,25 @@ Integer index arrays follow jnp: a negative index counts from the end, an
 index still out of range is clamped on a read and its write is dropped
 (never passed to torch, where it would fault on the card).
 
-Not yet: the autograd tape (``attach_grad``/``backward`` come with
-``autograd.py``; :func:`invoke` runs ops under ``torch.no_grad``), the
-method forms of ops that are not ported (``log_softmax``, ``sort``), the
-RNG that ``needs_rng`` ops take, and sparse storage.
+Autograd (:mod:`..autograd`): while recording, :func:`invoke` runs a
+differentiable op with grad enabled, so torch's graph is the tape; outside
+it ops run under ``torch.no_grad``. ``attach_grad`` marks an array as a
+variable, whose tensor ``_data`` keeps as a leaf that requires grad
+whatever it is rebound to (an optimizer's ``out=`` write, ``x[:] = ...``),
+as the JAX package keeps its leaf on the NDArray, not on the value. The
+direct tensor methods (``astype``, ``reshape``, indexing, ``copyto``) record
+only while recording, too. A ``needs_rng`` op gets its device's generator
+(:func:`..random.generator`).
+
+Not yet: the method forms of ops that are not ported (``log_softmax``,
+``sort``), and sparse storage.
 """
 import numpy as np
 import torch
 
-from ..base import MXNetError, dtype_of, normalize_attrs, np_dtype, torch_dtype
+from .. import autograd as _ag
+from .. import random as _random
+from ..base import dtype_of, normalize_attrs, np_dtype, torch_dtype
 from ..context import Context, current_context
 from ..ops import registry as _reg
 from ..ops.shape_ops import flip_steps, infer_reshape
@@ -61,11 +71,29 @@ def _context_of(tensor):
 class NDArray:
     """Multi-dimensional, context-bound array (reference ndarray.py:150)."""
 
-    __slots__ = ('_data', '_ctx', '__weakref__')
+    __slots__ = ('_t', '_ctx', '_grad', '_grad_req', '_fresh_grad', '_hist',
+                 '__weakref__')
 
     def __init__(self, data, ctx=None):
-        self._data = data
+        self._grad = None
+        self._grad_req = None       # set by autograd.mark_variables
+        self._fresh_grad = True
+        self._hist = None           # the recorded op behind it, if any
+        self._t = data
         self._ctx = ctx if ctx is not None else _context_of(data)
+
+    @property
+    def _data(self):
+        """The backing tensor."""
+        return self._t
+
+    @_data.setter
+    def _data(self, tensor):
+        # a marked variable stays a leaf of the graph, whatever its value
+        # is rebound to
+        if self._grad_req is not None:
+            tensor = _ag.make_leaf(self, tensor)
+        self._t = tensor
 
     # -- basic properties -------------------------------------------------
     @property
@@ -96,6 +124,26 @@ class NDArray:
     def handle(self):
         """The backing torch.Tensor."""
         return self._data
+
+    @property
+    def grad(self):
+        """The gradient buffer ``attach_grad`` made, or None."""
+        return self._grad
+
+    # -- autograd ---------------------------------------------------------
+    def attach_grad(self, grad_req='write', stype=None):
+        """Mark this array as a variable with a zero gradient buffer."""
+        grad = NDArray(torch.zeros_like(self._data.detach()), self._ctx)
+        _ag.mark_variables([self], [grad], grad_req)
+        self._fresh_grad = True
+
+    def detach(self):
+        """The same value, outside any recorded graph."""
+        return NDArray(self._data.detach(), self._ctx)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        _ag.backward([self], [out_grad] if out_grad is not None else None,
+                     retain_graph, train_mode)
 
     def __repr__(self):
         return '\n%s\n<NDArray %s @%s>' % (
@@ -140,12 +188,15 @@ class NDArray:
 
     def copyto(self, other):
         """Copy into ``other`` (an NDArray, whose data is rebound) or onto a
-        Context (a new NDArray)."""
-        if isinstance(other, NDArray):
-            other._data = self._data.to(other._ctx.torch_device(), copy=True)
-            return other
-        if isinstance(other, Context):
-            return NDArray(self._data.to(other.torch_device(), copy=True), other)
+        Context (a new NDArray). The copy is recorded while recording."""
+        with _recording_grad():
+            if isinstance(other, NDArray):
+                other._data = self._data.to(other._ctx.torch_device(),
+                                            copy=True)
+                return other
+            if isinstance(other, Context):
+                return NDArray(self._data.to(other.torch_device(), copy=True),
+                               other)
         raise TypeError('copyto does not support type ' + str(type(other)))
 
     def as_in_context(self, context):
@@ -157,7 +208,8 @@ class NDArray:
         d = torch_dtype(dtype)
         if not copy and self._data.dtype == d:
             return self
-        return NDArray(self._data.to(d, copy=True), self._ctx)
+        with _recording_grad():
+            return NDArray(self._data.to(d, copy=True), self._ctx)
 
     def reshape(self, *shape, **kwargs):
         """Reshape, with MXNet's special codes: 0 copies a dim, -1 infers
@@ -166,7 +218,8 @@ class NDArray:
             shape = tuple(shape[0])
         shape = kwargs.get('shape', shape)
         out = infer_reshape(list(self.shape), list(shape))
-        return NDArray(self._data.reshape(out), self._ctx)
+        with _recording_grad():
+            return NDArray(self._data.reshape(out), self._ctx)
 
     def broadcast_to(self, shape):
         return invoke('broadcast_to', [self], {'shape': tuple(shape)})
@@ -244,18 +297,27 @@ class NDArray:
     # -- indexing ---------------------------------------------------------
     def __setitem__(self, key, value):
         """A functional update, as in the JAX package: the write goes into
-        a new tensor that replaces ``_data``."""
-        data = self._data
+        a new tensor that replaces ``_data``. It is not recorded: the array
+        leaves its recorded graph (a marked variable stays a leaf)."""
+        data = self._data.detach()
         if isinstance(value, NDArray):
             value = value._data
         elif not isinstance(value, torch.Tensor):
             value = torch.as_tensor(np.asarray(value))
         # cast to x's dtype first, as jnp.asarray(value, dtype) does
-        value = value.to(device=data.device, dtype=data.dtype)
-        self._data = _write(data, slice(None) if key is None else key, value)
+        value = value.detach().to(device=data.device, dtype=data.dtype)
+        with torch.no_grad():
+            self._data = _write(data, slice(None) if key is None else key,
+                                value)
+        self._hist = None
 
     def __getitem__(self, key):
-        return NDArray(_read(self._data, key), self._ctx)
+        if _ag.is_recording() and self._data.requires_grad:
+            # recorded, so that gradients flow through indexing
+            return invoke('_slice_like_getitem', [self],
+                          {'key': _freeze_key(key)})
+        with torch.no_grad():
+            return NDArray(_read(self._data, key), self._ctx)
 
     # -- operator overloads (dispatch to registered ops, reference
     #    ndarray.py __add__ etc -> broadcast_add/_plus_scalar) -------------
@@ -266,7 +328,11 @@ class NDArray:
         return self.__add__(other)
 
     def __iadd__(self, other):
-        self._data = self.__add__(other)._data
+        return self._rebind(self.__add__(other))
+
+    def _rebind(self, out):
+        self._data = out._data
+        self._hist = out._hist
         return self
 
     def __sub__(self, other):
@@ -276,8 +342,7 @@ class NDArray:
         return _scalar(self, other, '_rminus_scalar')
 
     def __isub__(self, other):
-        self._data = self.__sub__(other)._data
-        return self
+        return self._rebind(self.__sub__(other))
 
     def __mul__(self, other):
         return _binary(self, other, 'broadcast_mul', '_mul_scalar')
@@ -286,8 +351,7 @@ class NDArray:
         return self.__mul__(other)
 
     def __imul__(self, other):
-        self._data = self.__mul__(other)._data
-        return self
+        return self._rebind(self.__mul__(other))
 
     def __truediv__(self, other):
         return _binary(self, other, 'broadcast_div', '_div_scalar')
@@ -296,8 +360,7 @@ class NDArray:
         return _scalar(self, other, '_rdiv_scalar')
 
     def __itruediv__(self, other):
-        self._data = self.__truediv__(other)._data
-        return self
+        return self._rebind(self.__truediv__(other))
 
     def __mod__(self, other):
         return _binary(self, other, 'broadcast_mod', '_mod_scalar')
@@ -505,14 +568,22 @@ def _thaw_key(key):
     return key
 
 
+def _recording_grad():
+    """torch's grad mode for a direct tensor method: on while recording."""
+    return torch.set_grad_enabled(_ag.is_recording())
+
+
 def invoke(op_name, inputs, attrs=None, out=None):
     """Execute a registered op imperatively on the inputs' tensors.
 
-    The JAX package runs a cached jit closure and records a vjp on the
-    autograd tape; here the op's function runs eagerly under
-    ``torch.no_grad`` (the tape comes with ``autograd.py``). The outputs
-    live in the first input's context; those of an op without inputs in
-    the ``ctx`` attr's, or the current one."""
+    The JAX package runs a cached jit closure and, while recording, a
+    ``jax.vjp`` that it puts on its tape. Here the op's function runs
+    eagerly: with grad enabled while recording a differentiable op on an
+    input that requires grad (torch's graph is the tape), else under
+    ``torch.no_grad``. A ``needs_rng`` op gets its device's generator as
+    its last argument. The outputs live in the first input's context;
+    those of an op without inputs in the ``ctx`` attr's, or the current
+    one."""
     op = _reg.get(op_name)
     attrs = dict(attrs or {})
     # ctx is an op kwarg in the reference: it directs the placement of ops
@@ -520,27 +591,37 @@ def invoke(op_name, inputs, attrs=None, out=None):
     req_ctx = attrs.pop('ctx', None)
     attrs = normalize_attrs(attrs)
     if op.train_aware:
-        attrs['__is_train__'] = False     # no autograd recording yet
-    if op.needs_rng:
-        raise MXNetError('op %r draws random numbers; the port has no RNG '
-                         'streams yet' % op_name)
-
-    with torch.no_grad():
-        outs = op.fn(attrs, *[i._data for i in inputs])
-    outs_t = tuple(outs) if isinstance(outs, (tuple, list)) else (outs,)
-
-    # write mutated aux outputs back into their input NDArrays
-    for in_idx, out_idx in op.mutate_inputs.items():
-        if out_idx < len(outs_t):
-            inputs[in_idx]._data = outs_t[out_idx]
-
+        attrs['__is_train__'] = _ag.is_training()
     if inputs:
         ctx = inputs[0]._ctx
-    else:       # a source op (_zeros, _arange) builds on the host
+    else:
         ctx = req_ctx or current_context()
+    args = [i._data for i in inputs]
+    if op.needs_rng:
+        args.append(_random.generator(
+            args[0].device if args else ctx.torch_device()))
+
+    recording = (_ag.is_recording() and op.differentiable
+                 and any(t.requires_grad for t in args[:len(inputs)]))
+    with torch.set_grad_enabled(recording):
+        outs = op.fn(attrs, *args)
+    outs_t = tuple(outs) if isinstance(outs, (tuple, list)) else (outs,)
+
+    # write mutated aux outputs back into their input NDArrays; aux states
+    # carry no gradient
+    for in_idx, out_idx in op.mutate_inputs.items():
+        if out_idx < len(outs_t):
+            inputs[in_idx]._data = outs_t[out_idx].detach()
+
+    if not inputs:      # a source op (_zeros, _arange) builds on the host
         outs_t = tuple(o.to(ctx.torch_device()) for o in outs_t)
-    results = [NDArray(outs_t[i], ctx)
-               for i in range(op.n_visible_outputs(attrs))]
+    n_vis = op.n_visible_outputs(attrs)
+    results = [NDArray(outs_t[i], ctx) for i in range(n_vis)]
+    if recording:
+        rec = _ag._Record(op_name, dict(attrs),
+                          [_ag.history_of(i) for i in inputs], n_vis)
+        for i, r in enumerate(results):
+            r._hist = (rec, i)
     if out is not None:
         outs_list = out if isinstance(out, (list, tuple)) else [out]
         for dst, src in zip(outs_list, results):
@@ -550,6 +631,7 @@ def invoke(op_name, inputs, attrs=None, out=None):
                 raise ValueError('out has shape %s but %s produced %s'
                                  % (dst.shape, op_name, src.shape))
             dst._data = src._data
+            dst._hist = src._hist
         return out
     return results[0] if len(results) == 1 else results
 
@@ -624,8 +706,9 @@ def stack(*arrays, **kwargs):
 
 
 def moveaxis(tensor, source, destination):
-    return NDArray(torch.movedim(tensor._data, source, destination),
-                   tensor._ctx)
+    with _recording_grad():
+        return NDArray(torch.movedim(tensor._data, source, destination),
+                       tensor._ctx)
 
 
 def empty(shape, ctx=None, dtype='float32'):

@@ -1,8 +1,10 @@
 """Operators of the port. Importing this package registers the ops.
 
-:mod:`.registry` holds them; :mod:`.nn` registers LayerNorm, softmax and
-softmax_cross_entropy, :mod:`.elemwise` the elementwise unary, binary,
-scalar and comparison ops and ``add_n``, :mod:`.reduce_ops` the reductions
+:mod:`.registry` holds them; :mod:`.nn` registers LayerNorm, softmax,
+softmax_cross_entropy and the ResNet op set (FullyConnected, Convolution,
+Deconvolution, Pooling, Activation, LeakyReLU, BatchNorm, Dropout,
+SoftmaxOutput), :mod:`.random_ops` the samplers, :mod:`.elemwise` the
+elementwise unary, binary, scalar and comparison ops and ``add_n``, :mod:`.reduce_ops` the reductions
 and broadcasts, :mod:`.shape_ops` the shape, indexing and init ops, and
 :mod:`.optimizer_ops` the fused optimizer updates. :mod:`.cuda_kernels`
 holds the hand-written CUDA kernels (built from ``csrc/`` at first use)
@@ -15,6 +17,7 @@ from . import elemwise            # noqa: F401  (registers its ops)
 from . import reduce_ops          # noqa: F401  (registers its ops)
 from . import shape_ops           # noqa: F401  (registers its ops)
 from . import optimizer_ops       # noqa: F401  (registers its ops)
+from . import random_ops          # noqa: F401  (registers its ops)
 from .registry import register, get, list_ops, exists
 from .cuda_kernels import (flash_attention, flash_attention_lse,
                            fused_rmsnorm, fused_layernorm, fused_softmax,

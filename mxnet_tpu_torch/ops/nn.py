@@ -1,19 +1,49 @@
-"""Neural-network layer ops: the counterpart of ``mxnet_tpu/ops/nn.py`` for
-the ops whose JAX versions dispatch to Pallas kernels — LayerNorm, softmax
-and softmax_cross_entropy — registered under the same names, input names
-and parameter defaults.
+"""Neural-network layer ops: the counterpart of ``mxnet_tpu/ops/nn.py``,
+registered under the same names, input names and parameter defaults.
 
-Each keeps both of the JAX op's branches, which differ in their numbers:
-the kernel branch (the CUDA row kernels of :mod:`.cuda_kernels`; their
-plain versions for CPU tensors) and the plain branch. :func:`use_fused`
-chooses between them as the JAX package's ``use_fused()`` does, with the
-card in the TPU's place.
+The ops whose JAX versions dispatch to Pallas kernels — LayerNorm, softmax
+and softmax_cross_entropy — keep both of the JAX op's branches, which
+differ in their numbers: the kernel branch (the CUDA row kernels of
+:mod:`.cuda_kernels`; their plain versions for CPU tensors) and the plain
+branch. :func:`use_fused` chooses between them as the JAX package's
+``use_fused()`` does, with the card in the TPU's place.
+
+The ResNet op set (FullyConnected, Convolution, Deconvolution, Pooling,
+Activation, LeakyReLU, BatchNorm, Dropout, SoftmaxOutput) is left to XLA
+in the JAX package, and here to torch's library calls (cuDNN and cuBLAS on
+the card), with the JAX ops' numbers:
+
+- FullyConnected rounds the product to the data's type before the bias;
+- Convolution is one ``F.conv1d/2d/3d`` call. The JAX package's TPU
+  lowerings (channels-last compute, ``MXTPU_CONV_STEM_S2D``,
+  ``MXTPU_CONV_BWD_PATCHES``) compute the same function and have no
+  counterpart;
+- Pooling pads explicitly (``pooling_convention='full'`` pads the high
+  side, and average pooling divides by ``prod(kernel)``, counting the
+  padding), where ``ceil_mode`` would divide the last windows by less and
+  drop a window that starts in the padding;
+- BatchNorm computes its statistics as the JAX op does (one pass of
+  shifted moments, or two passes under ``MXTPU_BN_ONEPASS=0``), with the
+  biased variance and ``momentum * old + (1 - momentum) * batch``, so it is
+  not ``F.batch_norm``; the new statistics carry no gradient. It
+  normalises in f32 and rounds once, where the JAX op rounds the batch
+  mean and ``1 / sqrt(var + eps)`` to bf16 first: that loses the centred
+  value where a channel's spread is small next to its mean, as where it
+  normalises over a few values;
+- SoftmaxOutput's backward is the reference's (softmax - one-hot, scaled
+  and masked by its attrs), whatever the head gradient.
+
+A Python number beside a tensor is rounded to the tensor's dtype first, as
+jnp's weak-typed scalars are (:func:`_k`).
 """
+import math
+
 import torch
+import torch.nn.functional as F
 
 from ..config import flags
 from . import cuda_kernels as ck
-from .registry import register
+from .registry import register, register_alias
 
 __all__ = ['use_fused']
 
@@ -24,6 +54,8 @@ def use_fused(x):
     set (the kernel wrappers then run their plain versions)."""
     if x.device.type == 'cuda':
         return True
+    if x.device.type != 'cpu':      # meta tensors of shape inference
+        return False
     flags.reload('MXTPU_FORCE_PALLAS')  # tests toggle it per case
     return flags.get('MXTPU_FORCE_PALLAS')
 
@@ -72,3 +104,349 @@ def _softmax_cross_entropy(attrs, data, label):
     inside = (idx >= 0) & (idx < V)
     picked = torch.gather(logp, -1, idx.clamp(0, V - 1).long()[:, None])[:, 0]
     return -picked.masked_fill(~inside, float('nan')).sum()
+
+
+def _k(v, like):
+    """The Python number ``v`` as jnp takes it beside ``like``: a 0-d
+    tensor of like's dtype."""
+    return torch.tensor(v, dtype=like.dtype)
+
+
+# ---------------------------------------------------------------------------
+# FullyConnected
+# ---------------------------------------------------------------------------
+
+def _bias_arg_names(default_no_bias):
+    def names(attrs):
+        if attrs.get('no_bias', default_no_bias):
+            return ['data', 'weight']
+        return ['data', 'weight', 'bias']
+    return names
+
+
+_fc_arg_names = _bias_arg_names(False)
+
+
+@register('FullyConnected', input_names=['data', 'weight', 'bias'],
+          param_defaults={'num_hidden': 0, 'no_bias': False, 'flatten': True},
+          arg_names_fn=_fc_arg_names)
+def _fully_connected(attrs, data, weight, bias=None):
+    x = data.reshape(data.shape[0], -1) if attrs.get('flatten', True) \
+        else data
+    # the product in x's type (f32 accumulation), then the bias
+    y = torch.matmul(x, weight.t())
+    if bias is not None and not attrs.get('no_bias', False):
+        y = y + bias
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Convolution and Deconvolution
+# ---------------------------------------------------------------------------
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _conv_geometry(attrs):
+    kernel = tuple(attrs['kernel'])
+    nd = len(kernel)
+    return (kernel, tuple(attrs.get('stride') or (1,) * nd),
+            tuple(attrs.get('dilate') or (1,) * nd),
+            tuple(attrs.get('pad') or (0,) * nd), int(attrs.get('num_group', 1)))
+
+
+def _add_channel_bias(out, bias):
+    return out + bias.reshape((1, -1) + (1,) * (out.ndim - 2))
+
+
+@register('Convolution', input_names=['data', 'weight', 'bias'],
+          param_defaults={'kernel': (), 'stride': (), 'dilate': (), 'pad': (),
+                          'num_filter': 0, 'num_group': 1, 'no_bias': False,
+                          'workspace': 1024, 'cudnn_tune': None,
+                          'cudnn_off': False, 'layout': None},
+          arg_names_fn=_bias_arg_names(False))
+def _convolution(attrs, data, weight, bias=None):
+    kernel, stride, dilate, pad, groups = _conv_geometry(attrs)
+    out = _CONV[len(kernel)](data, weight, None, stride, pad, dilate, groups)
+    if bias is not None and not attrs.get('no_bias', False):
+        out = _add_channel_bias(out, bias)
+    return out
+
+
+@register('Deconvolution', input_names=['data', 'weight', 'bias'],
+          param_defaults={'kernel': (), 'stride': (), 'dilate': (), 'pad': (),
+                          'adj': (), 'target_shape': (), 'num_filter': 0,
+                          'num_group': 1, 'no_bias': True, 'workspace': 512},
+          arg_names_fn=_bias_arg_names(True))
+def _deconvolution(attrs, data, weight, bias=None):
+    """The transposed convolution (the input gradient of Convolution); the
+    weight is (in_channels, out_channels / groups, *kernel), torch's
+    layout too. ``target_shape`` is taken as the JAX op takes it: not at
+    all."""
+    kernel, stride, dilate, pad, groups = _conv_geometry(attrs)
+    adj = tuple(attrs.get('adj') or (0,) * len(kernel))
+    out = _DECONV[len(kernel)](data, weight, None, stride, pad, adj, groups,
+                               dilate)
+    if bias is not None and not attrs.get('no_bias', True):
+        out = _add_channel_bias(out, bias)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pooling
+# ---------------------------------------------------------------------------
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+@register('Pooling',
+          param_defaults={'kernel': (), 'pool_type': 'max', 'stride': (),
+                          'pad': (), 'global_pool': False,
+                          'pooling_convention': 'valid', 'cudnn_off': False})
+def _pooling(attrs, data):
+    nd = data.ndim - 2
+    if attrs.get('global_pool', False):
+        kernel = tuple(data.shape[2:])
+        stride, pad = (1,) * nd, (0,) * nd
+    else:
+        kernel = tuple(attrs['kernel'])
+        stride = tuple(attrs.get('stride') or (1,) * nd)
+        pad = tuple(attrs.get('pad') or (0,) * nd)
+    ptype = attrs.get('pool_type', 'max')
+    full = attrs.get('pooling_convention', 'valid') == 'full'
+    widths = []                 # F.pad's order: the last axis first
+    for i in reversed(range(nd)):
+        hi = pad[i]
+        if full:
+            # ceil mode: pad the high side so the last window fits
+            rem = (data.shape[2 + i] + 2 * pad[i] - kernel[i]) % stride[i]
+            if rem:
+                hi = pad[i] + stride[i] - rem
+        widths += [pad[i], hi]
+    if ptype == 'max':
+        fill = (-math.inf if data.is_floating_point()
+                else torch.iinfo(data.dtype).min)
+        x = F.pad(data, widths, value=fill) if any(widths) else data
+        return _MAX_POOL[nd](x, kernel, stride)
+    if ptype in ('avg', 'sum'):
+        x = F.pad(data, widths) if any(widths) else data
+        if nd == 1:     # avg_pool1d takes no divisor: pool over (1, k)
+            x, kernel, stride = x[:, :, None], (1,) + kernel, (1,) + stride
+        div = 1 if ptype == 'sum' else math.prod(kernel)
+        pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+        out = pool(x, kernel, stride, divisor_override=div)
+        return out[:, :, 0] if nd == 1 else out
+    raise ValueError('unknown pool_type ' + ptype)
+
+
+register_alias('Pooling_v1', 'Pooling')
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+@register('Activation', param_defaults={'act_type': 'relu'})
+def _activation(attrs, x):
+    act = attrs.get('act_type', 'relu')
+    if act == 'relu':
+        return torch.relu(x)
+    if act == 'sigmoid':
+        return torch.sigmoid(x)
+    if act == 'tanh':
+        return torch.tanh(x)
+    if act == 'softrelu':
+        # jax.nn.softplus: log(1 + exp(x)) without F.softplus's threshold
+        return torch.logaddexp(x, torch.zeros((), dtype=x.dtype))
+    if act == 'softsign':
+        return x / (1 + torch.abs(x))
+    raise ValueError('unknown act_type ' + act)
+
+
+def _lrelu_arg_names(attrs):
+    return ['data', 'gamma'] if attrs.get('act_type') == 'prelu' else ['data']
+
+
+def _channels(v, x):
+    return v.reshape((1, -1) + (1,) * (x.ndim - 2)) if x.ndim > 1 else v
+
+
+@register('LeakyReLU', input_names=['data', 'gamma'],
+          param_defaults={'act_type': 'leaky', 'slope': 0.25,
+                          'lower_bound': 0.125, 'upper_bound': 0.334},
+          needs_rng=True, train_aware=True, arg_names_fn=_lrelu_arg_names)
+def _leaky_relu(attrs, x, *rest):
+    """leaky, elu, prelu (a slope a channel) and rrelu (slopes drawn a
+    channel while training, their mean otherwise)."""
+    act = attrs.get('act_type', 'leaky')
+    gen = rest[-1]
+    if act == 'leaky':
+        return torch.where(x > 0, x, _k(attrs.get('slope', 0.25), x) * x)
+    if act == 'elu':
+        s = _k(attrs.get('slope', 0.25), x)
+        return torch.where(x > 0, x, s * torch.expm1(x))
+    if act == 'prelu':
+        return torch.where(x > 0, x, _channels(rest[0], x) * x)
+    if act == 'rrelu':
+        lo, hi = attrs.get('lower_bound', 0.125), attrs.get('upper_bound', 0.334)
+        if attrs.get('__is_train__', False):
+            n = x.shape[1] if x.ndim > 1 else 1
+            slope = torch.empty(n, dtype=x.dtype, device=x.device)
+            if gen is not None:
+                slope.uniform_(lo, hi, generator=gen)
+            s = _channels(slope, x)
+        else:
+            s = _k((lo + hi) / 2.0, x)
+        return torch.where(x > 0, x, s * x)
+    raise ValueError('unknown act_type ' + act)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm: returns (y, new moving_mean, new moving_var); invoke and the
+# executor write the last two back into the moving statistics
+# ---------------------------------------------------------------------------
+
+@register('BatchNorm',
+          input_names=['data', 'gamma', 'beta', 'moving_mean', 'moving_var'],
+          param_defaults={'eps': 1e-3, 'momentum': 0.9, 'fix_gamma': True,
+                          'use_global_stats': False, 'output_mean_var': False,
+                          'axis': 1, 'cudnn_off': False},
+          aux_inputs=('moving_mean', 'moving_var'),
+          mutate_inputs={3: 1, 4: 2}, num_visible_outputs=1,
+          num_outputs=3, train_aware=True)
+def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
+    eps = attrs.get('eps', 1e-3)
+    momentum = attrs.get('momentum', 0.9)
+    axis = int(attrs.get('axis', 1)) % data.ndim
+    use_global = (attrs.get('use_global_stats', False)
+                  or not attrs.get('__is_train__', False))
+    reduce_axes = tuple(i for i in range(data.ndim) if i != axis)
+    bshape = tuple(data.shape[axis] if i == axis else 1
+                   for i in range(data.ndim))
+    g = torch.ones_like(gamma) if attrs.get('fix_gamma', True) else gamma
+    x32 = data.float()
+    if use_global:
+        mean, var = moving_mean, moving_var
+        new_mm, new_mv = moving_mean, moving_var
+    else:
+        if flags.get('MXTPU_BN_ONEPASS'):
+            # shifted moments: the sums of (x - pivot) and its square in
+            # one read of x, the pivot (each channel's first element)
+            # centring them near the mean; the variance clamped at 0
+            n = x32.numel() // x32.shape[axis]
+            pivot = x32[tuple(slice(None) if i == axis else 0
+                              for i in range(x32.ndim))].detach()
+            xc = x32 - pivot.reshape(bshape)
+            m0 = xc.sum(reduce_axes) / n
+            mean = pivot + m0
+            var = torch.clamp_min((xc * xc).sum(reduce_axes) / n - m0 * m0,
+                                  0.0)
+        else:           # MXTPU_BN_ONEPASS=0: mean, then centred squares
+            mean = x32.mean(reduce_axes)
+            var = x32.var(reduce_axes, unbiased=False)
+        with torch.no_grad():
+            new_mm = (_k(momentum, moving_mean) * moving_mean
+                      + _k(1 - momentum, moving_mean) * mean.to(moving_mean.dtype))
+            new_mv = (_k(momentum, moving_var) * moving_var
+                      + _k(1 - momentum, moving_var) * var.to(moving_var.dtype))
+    # normalised in f32 and rounded once to the result's type (that of
+    # data, gamma and beta together, as the JAX op promotes them); the
+    # backward then sums its terms in f32 too
+    out_dtype = torch.promote_types(
+        data.dtype, torch.promote_types(gamma.dtype, beta.dtype))
+    scale = g.float() * torch.rsqrt(var.float() + eps)
+    y = (x32 - mean.float().reshape(bshape)) * scale.reshape(bshape) \
+        + beta.float().reshape(bshape)
+    return y.to(out_dtype), new_mm.detach(), new_mv.detach()
+
+
+register_alias('BatchNorm_v1', 'BatchNorm')
+
+
+# ---------------------------------------------------------------------------
+# Dropout
+# ---------------------------------------------------------------------------
+
+@register('Dropout', param_defaults={'p': 0.5, 'mode': 'training'},
+          needs_rng=True, train_aware=True)
+def _dropout(attrs, x, gen):
+    p = attrs.get('p', 0.5)
+    training = attrs.get('__is_train__', False) or attrs.get('mode') == 'always'
+    if not training or p <= 0 or gen is None:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / _k(keep, x), torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# SoftmaxOutput: softmax forward, the reference's own backward
+# ---------------------------------------------------------------------------
+
+def _one_hot(label, k, axis, dtype):
+    """jax.nn.one_hot: a label outside [0, k) gives a zero row."""
+    ax = axis % (label.ndim + 1)
+    view = [1] * (label.ndim + 1)
+    view[ax] = k
+    cols = torch.arange(k, device=label.device).reshape(view)
+    return (label.unsqueeze(ax) == cols).to(dtype)
+
+
+class _SoftmaxOutputFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        axis = 1 if attrs.get('multi_output', False) else -1
+        out = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = attrs
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # softmax - one-hot, masked and scaled; the head gradient is not
+        # read, as in the reference
+        out, label = ctx.saved_tensors
+        attrs = ctx.attrs
+        multi = attrs.get('multi_output', False)
+        axis = 1 if multi else -1
+        lab = label.to(torch.int32)
+        onehot = _one_hot(lab, out.shape[axis], axis, out.dtype)
+        smooth = attrs.get('smooth_alpha', 0.0)
+        if smooth:
+            k = out.shape[axis]
+            onehot = onehot * (1 - smooth) + smooth / (k - 1) * (1 - onehot)
+        grad = out - onehot
+        ignore = attrs.get('ignore_label', -1.0)
+        use_ignore = attrs.get('use_ignore', False)
+        if use_ignore:
+            mask = (label != ignore).to(out.dtype)
+            grad = grad * mask.unsqueeze(axis if axis >= 0 else out.ndim - 1)
+        scale = attrs.get('grad_scale', 1.0)
+        norm = attrs.get('normalization', 'null')
+        if norm == 'batch':
+            scale = scale / out.shape[0]
+        elif norm == 'valid':
+            if use_ignore:
+                scale = scale / torch.clamp_min((label != ignore).sum(), 1)
+            else:
+                scale = scale / label.numel()
+        return grad * scale, None, None
+
+
+@register('SoftmaxOutput', input_names=['data', 'label'],
+          param_defaults={'grad_scale': 1.0, 'ignore_label': -1.0,
+                          'multi_output': False, 'use_ignore': False,
+                          'preserve_shape': False, 'normalization': 'null',
+                          'out_grad': False, 'smooth_alpha': 0.0})
+def _softmax_output(attrs, data, label):
+    """softmax over the class axis (1 with ``multi_output``, else the
+    last), whose gradient is the reference's: (softmax - one_hot(label))
+    with ``smooth_alpha``, masked where label == ``ignore_label`` under
+    ``use_ignore``, times ``grad_scale`` over the batch or the valid count
+    by ``normalization``."""
+    return _SoftmaxOutputFunction.apply(data, label, dict(attrs))
+
+
+register_alias('Softmax', 'SoftmaxOutput')

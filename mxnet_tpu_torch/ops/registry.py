@@ -11,15 +11,24 @@ Conventions kept from the JAX registry:
   {input_index: extra_output_index}; the invoke layer writes those extra
   outputs back into the input NDArrays.
 - ``train_aware`` ops receive ``__is_train__`` in attrs.
-- ``needs_rng`` ops receive a generator as their LAST argument.
+- ``needs_rng`` ops receive a ``torch.Generator`` as their LAST argument
+  (``None`` during shape inference, where their tensors are on ``meta``).
 - ``variadic`` ops take any number of inputs (``add_n``); the attr named by
   ``key_var_num_args`` carries their count.
+- ``differentiable=False`` ops are never recorded by autograd;
+  ``aux_inputs`` names the inputs that are auxiliary states (BatchNorm's
+  moving statistics) in a Symbol; ``optional_inputs`` maps an input to the
+  attr that gates it; ``arg_names_fn(attrs)`` gives the inputs a Symbol
+  creates for the op (FullyConnected without a bias has two).
+- ``host`` and ``shape_fn`` describe host ops (Python on concrete arrays,
+  with their output shapes from ``shape_fn``). No ported op is one; the
+  executor raises NotImplementedError for a graph that holds one.
 
 What the JAX registry has and this one does not: PyTorch runs eagerly, so
 ``jitted`` (a cached ``jax.jit`` closure per op and attrs) has no
 counterpart and an op is a plain call; ``host_bridge`` (host ops inside
-traced programs) comes with the Symbol executor; optional inputs and the
-execution-coverage bookkeeping come with the rest of the op library.
+traced programs) and the execution-coverage bookkeeping come with the rest
+of the op library.
 """
 __all__ = ['OpDef', 'register', 'register_alias', 'get', 'exists',
            'list_ops', 'apply_op', 'lazy_op_module']
@@ -31,7 +40,9 @@ class OpDef:
     def __init__(self, name, fn, num_outputs=1, input_names=None,
                  param_defaults=None, mutate_inputs=None, needs_rng=False,
                  num_visible_outputs=None, train_aware=False, variadic=False,
-                 key_var_num_args=None, doc=None):
+                 key_var_num_args=None, differentiable=True, aux_inputs=(),
+                 host=False, shape_fn=None, optional_inputs=None,
+                 arg_names_fn=None, doc=None):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs  # int or callable(attrs)->int
@@ -46,6 +57,12 @@ class OpDef:
         self.train_aware = train_aware
         self.variadic = variadic  # takes *args (add_n style)
         self.key_var_num_args = key_var_num_args  # attr naming the input count
+        self.differentiable = differentiable
+        self.aux_inputs = tuple(aux_inputs)
+        self.host = host
+        self.shape_fn = shape_fn
+        self.optional_inputs = dict(optional_inputs or {})
+        self.arg_names_fn = arg_names_fn
         self.doc = doc or (fn.__doc__ or '')
 
     def n_outputs(self, attrs):
@@ -57,6 +74,24 @@ class OpDef:
         if n is None:
             return self.n_outputs(attrs)
         return n(attrs) if callable(n) else n
+
+    def arg_names(self, attrs=None, num_args=None):
+        """The inputs a Symbol node of this op takes: variadic ops expand
+        arg0..argN-1; ``arg_names_fn`` decides where the op has one;
+        optional inputs are dropped unless their gate attr is truthy."""
+        if self.variadic:
+            return ['arg%d' % i for i in range(num_args or 0)]
+        attrs = attrs or {}
+        if self.arg_names_fn is not None:
+            return list(self.arg_names_fn(attrs))
+        names = list(self.input_names)
+        if self.optional_inputs:
+            def _on(gate):
+                v = attrs.get(gate, self.param_defaults.get(gate, False))
+                return v not in (False, 'False', '0', 0, None, 'false')
+            names = [n for n in names if n not in self.optional_inputs
+                     or _on(self.optional_inputs[n])]
+        return names
 
 
 def register(name, **kwargs):

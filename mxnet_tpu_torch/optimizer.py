@@ -2,13 +2,12 @@
 reference's python/mxnet/optimizer.py): the Optimizer base with its
 registry and lr/wd multipliers, SGD (momentum, and f32 master weights of a
 half-precision weight under ``multi_precision``), NAG, DCASGD, ccSGD, Adam,
-AdaGrad, RMSProp, AdaDelta, Ftrl, Adamax, Nadam, Test, Updater and
+AdaGrad, RMSProp, AdaDelta, Ftrl, Adamax, Nadam, SGLD, Test, Updater and
 get_updater, over the port's NDArrays.
 
 The fast paths call the fused update ops (:mod:`.ops.optimizer_ops`); the
-others compose ``nd`` ops, as in the JAX package. SGLD is not ported: it
-draws its noise from ``nd.random.normal``, and the port has no random ops
-yet, so ``create('sgld')`` raises NotImplementedError.
+others compose ``nd`` ops, as in the JAX package. SGLD draws its noise
+from ``nd.random.normal`` on the weight's device.
 """
 import math
 import pickle
@@ -233,12 +232,19 @@ class NAG(SGD):
 
 @register
 class SGLD(Optimizer):
-    """Stochastic gradient Langevin dynamics: not ported yet."""
+    """Stochastic gradient Langevin dynamics: half a gradient step plus
+    Gaussian noise of variance lr."""
 
-    def __init__(self, **kwargs):
-        raise NotImplementedError(
-            'SGLD draws its noise from nd.random.normal, and mxnet_tpu_torch '
-            'has no random ops yet (ops/random_ops.py is not ported)')
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        grad = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = nd.clip(grad, -self.clip_gradient, self.clip_gradient)
+        weight += -lr / 2 * (grad + wd * weight) + \
+            nd.random.normal(0, math.sqrt(lr), weight.shape,
+                             dtype=weight.dtype, ctx=weight.context)
 
 
 @register

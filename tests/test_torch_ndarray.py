@@ -33,7 +33,7 @@ import jax.numpy as jnp
 
 import mxnet_tpu as mx
 from mxnet_tpu.ops import registry as jreg
-from mxnet_tpu_torch import MXNetError, cpu, nd
+from mxnet_tpu_torch import cpu, nd
 from mxnet_tpu_torch.base import dtype_of
 from mxnet_tpu_torch.config import flags
 from mxnet_tpu_torch.ops import registry as treg
@@ -165,12 +165,17 @@ def test_register_alias_and_generated_functions(monkeypatch):
     with pytest.raises(AttributeError):
         nd.op.no_such_op
 
+    seen = []
+
     @treg.register('_test_rng', needs_rng=True)
     def _rng(attrs, x, gen):
+        seen.append(gen)
         return x
 
-    with pytest.raises(MXNetError, match='random'):
-        nd.invoke('_test_rng', [x])
+    # a needs_rng op gets its device's generator as its last argument
+    nd.invoke('_test_rng', [x])
+    assert isinstance(seen[0], torch.Generator)
+    assert seen[0].device == torch.device('cpu')
 
 
 def test_use_fused(monkeypatch):

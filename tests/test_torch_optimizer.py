@@ -10,8 +10,10 @@
   through ``get_updater``, against ``mxnet_tpu.optimizer`` driven the same
   way, with ``multi_precision`` on bf16 weights, a scheduler, weight decay
   and its multipliers, gradient rescaling and clipping.
-- The schedulers, a ``get_states``/``set_states`` round trip, and SGLD,
-  which waits for the random ops.
+- The schedulers, a ``get_states``/``set_states`` round trip, and SGLD's
+  drift (its update less the noise, with ``nd.random.normal`` giving zeros
+  on both sides) exactly; its noise is held by distribution in
+  test_torch_random.py.
 
 The JAX side of the optimizer runs in one jitted program (``mx.nd`` over
 traced arrays), where eager mx.nd ops compile one program each.
@@ -355,9 +357,26 @@ def test_registry_and_learning_rate():
         del topt.Optimizer.opt_registry['myopt']
 
 
-def test_sgld_waits_for_the_random_ops():
-    with pytest.raises(NotImplementedError, match='random_ops'):
-        topt.create('sgld', learning_rate=0.1)
+def test_sgld_waits_for_the_random_ops(monkeypatch):
+    """SGLD runs now that the random ops are ported: two updates' drift
+    (the noise drawn as zeros on both sides) equals the JAX package's bit
+    for bit, with weight decay, rescaling and clipping."""
+    import mxnet_tpu.ndarray.random as jrandom
+    from mxnet_tpu_torch.ndarray import random as trandom
+    monkeypatch.setattr(jrandom, 'normal', lambda loc, scale, shape, dtype,
+                        **kw: mx.nd.zeros(shape, dtype=dtype))
+    monkeypatch.setattr(trandom, 'normal', lambda loc, scale, shape, dtype,
+                        **kw: nd.zeros(shape, ctx=kw['ctx'], dtype=dtype))
+    rng = np.random.RandomState(7)
+    w0, g0, g1 = (rng.randn(*SHAPE).astype(np.float32) for _ in range(3))
+    kw = dict(learning_rate=0.1, wd=0.01, rescale_grad=0.5,
+              clip_gradient=0.8)
+    jo, to = jopt.create('sgld', **kw), topt.create('sgld', **kw)
+    jw, tw = mx.nd.array(w0), nd.array(w0, ctx=cpu())
+    for g in (g0, g1):
+        jo.update(0, jw, mx.nd.array(g), None)
+        to.update(0, tw, nd.array(g, ctx=cpu()), None)
+    np.testing.assert_array_equal(tw.asnumpy(), jw.asnumpy())
 
 
 @pytest.mark.parametrize('name,dump', [('sgd', False), ('adam', True)])
