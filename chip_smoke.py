@@ -111,7 +111,29 @@ order they run:
 (k) the ResNet-50 step's times: step ms and images/s (CUDA events, median
     of 5 after a warm-up) and the host's wall time, the split into forward
     and loss, backward and update, and torch.profiler's top device kernels
-    and idle share over 3 steps.
+    and idle share over 3 steps;
+(l) Module.fit, the kernels through Module and the Gluon loop (run after
+    (k), before (e)): (l1) train_imagenet's recipe on bench's model at full
+    width: mxnet_tpu_torch.mod.Module(resnet50_v1 hybridized and traced by
+    _get_graph, under SoftmaxOutput) on the default context (the card),
+    bound and initialised by Xavier(gaussian, in, 2), then fit for one
+    epoch over NDArrayIter(256 f32 images 3 x 224 x 224 and int labels from
+    RandomState(0), batch 32) with sgd (lr 0.1, momentum 0.9, wd 1e-4),
+    eval_metric ['acc'], kvstore 'device' and Speedometer(32, 4): every
+    bound array on the card, batch 1's loss (from get_outputs) and update
+    against graph_train's f32 step from the same masters, aux states and
+    batch, the acc metric's hits against the outputs' on every batch, the
+    losses finite, a fit batch's CUDA-event and host wall ms and
+    Speedometer's samples/s, then save_checkpoint, Module.load into a fresh
+    module and predict on one batch, bit for bit; (l2) (k2)'s head under
+    MakeLoss (f32 x [8192, 1024], V = 16384, label_names ('label',),
+    eval_metric 'loss') through Module.fit for one epoch of 3 batches and
+    Module.score, K4's and K3's launches counted in each (3 and 3; K5 and
+    K6 0; the kernel record's module_launches) and each batch's loss held
+    to the plain versions; (l3) the same ResNet-50 imperative under
+    autograd.record() with gluon.loss.SoftmaxCrossEntropyLoss, backward
+    and gluon.Trainer(sgd).step(32) for two steps, step 1's loss and update
+    against (l1)'s f32 step and every parameter still on the card.
 
 The second-to-last line of its output is the kernel record
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -2299,6 +2321,432 @@ def profile_forward(device, model, cfg, n=3):
                                                  name[:110]))
 
 
+# ---------------------------------------------------------------------------
+# (l) Module.fit, the Gluon loop and the kernels through Module
+# ---------------------------------------------------------------------------
+
+FIT_IMAGES = 256        # train_imagenet's recipe: 8 batches of 32, one epoch
+FIT_OPT = {'learning_rate': 0.1, 'momentum': 0.9, 'wd': 1e-4}
+FIT_SPEEDOMETER = 4     # Speedometer(batch, 4): a log line every 4 batches
+# (l1) and (l3) hold their first batch against graph_train's f32 step from
+# the same masters, aux states, images and labels (the same graph, ops and
+# update in f32, with the head's gradient computed by SoftmaxOutput, or
+# log_softmax and pick, instead of autograd of logsumexp - gold):
+# - the loss, rtol 1e-4: the same forward, the loss read from the outputs
+#   (-log of the softmax at the label, or the Gluon loss) instead of
+#   logsumexp - gold, one f32 rounding apart a row;
+# - the update (every master's new - old, concatenated), relative RMS
+#   error 1e-4. What sets it is printed beside it: the same f32 step run
+#   twice differs by about 1e-5 (measured 1.02e-5 on the H100; cuDNN's
+#   backward sums in an order of its own on each call, and the BatchNorms'
+#   ill-conditioned backward at this initialisation carries that far), and
+#   the batch through Module by as much (1.04e-5, Gluon 1.03e-5): the bound
+#   is ten times that floor. Images moved by one part in 1e6 move the
+#   update by 3.3e-2, so a wrong image, label or gradient scale fails.
+FIT_LOSS_RTOL = 1e-4
+FIT_UPDATE_REL_RMS = 1e-4
+# (l2): each batch's loss against the plain versions on the same
+# parameters and batch, as (k2) holds it
+MODULE_LOSS_RTOL = EXEC_LOSS_RTOL
+MODULE_BATCHES = 3
+
+
+def _zoo_symbol(name, classes, data_shape):
+    """The zoo net ``name`` hybridized and traced by ``_get_graph`` (as
+    graph_train.build_graph does) under SoftmaxOutput(name='softmax')."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import graph_train
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    with mt.name.NameManager():
+        net = vision.get_model(name, classes=classes)
+    net.hybridize()
+    _, out = net._get_graph(graph_train._placeholder(data_shape))
+    return mt.sym.SoftmaxOutput(out, name='softmax')
+
+
+def _xavier():
+    import mxnet_tpu_torch as mt
+    return mt.init.Xavier(rnd_type='gaussian', factor_type='in', magnitude=2)
+
+
+def _f32_step(spec, device, masters, aux, images, labels):
+    """graph_train's f32 step from the given masters and aux states (by
+    name): (loss, {name: update}, names), twice over and with the images
+    moved by one part in 1e6, for the bound's reasons."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import graph_train
+    name, batch, image, classes = spec
+    with mt.name.NameManager():
+        step, m0, a0, v0, _, _, prog = graph_train.make_train_step(
+            name, batch, image, classes, device, compute_dtype=torch.float32)
+    m0 = tuple(images if n == 'data' else masters[n].to(device)
+               for n in prog.arg_names)
+    a0 = tuple(aux[n].to(device) for n in prog.aux_names)
+    gen = torch.Generator(device=device).manual_seed(2)
+    moved = images * (1 + 1e-6 * torch.randn(images.shape, generator=gen,
+                                             device=device))
+    runs = {}
+    for what, im in (('step', images), ('again', images), ('moved', moved)):
+        new, _, _, loss = step(m0, a0, v0, im, labels)
+        runs[what] = (float(loss), torch.cat(
+            [(b - a).flatten() for n, a, b in zip(prog.arg_names, m0, new)
+             if n != 'data']))
+    names = [n for n in prog.arg_names if n != 'data']
+    walls = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        step(m0, a0, v0, images, labels)
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    runs['step_wall_ms'] = statistics.median(walls)
+    return runs, names
+
+
+def _sync(device):
+    import torch
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def fit_split(mod, data, device, n=4):
+    """Where a fit batch's host wall time goes: the forward (with the
+    batch's copy to the card), the backward, the update and the acc
+    metric, each waited for on the card, medians over batches 2-n."""
+    import mxnet_tpu_torch as mt
+    metric = mt.metric.create(['acc'])
+    data.reset()
+    parts = []
+    for _, batch in zip(range(n), data):
+        t = [time.perf_counter()]
+        for call in (lambda: mod.forward(batch, is_train=True), mod.backward,
+                     mod.update,
+                     lambda: mod.update_metric(metric, batch.label)):
+            call()
+            _sync(device)
+            t.append(time.perf_counter())
+        parts.append(np.diff(t) * 1e3)
+    return [statistics.median(p[i] for p in parts[1:]) for i in range(4)]
+
+
+def _concat_update(names, before, after):
+    import torch
+    return torch.cat([(after[n].float() - before[n].float()).flatten()
+                      for n in names])
+
+
+def module_fit(device, spec=RESNET, n_images=FIT_IMAGES):
+    """Phase (l1): train_imagenet's recipe through Module.fit on bench's
+    model at full width; batch 1 against graph_train's f32 step; the acc
+    metric against the outputs; save_checkpoint, Module.load and predict.
+    Returns what phase (l3) needs."""
+    import logging
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mt
+    name, batch, image, classes = spec
+    on_card = device.type == 'cuda'
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    X = rng.standard_normal((n_images, 3, image, image)).astype(np.float32)
+    y = rng.randint(0, classes, n_images).astype(np.int32)
+    train = mt.io.NDArrayIter(X, y, batch_size=batch)
+    sym = _zoo_symbol(name, classes, (batch, 3, image, image))
+    # the default context: the card
+    mod = mt.mod.Module(sym) if on_card else mt.mod.Module(sym, context=ctx)
+    # bound and initialised before fit, so that the masters batch 1 starts
+    # from can be read; fit's own bind and init_params then keep them
+    mod.bind(train.provide_data, train.provide_label)
+    mt.random.seed(0)
+    mod.init_params(_xavier())
+    args, aux = mod.get_params()
+    masters0 = {n: a.handle.detach().clone() for n, a in args.items()}
+    aux0 = {n: a.handle.detach().clone() for n, a in aux.items()}
+    group = mod._exec_group
+    bound = [a for e in group.execs for a in
+             list(e.arg_dict.values()) + list(e.aux_dict.values())
+             + [g for g in e.grad_dict.values() if g is not None]]
+    check(all(a.handle.device.type == device.type for a in bound),
+          'an array bound by Module is not on %s' % device.type)
+    log('  Module(%s under SoftmaxOutput) on %s: %d bound arrays, all on %s; '
+        '%d images %s f32 from seed 0; set up in %.1f s'
+        % (name, mod._context, len(bound), device.type, n_images,
+           (3, image, image), time.perf_counter() - t0))
+
+    seen = {'loss': [], 'acc': [], 'ev': [], 'wall': [], 'speed': []}
+
+    class Speeds(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if 'Speed:' in msg:
+                seen['speed'].append(float(msg.split('Speed: ')[1].split()[0]))
+                log('   ', msg)
+    handler = Speeds()
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    prev = {'metric': (0, 0)}
+
+    def per_batch(param):
+        # batch i's loss and hits from its outputs, on the device; the acc
+        # metric's increment against them; the masters after batch 1
+        data_batch = param.locals['data_batch']
+        probs = mod.get_outputs()[0].handle
+        lab = data_batch.label[0].handle.to(probs.device).long()
+        picked = probs.gather(1, lab[:, None])[:, 0]
+        seen['loss'].append(float(-picked.log().mean()))
+        hits = int((probs.argmax(1) == lab).sum())
+        acc = param.eval_metric.get_metric(0)
+        cur = (acc.sum_metric, acc.num_inst)
+        if cur[1] < prev['metric'][1]:          # Speedometer reset it
+            prev['metric'] = (0, 0)
+        seen['acc'].append((int(cur[0] - prev['metric'][0]), hits,
+                            int(cur[1] - prev['metric'][1])))
+        prev['metric'] = cur
+        if param.nbatch == 0:
+            a, _ = mod.get_params()
+            seen['after1'] = {n: v.handle.detach().clone() for n, v in a.items()}
+        if on_card:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            seen['ev'].append(ev)
+        seen['wall'].append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    mod.fit(train, num_epoch=1, optimizer='sgd', optimizer_params=FIT_OPT,
+            initializer=_xavier(), eval_metric=['acc'], kvstore='device',
+            batch_end_callback=[per_batch,
+                                mt.callback.Speedometer(batch, FIT_SPEEDOMETER)])
+    if on_card:
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    root.removeHandler(handler)
+    root.setLevel(level)
+    n_batches = n_images // batch
+    check(len(seen['loss']) == n_batches, 'fit ran %d batches, not %d'
+          % (len(seen['loss']), n_batches))
+    log('  fit, one epoch of %d batches in %.2f s: losses %s'
+        % (n_batches, fit_s, ['%.6f' % x for x in seen['loss']]))
+    check(all(np.isfinite(seen['loss'])), 'a batch\'s loss is not finite')
+    bad = [(i, a) for i, a in enumerate(seen['acc'])
+           if a[0] != a[1] or a[2] != batch]
+    log('  acc metric: hits a batch %s, each as the outputs give them'
+        % [a[0] for a in seen['acc']])
+    check(not bad, 'the acc metric disagrees with the outputs: %s' % bad)
+    walls = np.diff(seen['wall']) * 1e3
+    batch_ms = None
+    if on_card:
+        evs = seen['ev']
+        batch_ms = statistics.median(evs[i].elapsed_time(evs[i + 1])
+                                     for i in range(len(evs) - 1))
+    wall_ms = statistics.median(walls)
+    log('  a fit batch (medians over batches 2-%d, each with the acc '
+        'metric\'s and this check\'s reads of the outputs): %s by CUDA '
+        'events, %.3f ms of host wall time (%.1f images/s); Speedometer: %s '
+        'samples/s'
+        % (n_batches, '%.3f ms' % batch_ms if batch_ms else 'not measured',
+           wall_ms, batch / wall_ms * 1e3, seen['speed']))
+
+    # batch 1 against graph_train's f32 step from the same state
+    images = torch.from_numpy(X[:batch]).to(device)
+    labels = torch.from_numpy(y[:batch]).to(device)
+    runs, names = _f32_step(spec, device, masters0, aux0, images, labels)
+    ref_loss, ref_upd = runs['step']
+    upd = _concat_update(names, masters0, seen['after1'])
+    loss_err = abs(seen['loss'][0] - ref_loss) / abs(ref_loss)
+    upd_err = rel_rms(upd, ref_upd)
+    log('  batch 1 against graph_train\'s f32 step: loss %.6f / %.6f '
+        '(relative error %.3e, held to %g); update, relative RMS error %.3e '
+        '(held to %g; the f32 step against itself run again %.3e, with the '
+        'images moved by 1e-6 %.3e)'
+        % (seen['loss'][0], ref_loss, loss_err, FIT_LOSS_RTOL, upd_err,
+           FIT_UPDATE_REL_RMS, rel_rms(runs['again'][1], ref_upd),
+           rel_rms(runs['moved'][1], ref_upd)))
+    check(loss_err <= FIT_LOSS_RTOL, 'batch 1\'s loss disagrees with the step')
+    check(upd_err <= FIT_UPDATE_REL_RMS,
+          'batch 1\'s update disagrees with the step')
+
+    # save_checkpoint, Module.load into a fresh module, predict
+    one = mt.io.NDArrayIter(X[:batch], y[:batch], batch_size=batch)
+    want = mod.predict(one).handle
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, 'resnet')
+        mod.save_checkpoint(prefix, 1)
+        loaded = mt.mod.Module.load(prefix, 1, context=ctx)
+        loaded.bind(one.provide_data, one.provide_label, for_training=False)
+    got = loaded.predict(one).handle
+    same = bool(torch.equal(got, want))
+    log('  save_checkpoint, Module.load and predict on one batch: %s '
+        '(max abs difference %.3e)'
+        % ('bit for bit' if same else 'NOT bit for bit',
+           float((got - want).abs().max())))
+    check(same, 'the loaded module predicts otherwise')
+
+    split = fit_split(mod, train, device)
+    log('  where a fit batch goes (host wall ms, each part waited for on '
+        'the card, medians over batches 2-4): forward with the batch\'s copy '
+        'in %.3f, backward %.3f, update (%d sgd_mom_update calls) %.3f, the '
+        'acc metric %.3f: %.3f in all; graph_train\'s f32 step on the same '
+        'batch %.3f ms'
+        % (split[0], split[1], len(names), split[2], split[3], sum(split),
+           runs['step_wall_ms']))
+    del mod, loaded, group, bound, want, got
+    return dict(masters=masters0, aux=aux0, images=images, labels=labels,
+                names=names, ref=runs['step'], fit_s=fit_s,
+                batch_ms=batch_ms, wall_ms=wall_ms, speed=seen['speed'])
+
+
+def module_kernels(device, cfg, batches=MODULE_BATCHES):
+    """Phase (l2): phase (k2)'s head, MakeLoss(softmax_cross_entropy(Cast(
+    FullyConnected(LayerNorm(x)), f32), label)), at bench's widths through
+    Module.fit for one epoch and then Module.score, with K4's and K3's
+    launches counted in each; each batch's loss against the plain versions
+    on the same parameters. Returns {wrapper: launches in fit and score}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    sym = mt.sym
+    N, D, V = MAX_BATCH * cfg.seq_len, cfg.d_model, cfg.vocab
+    on_card = device.type == 'cuda'
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    x = sym.var('x')
+    logits = sym.Cast(sym.FullyConnected(sym.LayerNorm(x, name='ln'),
+                                         num_hidden=V, no_bias=True,
+                                         name='head'), dtype='float32')
+    net = sym.MakeLoss(sym.softmax_cross_entropy(logits, sym.var('label')))
+    rng = np.random.RandomState(22)
+    X = rng.standard_normal((batches * N, D)).astype(np.float32)
+    y = rng.randint(0, V, batches * N).astype(np.int32)
+    it = mt.io.NDArrayIter({'x': X}, {'label': y}, batch_size=N)
+    mod = mt.mod.Module(net, data_names=('x',), label_names=('label',),
+                        context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mt.random.seed(0)
+    mod.init_params(_xavier())
+    state = {'before': {n: a.handle.detach().clone()
+                        for n, a in mod.get_params()[0].items()}}
+    errs = []
+
+    def against_plain(param):
+        # the batch's loss against the plain versions on the parameters it
+        # ran with (those before this batch's update in fit)
+        data_batch = param.locals.get('data_batch') or \
+            param.locals['eval_batch']
+        p = state['before']
+        xb = data_batch.data[0].handle.to(device)
+        lab = data_batch.label[0].handle.to(device)
+        h = ck.layernorm_ref(xb, p['ln_gamma'], p['ln_beta'])
+        ref = float(ck.softmax_xent_ref((h @ p['head_weight'].t()).float(),
+                                        lab).sum())
+        got = float(mod.get_outputs()[0].asnumpy().sum())
+        errs.append(abs(got - ref) / abs(ref))
+        state['before'] = {n: a.handle.detach().clone()
+                           for n, a in mod.get_params()[0].items()}
+
+    counters = (ck.layernorm_fwd, ck.rmsnorm_fwd, ck.softmax_fwd,
+                ck.softmax_xent_fwd)
+    launches = {}
+    # the main path: counts are zeroed just before and read just after
+    for fwd in counters:
+        fwd.launches = 0
+    mod.fit(it, num_epoch=1, optimizer='sgd', optimizer_params=FIT_OPT,
+            eval_metric='loss', kvstore='device',
+            batch_end_callback=against_plain)
+    mod.get_outputs()[0].wait_to_read()
+    launches['fit'] = {fwd.__name__: fwd.launches for fwd in counters}
+    for fwd in counters:
+        fwd.launches = 0
+    res = mod.score(it, 'loss', batch_end_callback=against_plain)
+    mod.get_outputs()[0].wait_to_read()
+    launches['score'] = {fwd.__name__: fwd.launches for fwd in counters}
+    want = {'layernorm_fwd': batches, 'rmsnorm_fwd': 0, 'softmax_fwd': 0,
+            'softmax_xent_fwd': batches}
+    if not on_card:
+        want = dict.fromkeys(want, 0)
+    log('  Module(x [%d, %d] f32 -> LayerNorm -> FullyConnected to %d -> f32 '
+        '-> softmax_cross_entropy -> MakeLoss): fit, one epoch of %d batches, '
+        'launches %s; score %s (loss %.4f)'
+        % (N, D, V, batches, launches['fit'], launches['score'], res[0][1]))
+    check(launches['fit'] == want and launches['score'] == want,
+          'Module launches %s != %s each' % (launches, want))
+    log('  each batch\'s loss against the plain versions\' (fit, then '
+        'score): relative errors %s' % ['%.3e' % e for e in errs])
+    check(len(errs) == 2 * batches and max(errs) <= MODULE_LOSS_RTOL,
+          'a batch\'s loss through Module disagrees with the plain versions')
+    del mod, state
+    return {n: launches['fit'][n] + launches['score'][n]
+            for n in launches['fit']}
+
+
+def gluon_loop(device, fitted, spec=RESNET, steps=2):
+    """Phase (l3): the same net imperative under autograd.record() with
+    SoftmaxCrossEntropyLoss, backward and gluon.Trainer.step(batch) for
+    ``steps`` steps; step 1's loss and update against (l1)'s f32 step."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    name, batch, image, classes = spec
+    on_card = device.type == 'cuda'
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    with mt.name.NameManager():
+        net = vision.get_model(name, classes=classes)
+    net.initialize(ctx=ctx)
+    x = nd.from_torch(fitted['images'], ctx)
+    lab = nd.from_torch(fitted['labels'], ctx)
+    with autograd.pause():
+        net(x)                              # deferred initialisation
+    values = {n: t.cpu().numpy() for n, t in fitted['masters'].items()
+              if n != 'data'}
+    values.update({n: t.cpu().numpy() for n, t in fitted['aux'].items()})
+    gluon.params_from_numpy(net, values)
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, 'sgd', dict(FIT_OPT))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for i in range(steps):
+        with autograd.record():
+            loss = loss_fn(net(x), lab)
+        loss.backward()
+        trainer.step(batch)
+        losses.append(float(loss.mean().asscalar()))
+        if i == 0:
+            after = {n: p.data(ctx).handle.detach().clone()
+                     for n, p in params.items() if p.grad_req != 'null'}
+    on = [p.data(ctx).handle.device.type for p in params.values()]
+    check(all(d == device.type for d in on),
+          'a parameter left %s in Trainer.step' % device.type)
+    names = fitted['names']
+    upd = _concat_update(names, fitted['masters'], after)
+    ref_loss, ref_upd = fitted['ref']
+    loss_err = abs(losses[0] - ref_loss) / abs(ref_loss)
+    upd_err = rel_rms(upd, ref_upd)
+    log('  Gluon %s imperative, SoftmaxCrossEntropyLoss, Trainer(sgd).step(%d) '
+        'on %s: losses %s; step 1 against (l1)\'s f32 step: loss relative '
+        'error %.3e (held to %g), update relative RMS error %.3e (held to %g)'
+        % (name, batch, device.type, ['%.6f' % v for v in losses], loss_err,
+           FIT_LOSS_RTOL, upd_err, FIT_UPDATE_REL_RMS))
+    check(all(np.isfinite(losses)), 'the Gluon loop\'s loss is not finite')
+    check(loss_err <= FIT_LOSS_RTOL, 'the Gluon step\'s loss disagrees')
+    check(upd_err <= FIT_UPDATE_REL_RMS, 'the Gluon step\'s update disagrees')
+
+
+def phase_l(device, cfg, spec=RESNET, n_images=FIT_IMAGES):
+    """Phase (l): (l1) Module.fit on bench's ResNet-50, (l2) the kernels
+    through Module, (l3) the Gluon loop. Returns (l2)'s launches."""
+    log('  (l1) train_imagenet\'s recipe through Module.fit: %s, batch %d'
+        % (spec[0], spec[1]))
+    fitted = module_fit(device, spec, n_images)
+    log('  (l2) the kernels through Module.fit and Module.score')
+    launches = module_kernels(device, cfg)
+    log('  (l3) the Gluon loop: autograd.record, a loss, Trainer.step')
+    gluon_loop(device, fitted, spec)
+    return launches
+
+
 def phase_k(device, cfg, spec=RESNET):
     """Phase (k): (k1) bench's ResNet-50 step, (k2) the executor and (k3)
     autograd reaching the row kernels. Returns ((k2)'s launches, (k3)'s,
@@ -2375,6 +2823,9 @@ def main():
     log('(k) bench\'s ResNet-50 step, the executor and autograd on the card')
     exec_launches, ag_launches, resnet = phase_k(device, cfg)
 
+    log('(l) Module.fit, the kernels through Module and the Gluon loop')
+    module_launches = phase_l(device, cfg)
+
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
     tt = train_times(device, cfg, *step_args)
@@ -2407,6 +2858,7 @@ def main():
             'launches': row_launches[row_fns(kernel)[0].__name__],
             'executor_launches': exec_launches[row_fns(kernel)[0].__name__],
             'autograd_launches': ag_launches[row_fns(kernel)[0].__name__],
+            'module_launches': module_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):
         record['kernels'].append({

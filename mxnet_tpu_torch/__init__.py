@@ -27,7 +27,13 @@ Ported so far:
   :mod:`.autograd` (torch's graph as the tape), the ResNet op set of
   :mod:`.ops.nn`, :mod:`.initializer`, :mod:`.symbol` with its shape and
   type inference, :mod:`.executor`, and :mod:`.gluon` (parameters, blocks,
-  the ``nn`` layers and the ResNets of ``model_zoo.vision``).
+  the ``nn`` layers and the ResNets of ``model_zoo.vision``);
+- the training loop of MXNet 0.11 above the executor: ``mod.Module``
+  (:mod:`.module`: BaseModule's per-batch ``fit``, ``score`` and
+  ``predict``, the DataParallelExecutorGroup), :mod:`.io` (NDArrayIter),
+  :mod:`.metric`, :mod:`.callback`, the local :mod:`.kvstore`,
+  :mod:`.model` (checkpoints, the update paths), ``nd.save``/``nd.load``
+  in both the JAX package's formats, and Gluon's Trainer and losses.
 
 The kernels and their plain versions are in :mod:`.ops.cuda_kernels`.
 """
@@ -54,6 +60,15 @@ from . import initializer as init
 from . import symbol
 from . import symbol as sym
 from . import executor
+from . import io
+from . import metric
+from . import callback
+from . import kvstore
+from . import kvstore as kv
+from . import model
+from .model import save_checkpoint, load_checkpoint
+from . import module
+from . import module as mod
 from . import gluon
 from . import graph_train
 from .attribute import AttrScope
@@ -62,4 +77,6 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context', 'base',
            'config', 'context', 'ops', 'fused_rmsnorm', 'ndarray', 'nd',
            'rtc', 'lr_scheduler', 'optimizer', 'transformer', 'serving',
            'random', 'autograd', 'attribute', 'name', 'initializer', 'init',
-           'symbol', 'sym', 'executor', 'gluon', 'graph_train', 'AttrScope']
+           'symbol', 'sym', 'executor', 'io', 'metric', 'callback',
+           'kvstore', 'kv', 'model', 'save_checkpoint', 'load_checkpoint',
+           'module', 'mod', 'gluon', 'graph_train', 'AttrScope']

@@ -21,7 +21,12 @@ the JAX package's, so one environment drives both packages:
   an im2col matmul for the weight gradient). Both compute the same
   function as the plain convolution; the port declares them so that one
   environment drives both packages, and they change nothing here: every
-  Convolution is one ``F.conv1d/2d/3d`` call (cuDNN on the card).
+  Convolution is one ``F.conv1d/2d/3d`` call (cuDNN on the card);
+- ``MXTPU_FUSED_FIT``, ``MXTPU_FUSED_EVAL``, ``MXTPU_CKPT_DIR``,
+  ``MXTPU_FAULT_INJECT`` and ``MXTPU_TELEMETRY``: paths of the JAX
+  package's ``Module.fit`` and eval that the port does not have yet; set,
+  each makes them raise NotImplementedError. The port's default of
+  ``MXTPU_FUSED_FIT`` is off, where the JAX package's is on.
 
 A flag may name aliases (the reference's ``MXNET_*`` spellings), read when
 the flag's own name is unset.
@@ -130,3 +135,22 @@ flags.declare('MXTPU_CONV_STEM_S2D', bool, False,
               'Declared for the JAX package, where it rewrites thin-input '
               'strided convolutions as space-to-depth; the same function, '
               'so it changes nothing in the port')
+# The JAX package's flags for paths of its fit and eval that the port does
+# not have yet. Set, each makes Module.fit, score and predict raise
+# NotImplementedError naming where it waits (module/base_module.py).
+flags.declare('MXTPU_FUSED_FIT', bool, False,
+              'Declared for the JAX package, where Module.fit runs a window '
+              'of W steps in one XLA call; the port has no fused window '
+              'yet, so setting it raises')
+flags.declare('MXTPU_FUSED_EVAL', bool, False,
+              'Declared for the JAX package, where score and predict run a '
+              'window of W forwards in one XLA call; setting it raises here')
+flags.declare('MXTPU_CKPT_DIR', str, '',
+              'Declared for the JAX package\'s periodic training '
+              'checkpoints; setting it raises here')
+flags.declare('MXTPU_FAULT_INJECT', str, '',
+              'Declared for the JAX package\'s fault injection; setting it '
+              'raises here')
+flags.declare('MXTPU_TELEMETRY', bool, False,
+              'Declared for the JAX package\'s telemetry; setting it raises '
+              'here')

@@ -153,12 +153,19 @@ class Block:
         return ret
 
     def save_params(self, filename):
-        self.collect_params().save(filename)
+        """The parameters into ``filename``, named without this block's
+        prefix."""
+        strip_prefix = self.prefix if self._prefix.endswith('_') else ''
+        self.collect_params().save(filename, strip_prefix=strip_prefix)
 
     def load_params(self, filename, ctx=None, allow_missing=False,
                     ignore_extra=False):
+        """The parameters from ``filename`` (written by ``save_params``),
+        on ``ctx`` (the current context by default)."""
+        restore_prefix = self.prefix if self._prefix.endswith('_') else ''
         self.collect_params().load(filename, ctx or current_context(),
-                                   allow_missing, ignore_extra)
+                                   allow_missing, ignore_extra,
+                                   restore_prefix=restore_prefix)
 
     def register_child(self, block):
         self._children.append(block)

@@ -5,8 +5,8 @@ context, ``grad_req``, ``data``/``grad``/``set_data``/``zero_grad``,
 
 A parameter's data is a marked autograd variable (its gradient buffer
 attached by ``autograd.mark_variables``) unless its ``grad_req`` is
-'null'. ``save`` and ``load`` wait for ``nd.save``/``nd.load`` and raise
-NotImplementedError. :func:`params_from_numpy` sets a Block's or an
+'null'. ``ParameterDict.save``/``load`` go through ``nd.save``/``nd.load``,
+so the files cross between the packages. :func:`params_from_numpy` sets a Block's or an
 Executor's parameters and aux states from numpy arrays by name (the JAX
 package's values, in the tests).
 """
@@ -368,13 +368,41 @@ class ParameterDict:
             setattr(i, name, value)
 
     def save(self, filename, strip_prefix=''):
-        raise NotImplementedError('ParameterDict.save needs nd.save, which '
-                                  'the port does not have yet')
+        """Each parameter's value (from its first context) into
+        ``filename`` by ``nd.save``, under its name less ``strip_prefix``."""
+        arg_dict = {}
+        for param in self.values():
+            weight = param._reduce()
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    'Prefix %s is to be striped before saving, but Parameter '
+                    '%s does not start with %s.' % (
+                        strip_prefix, param.name, strip_prefix))
+            arg_dict[param.name[len(strip_prefix):]] = weight
+        nd.save(filename, arg_dict)
 
     def load(self, filename, ctx, allow_missing=False,
              ignore_extra=False, restore_prefix=''):
-        raise NotImplementedError('ParameterDict.load needs nd.load, which '
-                                  'the port does not have yet')
+        """Each parameter's value from ``filename`` (``nd.load``; names
+        carry ``restore_prefix`` back), initialised on ``ctx``."""
+        if restore_prefix:
+            for name in self.keys():
+                assert name.startswith(restore_prefix), \
+                    'restore_prefix is %s but Parameters name %s does not start ' \
+                    'with %s' % (restore_prefix, name, restore_prefix)
+        lprefix = len(restore_prefix)
+        arg_dict = {restore_prefix + k: v for k, v in nd.load(filename).items()}
+        if not allow_missing:
+            for name in self.keys():
+                assert name in arg_dict, \
+                    'Parameter %s is missing in file %s' % (name[lprefix:], filename)
+        for name in arg_dict:
+            if name not in self._params:
+                assert ignore_extra, \
+                    'Parameter %s loaded from file %s is not present in ' \
+                    'ParameterDict' % (name[lprefix:], filename)
+                continue
+            self[name]._load_init(arg_dict[name], ctx)
 
 
 def params_from_numpy(target, arrays, allow_missing=False):

@@ -7,7 +7,7 @@ The random ones draw on the host from :func:`..random.host_rng`, a numpy
 ``RandomState`` as in the JAX package, and write through
 ``arr[:] = values``; so after ``random.seed(s)`` the same initializers in
 the same order give the same weights as the JAX package's. ``Load`` takes
-a dict of arrays (reading a file waits for ``nd.load``).
+a dict of arrays or a file that ``nd.save`` wrote.
 """
 import json
 import re
@@ -252,14 +252,13 @@ class Bilinear(Initializer):
 
 
 class Load:
-    """Initialise from a dict of arrays (names may carry the ``arg:`` and
-    ``aux:`` prefixes), else by ``default_init``."""
+    """Initialise from a dict of arrays or a file of them (``nd.load``;
+    names may carry the ``arg:`` and ``aux:`` prefixes), else by
+    ``default_init``."""
 
     def __init__(self, param, default_init=None, verbose=False):
         if isinstance(param, str):
-            raise NotImplementedError(
-                'Load from a file needs nd.load, which the port does not '
-                'have yet; pass a dict of arrays')
+            param = nd.load(param)
         self.param = {}
         for name, arr in param.items():
             if name.startswith('arg:') or name.startswith('aux:'):

@@ -1,0 +1,393 @@
+"""BaseModule and its per-batch loops: the counterpart of
+``mxnet_tpu/module/base_module.py``.
+
+``fit`` binds, initialises the parameters and the optimizer, then for each
+batch runs ``forward_backward``, ``update``, draws the next batch,
+updates the metric and calls the batch-end callbacks; each epoch ends in
+``_fit_epoch_end`` (the metric's log line, the parameters synced back,
+the epoch-end callbacks, a ``score`` of the validation data). ``score``,
+``iter_predict`` and ``predict`` are the per-batch forward loops.
+
+The JAX package's fit and eval also take a fused window of W steps in one
+XLA call (``fused_fit.py``, ``fused_eval.py``), and its fit carries seams
+for checkpoints, fault injection and telemetry. None of these is ported:
+the port always runs the per-batch loop, and a flag that would turn one
+of them on raises NotImplementedError naming its ROADMAP.md item
+(:func:`_check_unported_flags`).
+"""
+import logging
+import time
+import warnings
+
+from .. import metric as metric_mod
+from .. import ndarray as nd
+from ..config import flags
+from ..initializer import Uniform
+from ..io import DataDesc
+from ..model import BatchEndParam
+
+__all__ = ['BaseModule']
+
+# flags of the JAX package's fit and eval whose paths are not ported, and
+# where each waits
+_UNPORTED_FLAGS = (
+    ('MXTPU_FUSED_FIT', 'the fused fit window (module/fused_fit.py, '
+     'window_pipeline.py)', 'ROADMAP.md §1 item 7'),
+    ('MXTPU_FUSED_EVAL', 'the fused eval window (module/fused_eval.py)',
+     'ROADMAP.md §1 item 7'),
+    ('MXTPU_CKPT_DIR', 'periodic training checkpoints '
+     '(module/checkpointing.py)', 'ROADMAP.md §1 item 12'),
+    ('MXTPU_FAULT_INJECT', 'fault injection (faults.py)',
+     'ROADMAP.md §1 item 12'),
+    ('MXTPU_TELEMETRY', 'telemetry (its health, ledger, watchdog, memory '
+     'and timeline planes)', 'ROADMAP.md §1 item 13'),
+)
+
+
+def _check_unported_flags():
+    """Raise NotImplementedError for a set flag whose path is not
+    ported."""
+    for name, what, item in _UNPORTED_FLAGS:
+        flags.reload(name)
+        if flags.get(name):
+            raise NotImplementedError(
+                '%s is set, but %s is not ported yet (%s)' % (name, what, item))
+
+
+def _check_input_names(symbol, names, typename, throw):
+    args = symbol.list_arguments()
+    for name in names:
+        if name in args:
+            continue
+        candidates = [arg for arg in args if not arg.endswith('_weight') and
+                      not arg.endswith('_bias') and not arg.endswith('_gamma')
+                      and not arg.endswith('_beta')]
+        msg = "\033[91mYou created Module with Module(..., %s_names=%s) but " \
+              "input with name '%s' is not found in symbol.list_arguments(). " \
+              "Did you mean one of:\n\t%s\033[0m" % (
+                  typename, str(names), name, '\n\t'.join(candidates))
+        if throw:
+            raise ValueError(msg)
+        logging.warning(msg)
+
+
+def _check_names_match(data_names, data_shapes, name, throw):
+    """The descriptors' names must match the module's declared names:
+    data names raise, label names only warn (a module for prediction binds
+    without labels)."""
+    actual = [x[0] for x in data_shapes]
+    if sorted(data_names) != sorted(actual):
+        msg = "Data provided by %s_shapes don't match names specified by " \
+              "%s_names (%s vs. %s)" % (name, name, str(data_shapes),
+                                        str(data_names))
+        if throw:
+            raise ValueError(msg)
+        warnings.warn(msg)
+
+
+def _parse_data_desc(data_names, label_names, data_shapes, label_shapes):
+    data_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
+                   for x in data_shapes]
+    _check_names_match(data_names, data_shapes, 'data', True)
+    if label_shapes is not None:
+        label_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
+                        for x in label_shapes]
+        _check_names_match(label_names, label_shapes, 'label', False)
+    else:
+        _check_names_match(label_names, [], 'label', False)
+    return data_shapes, label_shapes
+
+
+class BaseModule:
+    """The training and prediction loops over a module's forward,
+    backward, update and metric."""
+
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    # -- high-level API ---------------------------------------------------
+    def forward_backward(self, data_batch):
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """``eval_metric`` over the batches of ``eval_data``, forward in
+        prediction; returns its ``get_name_value()``."""
+        assert self.binded and self.params_initialized
+        _check_unported_flags()
+        if reset:
+            eval_data.reset()
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        eval_metric.reset()
+        actual_num_batch = 0
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                for callback in _as_list(batch_end_callback):
+                    callback(params)
+            actual_num_batch += 1
+        if score_end_callback:
+            params = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
+                                   eval_metric=eval_metric, locals=locals())
+            for callback in _as_list(score_end_callback):
+                callback(params)
+        return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, nbatch, batch)`` for each batch, the outputs
+        without the batch's padding."""
+        assert self.binded and self.params_initialized
+        _check_unported_flags()
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad
+            outputs = [out[0:out.shape[0] - pad]
+                       for out in self.get_outputs()]
+            yield (outputs, nbatch, eval_batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """The outputs over ``eval_data`` (padding dropped), joined over the
+        batches with ``merge_batches``."""
+        assert self.binded and self.params_initialized
+        _check_unported_flags()
+        if reset:
+            eval_data.reset()
+        output_list = []
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad
+            outputs = [out[0:out.shape[0] - pad].copy()
+                       for out in self.get_outputs()]
+            output_list.append(outputs)
+        if len(output_list) == 0:
+            return output_list
+        if merge_batches:
+            num_outputs = len(output_list[0])
+            for out in output_list:
+                assert len(out) == num_outputs, \
+                    'Cannot merge batches, as num of outputs is not the same ' \
+                    'in mini-batches. Maybe bucketing is used?'
+            output_list2 = [nd.concatenate([out[i] for out in output_list])
+                            for i in range(num_outputs)]
+            if num_outputs == 1 and not always_output_list:
+                return output_list2[0]
+            return output_list2
+        return output_list
+
+    def fit(self, train_data, eval_data=None, eval_metric='acc',
+            epoch_end_callback=None, batch_end_callback=None, kvstore='local',
+            optimizer='sgd', optimizer_params=(('learning_rate', 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=Uniform(0.01), arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None):
+        """Train for epochs ``begin_epoch`` to ``num_epoch``, one batch at
+        a time."""
+        assert num_epoch is not None, 'please specify number of epochs'
+        _check_unported_flags()
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+
+        if validation_metric is None:
+            validation_metric = eval_metric
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            nbatch = 0
+            data_iter = iter(train_data)
+            end_of_batch = False
+            next_data_batch = next(data_iter)
+            while not end_of_batch:
+                data_batch = next_data_batch
+                if monitor is not None:
+                    monitor.tic()
+                self.forward_backward(data_batch)
+                self.update()
+                try:
+                    next_data_batch = next(data_iter)
+                    self.prepare(next_data_batch)
+                except StopIteration:
+                    end_of_batch = True
+                self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
+                if batch_end_callback is not None:
+                    batch_end_params = BatchEndParam(
+                        epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
+                        locals=locals())
+                    for callback in _as_list(batch_end_callback):
+                        callback(batch_end_params)
+                nbatch += 1
+
+            self._fit_epoch_end(epoch, eval_metric, tic, epoch_end_callback,
+                                eval_data, validation_metric,
+                                eval_end_callback, eval_batch_end_callback)
+            train_data.reset()
+
+    def _fit_epoch_end(self, epoch, eval_metric, tic, epoch_end_callback,
+                       eval_data, validation_metric, eval_end_callback,
+                       eval_batch_end_callback):
+        """The metric's log line, the parameters synced from the devices,
+        the epoch-end callbacks and the validation score."""
+        name_vals = eval_metric.get_name_value()
+        for name, val in name_vals:
+            self.logger.info('Epoch[%d] Train-%s=%f', epoch, name, val)
+        toc = time.time()
+        self.logger.info('Epoch[%d] Time cost=%.3f', epoch, (toc - tic))
+
+        arg_params_, aux_params_ = self.get_params()
+        self.set_params(arg_params_, aux_params_)
+        if epoch_end_callback is not None:
+            for callback in _as_list(epoch_end_callback):
+                callback(epoch, self.symbol, arg_params_, aux_params_)
+
+        if eval_data:
+            res = self.score(eval_data, validation_metric,
+                             score_end_callback=eval_end_callback,
+                             batch_end_callback=eval_batch_end_callback,
+                             epoch=epoch)
+            for name, val in res:
+                self.logger.info('Epoch[%d] Validation-%s=%f',
+                                 epoch, name, val)
+
+    # -- parameter contract (implemented by subclasses) --------------------
+    @property
+    def symbol(self):
+        return self._symbol
+
+    @property
+    def data_names(self):
+        raise NotImplementedError()
+
+    @property
+    def output_names(self):
+        raise NotImplementedError()
+
+    @property
+    def data_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def label_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def output_shapes(self):
+        raise NotImplementedError()
+
+    def get_params(self):
+        raise NotImplementedError()
+
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
+                    aux_params=None, allow_missing=False, force_init=False,
+                    allow_extra=False):
+        raise NotImplementedError()
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init, allow_extra=allow_extra)
+
+    def save_params(self, fname):
+        arg_params, aux_params = self.get_params()
+        save_dict = {('arg:%s' % k): v for k, v in arg_params.items()}
+        save_dict.update({('aux:%s' % k): v for k, v in aux_params.items()})
+        nd.save(fname, save_dict)
+
+    def load_params(self, fname):
+        save_dict = nd.load(fname)
+        arg_params = {}
+        aux_params = {}
+        for k, value in save_dict.items():
+            arg_type, name = k.split(':', 1)
+            if arg_type == 'arg':
+                arg_params[name] = value
+            elif arg_type == 'aux':
+                aux_params[name] = value
+            else:
+                raise ValueError('Invalid param file ' + fname)
+        self.set_params(arg_params, aux_params)
+
+    def get_states(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        assert not merge_multi_context
+        return []
+
+    def set_states(self, states=None, value=None):
+        assert self.binded and self.params_initialized
+        assert not states and not value
+
+    def install_monitor(self, mon):
+        raise NotImplementedError()
+
+    def prepare(self, data_batch):
+        pass
+
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError()
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError()
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def update(self):
+        raise NotImplementedError()
+
+    def update_metric(self, eval_metric, labels):
+        raise NotImplementedError()
+
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req='write'):
+        raise NotImplementedError()
+
+    def init_optimizer(self, kvstore='local', optimizer='sgd',
+                       optimizer_params=(('learning_rate', 0.01),),
+                       force_init=False):
+        raise NotImplementedError()
+
+
+def _as_list(obj):
+    if isinstance(obj, list):
+        return obj
+    return [obj]

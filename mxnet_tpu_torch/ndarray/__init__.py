@@ -2,14 +2,16 @@
 ``mxnet_tpu/ndarray/__init__.py``.
 
 NDArray and its constructors, ``waitall``, ``concatenate``, ``moveaxis``,
-``maximum`` and ``minimum``, and one generated function per registered op
-(``nd.LayerNorm``, ``nd.softmax``, ``nd.broadcast_add``, ``nd.sum``,
-``nd.add_n``, ``nd.stack``, ``nd.sgd_mom_update``, ``nd.Convolution``,
-...), called as in the JAX package, and ``nd.random``.
+``maximum`` and ``minimum``, ``save`` and ``load`` (:mod:`.utils`), and
+one generated function per registered op (``nd.LayerNorm``,
+``nd.softmax``, ``nd.broadcast_add``, ``nd.sum``, ``nd.add_n``,
+``nd.stack``, ``nd.sgd_mom_update``, ``nd.Convolution``, ...), called
+as in the JAX package, and ``nd.random``.
 """
 from .ndarray import (NDArray, array, zeros, ones, empty, full, arange,
                       invoke, waitall, concatenate, stack, moveaxis, from_torch)
 from . import register as _register
+from .utils import save, load
 from . import op  # noqa: F401  (generated-op module path)
 from . import random  # noqa: F401  (nd.random samplers)
 

@@ -33,8 +33,8 @@ direct tensor methods (``astype``, ``reshape``, indexing, ``copyto``) record
 only while recording, too. A ``needs_rng`` op gets its device's generator
 (:func:`..random.generator`).
 
-Not yet: the method forms of ops that are not ported (``log_softmax``,
-``sort``), and sparse storage.
+Not yet: the method forms of ops that are not ported (``sort``), and
+sparse storage.
 """
 import numpy as np
 import torch
@@ -94,6 +94,22 @@ class NDArray:
         if self._grad_req is not None:
             tensor = _ag.make_leaf(self, tensor)
         self._t = tensor
+
+    # pickled as the JAX package pickles an NDArray (the optimizer states'
+    # files): the value as numpy, bfloat16 as float32 with a flag, and the
+    # context; it is placed back on that context when it is loaded
+    def __getstate__(self):
+        t = self._t.detach()
+        bf16 = t.dtype == torch.bfloat16
+        return {'data': (t.float() if bf16 else t).cpu().numpy(),
+                'ctx': self._ctx, 'bf16': bf16}
+
+    def __setstate__(self, state):
+        t = torch.from_numpy(np.array(state['data']))
+        if state.get('bf16'):
+            t = t.to(torch.bfloat16)
+        ctx = state['ctx']
+        self.__init__(t.to(ctx.torch_device()), ctx)
 
     # -- basic properties -------------------------------------------------
     @property
@@ -436,13 +452,13 @@ def _unary_method(name):
 for _n in ['sum', 'nansum', 'prod', 'nanprod', 'mean', 'max', 'min', 'norm',
            'argmax', 'argmin']:
     setattr(NDArray, _n, _reduce_method(_n))
-# the JAX package's list, less log_softmax (not ported yet)
+# the JAX package's list
 for _n in ['abs', 'sign', 'round', 'rint', 'fix', 'floor', 'ceil', 'trunc',
            'sin', 'cos', 'tan', 'arcsin', 'arccos', 'arctan', 'degrees',
            'radians', 'sinh', 'cosh', 'tanh', 'arcsinh', 'arccosh', 'arctanh',
            'exp', 'expm1', 'log', 'log10', 'log2', 'log1p', 'sqrt', 'rsqrt',
            'cbrt', 'square', 'reciprocal', 'relu', 'sigmoid', 'softmax',
-           'zeros_like', 'ones_like']:
+           'log_softmax', 'zeros_like', 'ones_like']:
     setattr(NDArray, _n, _unary_method(_n))
 
 

@@ -9,9 +9,9 @@ branch. :func:`use_fused` chooses between them as the JAX package's
 ``use_fused()`` does, with the card in the TPU's place.
 
 The ResNet op set (FullyConnected, Convolution, Deconvolution, Pooling,
-Activation, LeakyReLU, BatchNorm, Dropout, SoftmaxOutput) is left to XLA
-in the JAX package, and here to torch's library calls (cuDNN and cuBLAS on
-the card), with the JAX ops' numbers:
+Activation, LeakyReLU, BatchNorm, Dropout, SoftmaxOutput), MakeLoss and
+log_softmax are left to XLA in the JAX package, and here to torch's
+library calls (cuDNN and cuBLAS on the card), with the JAX ops' numbers:
 
 - FullyConnected rounds the product to the data's type before the bias;
 - Convolution is one ``F.conv1d/2d/3d`` call. The JAX package's TPU
@@ -31,7 +31,8 @@ the card), with the JAX ops' numbers:
   value where a channel's spread is small next to its mean, as where it
   normalises over a few values;
 - SoftmaxOutput's backward is the reference's (softmax - one-hot, scaled
-  and masked by its attrs), whatever the head gradient.
+  and masked by its attrs), whatever the head gradient; MakeLoss's is its
+  ``grad_scale`` (over the batch or the valid count), likewise.
 
 A Python number beside a tensor is rounded to the tensor's dtype first, as
 jnp's weak-typed scalars are (:func:`_k`).
@@ -88,6 +89,16 @@ def _softmax(attrs, x):
     if ax == x.ndim - 1 and use_fused(x):
         return ck.fused_softmax(x)
     return torch.softmax(x, dim=ax)
+
+
+@register('log_softmax', param_defaults={'axis': -1, 'temperature': None})
+def _log_softmax(attrs, x):
+    t = attrs.get('temperature', None)
+    if t:
+        x = x / t
+    if not x.is_floating_point():
+        x = x.float()
+    return torch.log_softmax(x, dim=int(attrs.get('axis', -1)))
 
 
 @register('softmax_cross_entropy', input_names=['data', 'label'])
@@ -450,3 +461,42 @@ def _softmax_output(attrs, data, label):
 
 
 register_alias('Softmax', 'SoftmaxOutput')
+
+
+# ---------------------------------------------------------------------------
+# MakeLoss: the identity forward, a constant gradient
+# ---------------------------------------------------------------------------
+
+class _MakeLossFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        # grad_scale (over the batch or the valid count) everywhere; the
+        # head gradient is not read, as in the reference
+        scale = ctx.scale
+        if isinstance(scale, torch.Tensor):
+            return scale.to(g.dtype).expand(g.shape).clone(), None
+        return torch.full_like(g, scale), None
+
+
+@register('MakeLoss', param_defaults={'grad_scale': 1.0,
+                                      'normalization': 'null',
+                                      'valid_thresh': 0.0})
+def _make_loss(attrs, x):
+    """``x`` as a loss: the forward is the identity and the gradient is
+    ``grad_scale``, divided by the batch size (``normalization='batch'``)
+    or by the count of values above ``valid_thresh`` ('valid')."""
+    scale = attrs.get('grad_scale', 1.0)
+    if attrs.get('normalization') == 'batch':
+        scale = scale / x.shape[0]
+    elif attrs.get('normalization') == 'valid':
+        scale = scale / torch.clamp_min(
+            (x > attrs.get('valid_thresh', 0.0)).sum(), 1)
+    return _MakeLossFunction.apply(x, scale)
+
+
+register_alias('make_loss', 'MakeLoss')

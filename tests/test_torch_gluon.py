@@ -317,7 +317,7 @@ def test_symbol_block_matches_jax():
     np.testing.assert_allclose(res[1][0], res[0][0], rtol=1e-6)
 
 
-def test_parameter_surface():
+def test_parameter_surface(tmp_path):
     p = gluon.Parameter('w', shape=(2, 3), grad_req='write')
     with pytest.raises(RuntimeError):
         p.data()
@@ -341,10 +341,14 @@ def test_parameter_surface():
     a = d.get('weight', shape=(0, 4), allow_deferred_init=True)
     assert d.get('weight', shape=(3, 0)) is a and a.shape == (3, 4)
     a.initialize(ctx=CPU)
-    with pytest.raises(NotImplementedError, match='nd.save'):
-        d.save('x.params')
-    with pytest.raises(NotImplementedError, match='nd.load'):
-        d.load('x.params', CPU)
+    # save and load go through nd.save/nd.load (test_torch_save_load.py
+    # holds the files across the packages)
+    fname = str(tmp_path / 'x.params')
+    d.save(fname, strip_prefix='pre_')
+    want = a.data().asnumpy()
+    a.set_data(nd.zeros((3, 4), ctx=CPU))
+    d.load(fname, CPU, restore_prefix='pre_')
+    np.testing.assert_array_equal(a.data().asnumpy(), want)
     q = gluon.Parameter('q', allow_deferred_init=True)
     q.initialize(ctx=CPU)
     with pytest.raises(gluon.DeferredInitializationError):
@@ -434,3 +438,7 @@ def test_new_entry_points_default_to_the_card():
         nd.random.uniform(shape=(2,))
     with pytest.raises(RuntimeError, match='CUDA'):
         mt.sym.var('x').simple_bind(mt.gpu(0), x=(2,))
+    # Module's default context is the card (the JAX package's is cpu())
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mt.mod.Module(mt.sym.SoftmaxOutput(mt.sym.var('data'),
+                                           name='softmax'))
