@@ -113,7 +113,9 @@ order they run:
     and loss, backward and update, and torch.profiler's top device kernels
     and idle share over 3 steps;
 (l) Module.fit, the kernels through Module and the Gluon loop (run after
-    (k), before (e)): (l1) train_imagenet's recipe on bench's model at full
+    (k), before (m)); (l1) and (l2) run with MXTPU_FUSED_FIT=0 and
+    MXTPU_FUSED_EVAL=0, the per-batch loops, and restore the flags after:
+    (l1) train_imagenet's recipe on bench's model at full
     width: mxnet_tpu_torch.mod.Module(resnet50_v1 hybridized and traced by
     _get_graph, under SoftmaxOutput) on the default context (the card),
     bound and initialised by Xavier(gaussian, in, 2), then fit for one
@@ -133,7 +135,26 @@ order they run:
     to the plain versions; (l3) the same ResNet-50 imperative under
     autograd.record() with gluon.loss.SoftmaxCrossEntropyLoss, backward
     and gluon.Trainer(sgd).step(32) for two steps, step 1's loss and update
-    against (l1)'s f32 step and every parameter still on the card.
+    against (l1)'s f32 step and every parameter still on the card;
+(m) the fused W-step windows (W = 4) of Module.fit, score and predict,
+    the defaults (run after (l), before (e)): (m1) (l1)'s set-up over 10
+    batches of 32 from RandomState(0), with eval_metric ['acc', 'ce'] (the
+    ce statistic gives each batch's loss, which the window keeps on the
+    card) through the windowed Module.fit: two windows and a tail of two
+    per-batch steps, one host fetch a window, no synchronising call inside
+    a window (torch's sync debug mode), the batch_end_callback's (epoch,
+    nbatch) 0-9 in order, the 10 losses finite, the masters after window 1
+    against 4 steps of the per-batch loop from the same masters, aux states
+    and momentum (run twice for the floor), score(['acc', 'ce']) and
+    predict over 8 batches with and without the window, and a window
+    batch's CUDA-event and host wall ms, images/s and Speedometer's
+    samples/s beside (l1)'s per-batch figures; (m2) (l2)'s head through
+    the windowed Module.fit (one window of 4 batches, 'loss' in host-metric
+    mode) and Module.score (one window), K4's and K3's launches counted in
+    each (4 and 4; K5 and K6 0; the kernel record's window_launches), each
+    batch's loss against the plain versions (fit: their trajectory from the
+    same parameters under the same update op; score: on the trained
+    parameters).
 
 The second-to-last line of its output is the kernel record
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -2734,17 +2755,466 @@ def gluon_loop(device, fitted, spec=RESNET, steps=2):
     check(upd_err <= FIT_UPDATE_REL_RMS, 'the Gluon step\'s update disagrees')
 
 
+# ---------------------------------------------------------------------------
+# (m) the fused W-step windows of Module.fit, score and predict
+# ---------------------------------------------------------------------------
+
+WINDOW_BATCHES = 10     # (m1): two windows of W = 4 and a tail of two
+WINDOW_SCORED = 8       # (m1)'s score and predict: two eval windows
+# (m1) holds the masters after the first window (4 steps) against 4 steps
+# of the per-batch loop (MXTPU_FUSED_FIT=0) from the same masters, aux
+# states and momentum, as a relative RMS of the change, each run twice for
+# the floor. With cuDNN's default algorithms the floor is no floor: the
+# backward sums in an order of its own each call (one f32 step's spread is
+# 1.0e-5, (l1)), and at this initialisation four steps at lr 0.1 carry that
+# to 0.38 on the H100 (the loss climbs from 8 to 22). So the check runs
+# with cuDNN's deterministic algorithms (torch.backends.cudnn.deterministic),
+# where the per-batch loop repeats itself bit for bit (a floor of 0 on the
+# H100): the window runs the same ops on the same values, so the bound is
+# 0, bit for bit. The default algorithms' figures are printed beside it.
+WINDOW_UPDATE_REL_RMS = 0.0
+# (m1)'s score with and without the window: the same forwards on the same
+# parameters and batches, the statistics summed on the card against numpy's
+# sums on the host: acc equal, ce 1e-5 relative. predict: the same ops on
+# the same inputs, each batch a contiguous slice of the window's stack
+# against the bound array; cuDNN may pick another algorithm for another
+# call, so within 1e-5 relative (1e-6 absolute, the outputs are
+# probabilities), bit for bit printed beside it.
+WINDOW_CE_RTOL = 1e-5
+WINDOW_PREDICT_RTOL = (1e-5, 1e-6)
+# (m2): each batch's loss in fit against the plain versions' trajectory
+# from the same parameters (the same update op on the plain versions'
+# gradients), and in score against the plain versions on the same
+# parameters, at (k2)'s tolerance
+WINDOW_LOSS_RTOL = EXEC_LOSS_RTOL
+WINDOW_KERNEL_BATCHES = 4
+
+
+class _flags_set:
+    """Set environment flags of the port for a block, restoring them after
+    (the port caches its flags: each is reloaded on the way in and out)."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        from mxnet_tpu_torch.config import flags
+        self.old = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+        flags.reload()
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.config import flags
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        flags.reload()
+
+
+def _per_batch():
+    return _flags_set(MXTPU_FUSED_FIT='0', MXTPU_FUSED_EVAL='0')
+
+
+def _timed_windows(device, record):
+    """Wrap FusedFitLoop's window programs while the block runs: each call
+    appends (start event, end event, host wall ms, synchronising calls
+    inside it, the carried parameters it returned) to ``record``. On the
+    card torch's sync debug mode warns of every call inside the window
+    that synchronises the host with the device."""
+    import contextlib
+    import warnings
+    import torch
+    from mxnet_tpu_torch.module.fused_fit import FusedFitLoop
+    on_card = device.type == 'cuda'
+    orig = FusedFitLoop._build_program
+
+    def build(self, static_attrs):
+        fn = orig(self, static_attrs)
+        names = list(self._carry_names)
+
+        def timed(*args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
+                if on_card else None
+            if ev:
+                ev[0].record()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                if on_card:
+                    torch.cuda.set_sync_debug_mode('warn')
+                try:
+                    out = fn(*args)
+                finally:
+                    if on_card:
+                        torch.cuda.set_sync_debug_mode(0)
+            wall = (time.perf_counter() - t0) * 1e3
+            if ev:
+                ev[1].record()
+            syncs = [str(w.message) for w in caught
+                     if 'called a synchronizing CUDA operation'
+                     in str(w.message)]
+            record.append((ev, wall, syncs,
+                           {n: t.detach().clone()
+                            for n, t in zip(names, out[0])}))
+            return out
+        return timed
+
+    @contextlib.contextmanager
+    def patched():
+        FusedFitLoop._build_program = build
+        try:
+            yield
+        finally:
+            FusedFitLoop._build_program = orig
+    return patched()
+
+
+def window_fit(device, spec=RESNET, per_batch=None,
+               n_batches=WINDOW_BATCHES):
+    """Phase (m1): train_imagenet's recipe (as (l1)) through the default,
+    windowed Module.fit over ``n_batches`` batches: two windows and a tail;
+    the host's fetches a window, the callbacks' order, the losses, window
+    1's masters against 4 per-batch steps, score and predict with and
+    without the window, and a window batch's times beside (l1)'s per-batch
+    ones (``per_batch``)."""
+    import logging
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.module.window_pipeline import window_size
+    name, batch, image, classes = spec
+    on_card = device.type == 'cuda'
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    W = window_size()
+    check(W == 4, 'the fit window is %d steps, not 4' % W)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    X = rng.standard_normal((n_batches * batch, 3, image, image)).astype(
+        np.float32)
+    y = rng.randint(0, classes, n_batches * batch).astype(np.int32)
+    train = mt.io.NDArrayIter(X, y, batch_size=batch)
+    sym = _zoo_symbol(name, classes, (batch, 3, image, image))
+    mod = mt.mod.Module(sym) if on_card else mt.mod.Module(sym, context=ctx)
+    mod.bind(train.provide_data, train.provide_label)
+    mt.random.seed(0)
+    mod.init_params(_xavier())
+    args, aux = mod.get_params()
+    masters0 = {n: a.handle.detach().clone() for n, a in args.items()}
+    aux0 = {n: a.handle.detach().clone() for n, a in aux.items()}
+    log('  Module(%s under SoftmaxOutput) on %s, W = %d, %d batches of %d '
+        'from seed 0; set up in %.1f s'
+        % (name, mod._context, W, n_batches, batch, time.perf_counter() - t0))
+
+    seen = {'batches': [], 'loss': [], 'speed': []}
+    prev = {'ce': (0.0, 0)}
+
+    def per_batch_cb(param):
+        # the batch's loss from the CE statistic's increment (the metric is
+        # reset by the Speedometer every 4 batches)
+        seen['batches'].append((param.epoch, param.nbatch))
+        ce = param.eval_metric.get_metric(1)
+        cur = (ce.sum_metric, ce.num_inst)
+        if cur[1] < prev['ce'][1]:
+            prev['ce'] = (0.0, 0)
+        seen['loss'].append((cur[0] - prev['ce'][0]) /
+                            max(cur[1] - prev['ce'][1], 1))
+        prev['ce'] = cur
+
+    class Speeds(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if 'Speed:' in msg:
+                seen['speed'].append(float(msg.split('Speed: ')[1].split()[0]))
+    handler = Speeds()
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    windows = []
+    t0 = time.perf_counter()
+    try:
+        with _timed_windows(device, windows):
+            # eval_metric: (l1)'s acc, with ce beside it for the losses,
+            # which the window keeps on the card: both are statistics in
+            # the same single fetch a window
+            mod.fit(train, num_epoch=1, optimizer='sgd',
+                    optimizer_params=FIT_OPT, initializer=_xavier(),
+                    eval_metric=['acc', 'ce'], kvstore='device',
+                    batch_end_callback=[per_batch_cb, mt.callback.Speedometer(
+                        batch, FIT_SPEEDOMETER)])
+        if on_card:
+            torch.cuda.synchronize()
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    fit_s = time.perf_counter() - t0
+    loop = mod.__dict__['_fused_fit_cache'][1]
+    log('  fit, one epoch of %d batches in %.2f s: %d windows, %d tail '
+        'batches, %d host fetches of window results; losses %s'
+        % (n_batches, fit_s, loop.windows, loop.tail_batches, loop.fetches,
+           ['%.6f' % v for v in seen['loss']]))
+    tail = n_batches % W
+    check((loop.windows, loop.tail_batches) == (n_batches // W, tail),
+          'the fit ran %d windows and %d tail batches, not %d and %d'
+          % (loop.windows, loop.tail_batches, n_batches // W, tail))
+    check(loop.fetches == loop.windows,
+          'the host fetched %d times for %d windows'
+          % (loop.fetches, loop.windows))
+    check(seen['batches'] == [(0, i) for i in range(n_batches)],
+          'the batch_end_callback saw %s' % seen['batches'])
+    check(len(seen['loss']) == n_batches and all(np.isfinite(seen['loss'])),
+          'a batch\'s loss is not finite')
+    syncs = [s for _, _, ss, _ in windows for s in ss]
+    log('  synchronising calls inside the windows (torch sync debug mode): '
+        '%s' % (len(syncs) if on_card else 'not measured off the card'))
+    check(not syncs, 'the window synchronised with the device: %s'
+          % syncs[:3])
+
+    # a window batch's time: the second window (the first pays its first
+    # calls), by CUDA events and host wall time, over its W steps
+    ev, wall, _, _ = windows[-1]
+    win_ms = ev[0].elapsed_time(ev[1]) / W if ev else None
+    wall_ms = wall / W
+    pb = per_batch or {}
+    log('  a window batch (window 2 / %d): %s by CUDA events, %.3f ms of '
+        'host wall time (%.1f images/s); Speedometer %s samples/s; 1 fetch '
+        'a window. The per-batch loop of (l1), this run: %s by CUDA events, '
+        '%s of host wall time; Speedometer %s samples/s'
+        % (W, '%.3f ms' % win_ms if win_ms else 'not measured', wall_ms,
+           batch / (win_ms or wall_ms) * 1e3, seen['speed'],
+           '%.3f ms' % pb['batch_ms'] if pb.get('batch_ms') else
+           'not measured',
+           '%.3f ms' % pb['wall_ms'] if pb.get('wall_ms') else
+           'not measured', pb.get('speed')))
+
+    # window 1's masters against 4 per-batch steps from the same state:
+    # with cuDNN's default algorithms (as the fit above ran) and again with
+    # its deterministic ones, each per-batch run twice for the floor
+    names = sorted(masters0)
+    four = mt.io.NDArrayIter(X[:W * batch], y[:W * batch], batch_size=batch)
+
+    def four_steps(fused):
+        mod.set_params({n: mt.nd.from_torch(t.clone(), ctx)
+                        for n, t in masters0.items()},
+                       {n: mt.nd.from_torch(t.clone(), ctx)
+                        for n, t in aux0.items()})
+        mod.init_optimizer(kvstore='device', optimizer='sgd',
+                           optimizer_params=FIT_OPT, force_init=True)
+        with _flags_set(MXTPU_FUSED_FIT='1' if fused else '0'):
+            mod.fit(four, num_epoch=1, optimizer='sgd',
+                    optimizer_params=FIT_OPT, eval_metric=['acc', 'ce'],
+                    kvstore='device')
+        check(('_fused_fit_cache' in mod.__dict__) == fused,
+              'the 4 steps did not take the %s loop'
+              % ('windowed' if fused else 'per-batch'))
+        return _concat_update(names, masters0, {
+            n: a.handle.detach() for n, a in mod.get_params()[0].items()})
+
+    default = (_concat_update(names, masters0, windows[0][3]),
+               four_steps(False), four_steps(False))
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = (four_steps(True), four_steps(False), four_steps(False))
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    errs = {k: (rel_rms(v[0], v[1]), rel_rms(v[2], v[1]))
+            for k, v in (('default', default), ('deterministic', det))}
+    err, floor = errs['deterministic']
+    log('  masters after window 1 against 4 per-batch steps from the same '
+        'masters, aux states and momentum, update relative RMS error: with '
+        'cuDNN\'s default algorithms %.3e (the per-batch steps against '
+        'themselves run again %.3e); with its deterministic ones %.3e (held '
+        'to %g; again %.3e)' % (errs['default'] + (err, WINDOW_UPDATE_REL_RMS,
+                                                   floor)))
+    check(err <= WINDOW_UPDATE_REL_RMS,
+          'window 1 disagrees with 4 per-batch steps')
+
+    # score and predict with the window and without it, on the trained
+    # module over the same batches
+    res = {}
+    for fused in (True, False):
+        with _flags_set(MXTPU_FUSED_EVAL='1' if fused else '0'):
+            scored = dict(mod.score(train, ['acc', 'ce'],
+                                    num_batch=WINDOW_SCORED))
+            pred = mod.predict(train, num_batch=WINDOW_SCORED).handle
+            if fused:
+                score_loop = mod.__dict__['_fused_eval_cache']['score'][1]
+        res[fused] = (scored, pred.to(device))
+    (s_w, p_w), (s_b, p_b) = res[True], res[False]
+    ce_err = abs(s_w['cross-entropy'] - s_b['cross-entropy']) / \
+        abs(s_b['cross-entropy'])
+    same = bool(torch.equal(p_w, p_b))
+    rtol, atol = WINDOW_PREDICT_RTOL
+    log('  score over %d batches, window / per-batch: acc %.6f / %.6f, ce '
+        '%.6f / %.6f (relative %.3e, held to %g); %d score windows, %d '
+        'fetches; predict %s (max abs difference %.3e; held to rtol %g, atol '
+        '%g)' % (WINDOW_SCORED, s_w['accuracy'], s_b['accuracy'],
+                 s_w['cross-entropy'], s_b['cross-entropy'], ce_err,
+                 WINDOW_CE_RTOL, score_loop.windows, score_loop.fetches,
+                 'bit for bit' if same else 'NOT bit for bit',
+                 float((p_w - p_b).abs().max()), rtol, atol))
+    check(s_w['accuracy'] == s_b['accuracy'], 'the windowed score\'s acc '
+          'differs')
+    check(ce_err <= WINDOW_CE_RTOL, 'the windowed score\'s ce differs')
+    check(score_loop.windows == WINDOW_SCORED // W and
+          score_loop.fetches == WINDOW_SCORED // W,
+          'the score windows or their fetches are off')
+    check(p_w.shape == p_b.shape and torch.allclose(p_w, p_b, rtol=rtol,
+                                                    atol=atol),
+          'the windowed predict differs')
+    del mod
+    return dict(win_ms=win_ms, wall_ms=wall_ms, err=err, floor=floor)
+
+
+def window_kernels(device, cfg, batches=WINDOW_KERNEL_BATCHES):
+    """Phase (m2): (l2)'s head through the default, windowed Module.fit
+    (one window of 4 steps, 'loss' in host-metric mode) and Module.score
+    (one window), K4's and K3's launches counted in each; each batch's loss
+    against the plain versions. Returns {wrapper: launches in fit and
+    score}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.ops import registry
+    sym = mt.sym
+    N, D, V = MAX_BATCH * cfg.seq_len, cfg.d_model, cfg.vocab
+    on_card = device.type == 'cuda'
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    x = sym.var('x')
+    logits = sym.Cast(sym.FullyConnected(sym.LayerNorm(x, name='ln'),
+                                         num_hidden=V, no_bias=True,
+                                         name='head'), dtype='float32')
+    net = sym.MakeLoss(sym.softmax_cross_entropy(logits, sym.var('label')))
+    rng = np.random.RandomState(23)
+    X = rng.standard_normal((batches * N, D)).astype(np.float32)
+    y = rng.randint(0, V, batches * N).astype(np.int32)
+    it = mt.io.NDArrayIter({'x': X}, {'label': y}, batch_size=N)
+    mod = mt.mod.Module(net, data_names=('x',), label_names=('label',),
+                        context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mt.random.seed(0)
+    mod.init_params(_xavier())
+    p0 = {n: a.handle.detach().clone() for n, a in mod.get_params()[0].items()}
+    sums = []
+
+    def loss_sum(param):
+        sums.append(param.eval_metric.sum_metric)
+
+    counters = (ck.layernorm_fwd, ck.rmsnorm_fwd, ck.softmax_fwd,
+                ck.softmax_xent_fwd)
+    launches = {}
+    # the main path: counts are zeroed just before and read just after
+    for fwd in counters:
+        fwd.launches = 0
+    mod.fit(it, num_epoch=1, optimizer='sgd', optimizer_params=FIT_OPT,
+            eval_metric='loss', kvstore='device', batch_end_callback=loss_sum)
+    if on_card:
+        torch.cuda.synchronize()
+    launches['fit'] = {fwd.__name__: fwd.launches for fwd in counters}
+    fit_losses = list(np.diff([0.0] + sums))
+    sums.clear()
+    for fwd in counters:
+        fwd.launches = 0
+    res = mod.score(it, 'loss', batch_end_callback=loss_sum)
+    if on_card:
+        torch.cuda.synchronize()
+    launches['score'] = {fwd.__name__: fwd.launches for fwd in counters}
+    score_losses = list(np.diff([0.0] + sums))
+    fit_loop = mod.__dict__['_fused_fit_cache'][1]
+    score_loop = mod.__dict__['_fused_eval_cache']['score'][1]
+    want = {'layernorm_fwd': batches, 'rmsnorm_fwd': 0, 'softmax_fwd': 0,
+            'softmax_xent_fwd': batches}
+    if not on_card:
+        want = dict.fromkeys(want, 0)
+    log('  Module(x [%d, %d] f32 -> LayerNorm -> FullyConnected to %d -> f32 '
+        '-> softmax_cross_entropy -> MakeLoss), %d batches: fit, %d window '
+        '(host-metric mode: %s), %d tail batches, launches %s; score, %d '
+        'window, launches %s (loss %.4f)'
+        % (N, D, V, batches, fit_loop.windows, fit_loop.stat_fns is None,
+           fit_loop.tail_batches, launches['fit'], score_loop.windows,
+           launches['score'], res[0][1]))
+    check((fit_loop.windows, fit_loop.tail_batches, score_loop.windows) ==
+          (1, 0, 1), 'the head did not run one fit and one score window')
+    check(launches['fit'] == want and launches['score'] == want,
+          'window launches %s != %s each' % (launches, want))
+
+    # the plain versions: fit's trajectory from the same parameters (the
+    # update op the window runs, on the plain versions' gradients), then
+    # score on the trained parameters
+    def plain_loss(p, xb, lab):
+        h = ck.layernorm_ref(xb, p['ln_gamma'], p['ln_beta'])
+        return ck.softmax_xent_ref((h @ p['head_weight'].t()).float(),
+                                   lab).sum()
+
+    sgd = registry.get('sgd_mom_update').fn
+    p = dict(p0)
+    mom = {n: torch.zeros_like(t) for n, t in p.items()}
+    ref_fit = []
+    for b in range(batches):
+        xb = torch.from_numpy(X[b * N:(b + 1) * N]).to(device)
+        lab = torch.from_numpy(y[b * N:(b + 1) * N]).to(device)
+        leaves = {n: t.detach().requires_grad_() for n, t in p.items()}
+        loss = plain_loss(leaves, xb, lab)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        ref_fit.append(float(loss.detach()))
+        with torch.no_grad():
+            for (n, t), g in zip(p.items(), grads):
+                attrs = dict(lr=FIT_OPT['learning_rate'],
+                             momentum=FIT_OPT['momentum'],
+                             wd=FIT_OPT['wd'] if n.endswith(
+                                 ('_weight', '_gamma')) else 0.0,
+                             rescale_grad=1.0 / N, clip_gradient=-1.0)
+                p[n], mom[n] = sgd(attrs, t, g, mom[n])
+    trained = {n: a.handle.detach() for n, a in mod.get_params()[0].items()}
+    ref_score = []
+    with torch.no_grad():
+        for b in range(batches):
+            xb = torch.from_numpy(X[b * N:(b + 1) * N]).to(device)
+            lab = torch.from_numpy(y[b * N:(b + 1) * N]).to(device)
+            ref_score.append(float(plain_loss(trained, xb, lab)))
+    errs = [abs(a - b) / abs(b) for a, b in zip(fit_losses + score_losses,
+                                                ref_fit + ref_score)]
+    log('  each batch\'s loss against the plain versions\' (fit: their '
+        'trajectory from the same parameters; score: on the trained '
+        'parameters): relative errors %s' % ['%.3e' % e for e in errs])
+    check(len(errs) == 2 * batches and max(errs) <= WINDOW_LOSS_RTOL,
+          'a batch\'s loss through the window disagrees with the plain '
+          'versions')
+    del mod
+    return {n: launches['fit'][n] + launches['score'][n]
+            for n in launches['fit']}
+
+
+def phase_m(device, cfg, spec=RESNET, per_batch=None):
+    """Phase (m): (m1) the windowed Module.fit, score and predict on bench's
+    ResNet-50, (m2) the kernels through the windows. Returns (m2)'s
+    launches."""
+    t0 = time.perf_counter()
+    log('  (m1) train_imagenet\'s recipe through the windowed Module.fit: '
+        '%s, batch %d' % (spec[0], spec[1]))
+    window_fit(device, spec, per_batch)
+    log('  (m2) the kernels through the fit and score windows')
+    launches = window_kernels(device, cfg)
+    log('  phase (m) took %.1f s' % (time.perf_counter() - t0))
+    return launches
+
+
 def phase_l(device, cfg, spec=RESNET, n_images=FIT_IMAGES):
     """Phase (l): (l1) Module.fit on bench's ResNet-50, (l2) the kernels
-    through Module, (l3) the Gluon loop. Returns (l2)'s launches."""
+    through Module, both through the per-batch loop, (l3) the Gluon loop.
+    Returns (l2)'s launches and (l1)'s times."""
     log('  (l1) train_imagenet\'s recipe through Module.fit: %s, batch %d'
         % (spec[0], spec[1]))
-    fitted = module_fit(device, spec, n_images)
-    log('  (l2) the kernels through Module.fit and Module.score')
-    launches = module_kernels(device, cfg)
+    # (l1) and (l2) stay the per-batch reference: the windows are (m)'s
+    with _per_batch():
+        fitted = module_fit(device, spec, n_images)
+        log('  (l2) the kernels through Module.fit and Module.score')
+        launches = module_kernels(device, cfg)
     log('  (l3) the Gluon loop: autograd.record, a loss, Trainer.step')
     gluon_loop(device, fitted, spec)
-    return launches
+    return launches, {k: fitted[k] for k in ('batch_ms', 'wall_ms', 'speed')}
 
 
 def phase_k(device, cfg, spec=RESNET):
@@ -2824,7 +3294,10 @@ def main():
     exec_launches, ag_launches, resnet = phase_k(device, cfg)
 
     log('(l) Module.fit, the kernels through Module and the Gluon loop')
-    module_launches = phase_l(device, cfg)
+    module_launches, per_batch = phase_l(device, cfg)
+
+    log('(m) the fused windows of Module.fit, score and predict')
+    window_launches = phase_m(device, cfg, per_batch=per_batch)
 
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
@@ -2839,6 +3312,8 @@ def main():
     resnet_times(device, **resnet)
     del resnet
     log('  total %.1f s' % (time.perf_counter() - t_start))
+    # the card again, so that a log cut at its head still names it
+    log(card)
 
     record = {'kernels': [{
         'name': 'flash_attention', 'route': 'cuda',
@@ -2859,6 +3334,7 @@ def main():
             'executor_launches': exec_launches[row_fns(kernel)[0].__name__],
             'autograd_launches': ag_launches[row_fns(kernel)[0].__name__],
             'module_launches': module_launches[row_fns(kernel)[0].__name__],
+            'window_launches': window_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):
         record['kernels'].append({

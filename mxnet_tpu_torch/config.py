@@ -22,11 +22,18 @@ the JAX package's, so one environment drives both packages:
   function as the plain convolution; the port declares them so that one
   environment drives both packages, and they change nothing here: every
   Convolution is one ``F.conv1d/2d/3d`` call (cuDNN on the card);
-- ``MXTPU_FUSED_FIT``, ``MXTPU_FUSED_EVAL``, ``MXTPU_CKPT_DIR``,
-  ``MXTPU_FAULT_INJECT`` and ``MXTPU_TELEMETRY``: paths of the JAX
-  package's ``Module.fit`` and eval that the port does not have yet; set,
-  each makes them raise NotImplementedError. The port's default of
-  ``MXTPU_FUSED_FIT`` is off, where the JAX package's is on.
+- ``MXTPU_FUSED_FIT``, ``MXTPU_FUSED_EVAL`` and the window's other flags
+  (``MXTPU_FIT_STEPS_PER_CALL``, ``MXTPU_EVAL_STEPS_PER_CALL``,
+  ``MXTPU_FUSED_FIT_PREFETCH``, ``MXTPU_FUSED_EVAL_PREFETCH``,
+  ``MXTPU_FUSED_FIT_TIMING``, ``MXTPU_FUSED_DONATE``): the W-step windows of
+  ``Module.fit``, ``score``, ``predict`` and ``iter_predict``
+  (``module/fused_fit.py``, ``fused_eval.py``, ``window_pipeline.py``),
+  with the JAX package's defaults: both windows on, W automatic;
+- ``MXTPU_CKPT_DIR``, ``MXTPU_FAULT_INJECT``, ``MXTPU_TELEMETRY``,
+  ``MXTPU_HEALTH``, ``MXTPU_DYNAMICS``, ``MXTPU_SHARDED_UPDATE`` and
+  ``MXTPU_GRAD_COMPRESS``: paths of the JAX package's ``Module.fit`` and
+  eval that the port does not have yet; set, each makes them raise
+  NotImplementedError (``module/base_module.py``).
 
 A flag may name aliases (the reference's ``MXNET_*`` spellings), read when
 the flag's own name is unset.
@@ -135,16 +142,44 @@ flags.declare('MXTPU_CONV_STEM_S2D', bool, False,
               'Declared for the JAX package, where it rewrites thin-input '
               'strided convolutions as space-to-depth; the same function, '
               'so it changes nothing in the port')
+# The W-step windows of fit and eval (module/fused_fit.py, fused_eval.py),
+# with the JAX package's defaults.
+flags.declare('MXTPU_FUSED_FIT', bool, True,
+              'Let Module.fit run a window of W training steps from one host '
+              'call, with one fetch of the metric statistics a window, when '
+              'the module is eligible (module/fused_fit.py); 0 forces the '
+              'per-batch loop')
+flags.declare('MXTPU_FIT_STEPS_PER_CALL', int, 0,
+              'Window size W of the fused Module.fit; 0 = auto (32 on a TPU, '
+              '4 elsewhere, so 4 on the card)', min_value=0)
+flags.declare('MXTPU_FUSED_EVAL', bool, True,
+              'Let score, predict and iter_predict run a window of W '
+              'forwards from one host call, with the metric statistics '
+              'on the device or the outputs stacked, fetched once a window '
+              '(module/fused_eval.py); 0 forces the per-batch loop')
+flags.declare('MXTPU_EVAL_STEPS_PER_CALL', int, 0,
+              'Window size W of the fused eval; 0 = auto (32 on a TPU, 4 '
+              'elsewhere)', min_value=0)
+flags.declare('MXTPU_FUSED_FIT_PREFETCH', bool, True,
+              'Upload the next fit window\'s stacked batches on a side '
+              'thread (a side CUDA stream on the card) while this window '
+              'runs; 0 uploads them in turn on the main thread')
+flags.declare('MXTPU_FUSED_EVAL_PREFETCH', bool, True,
+              'The same side-thread upload for the eval window; 0 uploads in '
+              'turn')
+flags.declare('MXTPU_FUSED_FIT_TIMING', bool, False,
+              'Log each epoch\'s host stages of the fused fit (draw, stack '
+              'and upload, dispatch, fetch)')
+flags.declare('MXTPU_FUSED_DONATE', bool, True,
+              'Declared for the JAX package, where it donates the window\'s '
+              'inputs to XLA so that the update runs in place. XLA\'s '
+              'donation has no counterpart here: the port\'s window rebinds '
+              'each parameter and state to the new tensor its update op '
+              'returns, and the old one goes back to the caching allocator '
+              'once nothing holds it; the flag changes nothing in the port')
 # The JAX package's flags for paths of its fit and eval that the port does
 # not have yet. Set, each makes Module.fit, score and predict raise
 # NotImplementedError naming where it waits (module/base_module.py).
-flags.declare('MXTPU_FUSED_FIT', bool, False,
-              'Declared for the JAX package, where Module.fit runs a window '
-              'of W steps in one XLA call; the port has no fused window '
-              'yet, so setting it raises')
-flags.declare('MXTPU_FUSED_EVAL', bool, False,
-              'Declared for the JAX package, where score and predict run a '
-              'window of W forwards in one XLA call; setting it raises here')
 flags.declare('MXTPU_CKPT_DIR', str, '',
               'Declared for the JAX package\'s periodic training '
               'checkpoints; setting it raises here')
@@ -153,4 +188,19 @@ flags.declare('MXTPU_FAULT_INJECT', str, '',
               'raises here')
 flags.declare('MXTPU_TELEMETRY', bool, False,
               'Declared for the JAX package\'s telemetry; setting it raises '
+              'here')
+flags.declare('MXTPU_HEALTH', bool, False,
+              'Declared for the JAX package\'s training-health sentinels; '
+              'setting it raises here')
+flags.declare('MXTPU_DYNAMICS', bool, False,
+              'Declared for the JAX package\'s per-layer training dynamics; '
+              'setting it raises here')
+flags.declare('MXTPU_SHARDED_UPDATE', bool, True,
+              'Declared for the JAX package\'s sharded weight update in its '
+              'SPMD fit window (on by default there, where it engages only '
+              'with a data-parallel mesh); set explicitly to a true value it '
+              'raises here')
+flags.declare('MXTPU_GRAD_COMPRESS', str, 'off',
+              'Declared for the JAX package\'s quantized gradient '
+              'collectives (off, int8, bf16, auto); any value but off raises '
               'here')

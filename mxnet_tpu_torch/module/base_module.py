@@ -1,21 +1,26 @@
-"""BaseModule and its per-batch loops: the counterpart of
+"""BaseModule and its loops: the counterpart of
 ``mxnet_tpu/module/base_module.py``.
 
-``fit`` binds, initialises the parameters and the optimizer, then for each
-batch runs ``forward_backward``, ``update``, draws the next batch,
-updates the metric and calls the batch-end callbacks; each epoch ends in
-``_fit_epoch_end`` (the metric's log line, the parameters synced back,
-the epoch-end callbacks, a ``score`` of the validation data). ``score``,
-``iter_predict`` and ``predict`` are the per-batch forward loops.
+``fit`` binds, initialises the parameters and the optimizer, then runs each
+epoch: through the fused window of W steps a host call
+(:class:`.fused_fit.FusedFitLoop`) where the module is eligible, as in the
+JAX package, else through the per-batch loop (``forward_backward``,
+``update``, the next batch drawn, the metric, the batch-end callbacks);
+each epoch ends in ``_fit_epoch_end`` (the metric's log line, the
+parameters synced back, the epoch-end callbacks, a ``score`` of the
+validation data). ``score``, ``iter_predict`` and ``predict`` take the
+fused eval window (:class:`.fused_eval.FusedEvalLoop`) where they can, else
+the per-batch forward loops. ``MXTPU_FUSED_FIT=0`` and
+``MXTPU_FUSED_EVAL=0`` force the per-batch loops.
 
-The JAX package's fit and eval also take a fused window of W steps in one
-XLA call (``fused_fit.py``, ``fused_eval.py``), and its fit carries seams
-for checkpoints, fault injection and telemetry. None of these is ported:
-the port always runs the per-batch loop, and a flag that would turn one
-of them on raises NotImplementedError naming its ROADMAP.md item
+The JAX package's fit also carries seams for checkpoints, fault injection,
+telemetry, training health and the sharded or compressed update. None of
+these is ported, and a flag that would turn one of them on raises
+NotImplementedError naming its ROADMAP.md item
 (:func:`_check_unported_flags`).
 """
 import logging
+import os
 import time
 import warnings
 
@@ -31,25 +36,31 @@ __all__ = ['BaseModule']
 # flags of the JAX package's fit and eval whose paths are not ported, and
 # where each waits
 _UNPORTED_FLAGS = (
-    ('MXTPU_FUSED_FIT', 'the fused fit window (module/fused_fit.py, '
-     'window_pipeline.py)', 'ROADMAP.md §1 item 7'),
-    ('MXTPU_FUSED_EVAL', 'the fused eval window (module/fused_eval.py)',
-     'ROADMAP.md §1 item 7'),
     ('MXTPU_CKPT_DIR', 'periodic training checkpoints '
      '(module/checkpointing.py)', 'ROADMAP.md §1 item 12'),
     ('MXTPU_FAULT_INJECT', 'fault injection (faults.py)',
      'ROADMAP.md §1 item 12'),
     ('MXTPU_TELEMETRY', 'telemetry (its health, ledger, watchdog, memory '
      'and timeline planes)', 'ROADMAP.md §1 item 13'),
+    ('MXTPU_HEALTH', 'the training-health sentinels (telemetry/health.py)',
+     'ROADMAP.md §1 item 13'),
+    ('MXTPU_DYNAMICS', 'the per-layer training dynamics '
+     '(telemetry/dynamics.py)', 'ROADMAP.md §1 item 13'),
+    ('MXTPU_SHARDED_UPDATE', 'the sharded weight update of the SPMD fit '
+     'window (fused_fit.py)', 'ROADMAP.md §1 item 11'),
+    ('MXTPU_GRAD_COMPRESS', 'quantized gradient collectives '
+     '(parallel/compression.py)', 'ROADMAP.md §1 item 11'),
 )
 
 
 def _check_unported_flags():
-    """Raise NotImplementedError for a set flag whose path is not
-    ported."""
+    """Raise NotImplementedError for a flag set in the environment to a
+    value that turns on a path that is not ported (MXTPU_SHARDED_UPDATE
+    defaults on in both packages, but engages only where it is asked for;
+    MXTPU_GRAD_COMPRESS is off at 'off')."""
     for name, what, item in _UNPORTED_FLAGS:
         flags.reload(name)
-        if flags.get(name):
+        if name in os.environ and flags.get(name) not in (False, '', 'off'):
             raise NotImplementedError(
                 '%s is set, but %s is not ported yet (%s)' % (name, what, item))
 
@@ -128,19 +139,29 @@ class BaseModule:
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
         eval_metric.reset()
-        actual_num_batch = 0
-        for nbatch, eval_batch in enumerate(eval_data):
-            if num_batch is not None and nbatch == num_batch:
-                break
-            self.forward(eval_batch, is_train=False)
-            self.update_metric(eval_metric, eval_batch.label)
-            if batch_end_callback is not None:
-                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                       eval_metric=eval_metric,
-                                       locals=locals())
-                for callback in _as_list(batch_end_callback):
-                    callback(params)
-            actual_num_batch += 1
+        # the fused window: W forwards a host call and one fetch a window,
+        # where the module and metric allow it (module/fused_eval.py)
+        from .fused_eval import FusedEvalLoop
+        fused = FusedEvalLoop.build_cached(self, eval_metric,
+                                           logger=self.logger)
+        if fused is not None:
+            actual_num_batch = fused.run_score(eval_data, eval_metric,
+                                               num_batch, batch_end_callback,
+                                               epoch)
+        else:
+            actual_num_batch = 0
+            for nbatch, eval_batch in enumerate(eval_data):
+                if num_batch is not None and nbatch == num_batch:
+                    break
+                self.forward(eval_batch, is_train=False)
+                self.update_metric(eval_metric, eval_batch.label)
+                if batch_end_callback is not None:
+                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                           eval_metric=eval_metric,
+                                           locals=locals())
+                    for callback in _as_list(batch_end_callback):
+                        callback(params)
+                actual_num_batch += 1
         if score_end_callback:
             params = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
                                    eval_metric=eval_metric, locals=locals())
@@ -155,6 +176,11 @@ class BaseModule:
         _check_unported_flags()
         if reset:
             eval_data.reset()
+        from .fused_eval import FusedEvalLoop
+        fused = FusedEvalLoop.build_cached(self, None, logger=self.logger)
+        if fused is not None:
+            yield from fused.iter_windows(eval_data, num_batch)
+            return
         for nbatch, eval_batch in enumerate(eval_data):
             if num_batch is not None and nbatch == num_batch:
                 break
@@ -172,15 +198,23 @@ class BaseModule:
         _check_unported_flags()
         if reset:
             eval_data.reset()
-        output_list = []
-        for nbatch, eval_batch in enumerate(eval_data):
-            if num_batch is not None and nbatch == num_batch:
-                break
-            self.forward(eval_batch, is_train=False)
-            pad = eval_batch.pad
-            outputs = [out[0:out.shape[0] - pad].copy()
-                       for out in self.get_outputs()]
-            output_list.append(outputs)
+        from .fused_eval import FusedEvalLoop
+        fused = FusedEvalLoop.build_cached(self, None, logger=self.logger)
+        if fused is not None:
+            # the outputs come a batch at a time, trimmed and on the host,
+            # fetched once a window
+            output_list = [outputs for outputs, _, _ in
+                           fused.iter_windows(eval_data, num_batch)]
+        else:
+            output_list = []
+            for nbatch, eval_batch in enumerate(eval_data):
+                if num_batch is not None and nbatch == num_batch:
+                    break
+                self.forward(eval_batch, is_train=False)
+                pad = eval_batch.pad
+                outputs = [out[0:out.shape[0] - pad].copy()
+                           for out in self.get_outputs()]
+                output_list.append(outputs)
         if len(output_list) == 0:
             return output_list
         if merge_batches:
@@ -224,9 +258,27 @@ class BaseModule:
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
 
+        # the fused window: W steps a host call and one fetch of the metric
+        # a window, where the module, optimizer and metric allow it
+        # (module/fused_fit.py)
+        fused = None
+        if monitor is None:
+            from .fused_fit import FusedFitLoop
+            fused = FusedFitLoop.build_cached(self, eval_metric,
+                                              logger=self.logger)
+
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
+            if fused is not None:
+                fused.run_epoch(train_data, eval_metric, epoch,
+                                batch_end_callback)
+                self._fit_epoch_end(epoch, eval_metric, tic,
+                                    epoch_end_callback, eval_data,
+                                    validation_metric, eval_end_callback,
+                                    eval_batch_end_callback)
+                train_data.reset()
+                continue
             nbatch = 0
             data_iter = iter(train_data)
             end_of_batch = False

@@ -9,7 +9,10 @@ their NDArrays, so ``nd.sgd_mom_update(w, g, mom, out=w)`` rebinds ``mom``
 as the JAX package does. The JAX package leaves these to XLA; here they are
 plain torch ops. A Python number in an update is a weak-typed scalar in
 jnp, rounded to the array's dtype before the arithmetic (0.9 is 0.8984375
-beside a bf16 array); :func:`_k` makes it the same 0-d tensor here.
+beside a bf16 array); :func:`_k` makes it the same 0-d tensor here. The
+fused fit window passes its per-step lr and wd as f32 0-d tensors on the
+weight's device instead, the strong f32 scalars of the JAX window's traced
+lr and wd, and :func:`_k` keeps their type.
 """
 import torch
 
@@ -21,7 +24,12 @@ __all__ = []
 def _k(v, like):
     """The Python number ``v`` as jnp takes it beside ``like``: a scalar of
     like's dtype (a 0-d host tensor, which torch takes beside a CUDA
-    tensor without a copy to the card)."""
+    tensor without a copy to the card). A tensor ``v`` is a strong scalar
+    (jnp promotes a bf16 array beside an f32 0-d array to f32, where torch
+    keeps bf16 beside a 0-d tensor): it comes back with like's number of
+    dimensions, all of size 1, so that torch promotes beside it too."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape((1,) * like.dim())
     return torch.tensor(v, dtype=like.dtype)
 
 
@@ -94,9 +102,11 @@ def _nag_mom_update(attrs, weight, grad, mom):
     """Nesterov momentum: the lookahead g + momentum * new_mom steps the
     weight."""
     g = _rescale_clip(grad, attrs) + _k(attrs.get('wd', 0.0), weight) * weight
-    m = _k(attrs.get('momentum', 0.0), mom)
-    new_mom = m * mom + g
-    return weight - _k(attrs['lr'], weight) * (g + m * new_mom), new_mom
+    m = attrs.get('momentum', 0.0)
+    new_mom = _k(m, mom) * mom + g
+    # m beside new_mom takes new_mom's type, which an f32 lr or wd makes f32
+    return weight - _k(attrs['lr'], weight) * (g + _k(m, new_mom) * new_mom), \
+        new_mom
 
 
 @register('adam_update', input_names=['weight', 'grad', 'mean', 'var'],

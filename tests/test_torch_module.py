@@ -6,11 +6,13 @@ NDArrayIter batches, for 2 epochs of 3 batches with sgd (lr 0.1,
 momentum 0.9, wd 1e-4), under SoftmaxOutput: an MLP with BatchNorm (batch
 4), and the narrow bottleneck ResNet of ``tests/test_torch_resnet_step.py``
 (bench's ResNet with one bottleneck a stage, widths 8-64; batch 16 of
-3 x 32 x 32). The port's ``Module.fit`` (its per-batch loop, on the CPU)
-is held:
+3 x 32 x 32). With 3 batches an epoch, fewer than the fused window's W = 4
+(``module/fused_fit.py``, the default in both packages), both packages'
+``Module.fit`` build their window loop and run every batch through its
+per-batch tail; ``tests/test_torch_fused_fit.py`` holds the windows. The
+port's ``Module.fit`` on the CPU is held:
 
-- against the JAX package's ``Module.fit`` as it runs on the CPU (it takes
-  its fused window of W steps there, ``module/fused_fit.py``): the
+- against the JAX package's ``Module.fit`` as it runs on the CPU: the
   batch-end callback's ``(epoch, nbatch)`` sequence equal; the MLP's
   parameters and aux states (1e-5, absolute and relative) and its metric
   at every batch end (1e-5 relative) along the whole trajectory; the
@@ -47,15 +49,19 @@ RESNET_FIT_REL_RMS = 1e-4
 EPOCHS, BATCHES = 2, 3
 NETS = {'mlp_bn': (4, 10), 'narrow_resnet': (16, 3, 32, 32)}
 OPT = {'learning_rate': 0.1, 'momentum': 0.9, 'wd': 1e-4}
-UNPORTED = ('MXTPU_FUSED_FIT', 'MXTPU_FUSED_EVAL', 'MXTPU_CKPT_DIR',
-            'MXTPU_FAULT_INJECT', 'MXTPU_TELEMETRY')
+# the flags of the unported paths, each with a value that turns its path on
+UNPORTED = {'MXTPU_CKPT_DIR': 'x', 'MXTPU_FAULT_INJECT': 'x',
+            'MXTPU_TELEMETRY': '1', 'MXTPU_HEALTH': '1', 'MXTPU_DYNAMICS': '1',
+            'MXTPU_SHARDED_UPDATE': '1', 'MXTPU_GRAD_COMPRESS': 'int8'}
+WINDOW_FLAGS = ('MXTPU_FUSED_FIT', 'MXTPU_FUSED_EVAL',
+                'MXTPU_FIT_STEPS_PER_CALL', 'MXTPU_EVAL_STEPS_PER_CALL')
 
 
 @pytest.fixture(autouse=True)
 def _clean_flags(monkeypatch):
-    """The JAX package's fit runs as it does by default; the port's flags
-    for its unported paths are unset."""
-    for name in UNPORTED:
+    """Both packages' fit and eval run as they do by default; the port's
+    flags for its unported paths are unset."""
+    for name in list(UNPORTED) + list(WINDOW_FLAGS):
         monkeypatch.delenv(name, raising=False)
     mt.config.flags.reload()
     yield
@@ -199,8 +205,11 @@ def test_fit_matches_jax_fit(fits):
     net, _, runs = fits
     jmod, jseen, jmetric, _ = runs['jax_fit']
     tmod, tseen, tmetric, _ = runs['port']
-    # the JAX package took its fused window here
+    # both packages built their fit window here, and ran every batch
+    # through its per-batch tail (3 batches an epoch, W = 4)
     assert '_fused_fit_cache' in jmod.__dict__
+    loop = tmod.__dict__['_fused_fit_cache'][1]
+    assert (loop.windows, loop.tail_batches) == (0, EPOCHS * BATCHES)
     assert [s[:2] for s in tseen] == [s[:2] for s in jseen] == \
         [(e, b) for e in range(EPOCHS) for b in range(BATCHES)]
     assert [n for n, _ in tmetric] == [n for n, _ in jmetric]
@@ -376,12 +385,10 @@ def test_kernel_head_through_fit_matches_jax(monkeypatch, kernels):
     mt.config.flags.reload('MXTPU_FORCE_PALLAS')
 
 
-@pytest.mark.parametrize('flag', UNPORTED)
+@pytest.mark.parametrize('flag', sorted(UNPORTED))
 def test_unported_paths_raise(monkeypatch, flag):
     mod, it = _module(mt, 'mlp_bn', _init_values('mlp_bn'))
-    monkeypatch.setenv(flag, '1' if flag not in ('MXTPU_CKPT_DIR',
-                                                 'MXTPU_FAULT_INJECT')
-                       else 'x')
+    monkeypatch.setenv(flag, UNPORTED[flag])
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         mod.fit(it, num_epoch=1)
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
@@ -414,8 +421,8 @@ def _logged_fit(pkg, tmp_path, caplog):
                     pkg.callback.module_checkpoint(mod, prefix + '-mod', 2,
                                                    True)],
                 eval_end_callback=pkg.callback.LogValidationMetricsCallback())
-    # the callbacks' and the epoch-end lines (the JAX package also logs
-    # its fused window)
+    # the callbacks' and the epoch-end lines (both packages also log their
+    # fused windows)
     lines = [r.getMessage() for r in caplog.records
              if r.getMessage().startswith(('Iter[', 'Epoch['))
              and 'Speed' not in r.getMessage()
