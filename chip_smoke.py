@@ -34,7 +34,8 @@ order they run:
     gradient;
 (d) serving: the bench transformer at full width (D=1024, 8 layers,
     8 heads x 128, S=1024, V=16384, bf16, weights from seed 0) behind
-    ServingEngine(max_batch=8) answers requests of 8, 5 and 11 rows.
+    ServingEngine.from_forward(max_batch=8) answers requests of 8, 5 and
+    11 rows.
     Their logits are held against a reference forward built on the plain
     attention, and the kernel's launch count, all on the wgmma body, must be
     8 layers x chunks;
@@ -154,7 +155,29 @@ order they run:
     each (4 and 4; K5 and K6 0; the kernel record's window_launches), each
     batch's loss against the plain versions (fit: their trajectory from the
     same parameters under the same update op; score: on the trained
-    parameters).
+    parameters);
+(n) the serving plane, with the port's telemetry on (run after (m), before
+    (e)): (n1) (l1)'s checkpoint of the fitted ResNet-50 through
+    ServingEngine.from_checkpoint on the card (max_batch 32, buckets 1-32
+    warm), DynamicBatcher and the HTTP server on a loopback port, then the
+    same for the logits of its checkpoint before the fit (the fitted net,
+    and the initial one's probabilities, answer every image alike): a lone
+    .npy request of 32 images (a full bucket) bit for bit against
+    Module.predict at batch 32 under cuDNN's deterministic algorithms, then
+    8 client threads of 4 .npy requests of 1-8 images and one JSON request
+    of 1 image, each answer against Module.predict, the X-Request-Id echoed,
+    no serve.build span after warmup, /healthz 200 and the latency
+    quantiles on /metrics; it prints the request latency p50/p99 (client
+    host clock), the server's histograms, queue wait p50, pad fraction,
+    dispatches, rows a dispatch and images/s; (n2) (d)'s decoder through
+    ServingEngine.from_forward (max_batch 8) behind DynamicBatcher: 12
+    requests of 1-3 rows from 4 threads, 8 flash launches a dispatch on the
+    wgmma body and the logits held as (d) holds them; (n3) the decoder's
+    head softmax(FullyConnected(LayerNorm(x), 16384, no bias)) at D = 1024
+    as a Module checkpoint through from_checkpoint (max_batch 64) and the
+    batcher: 12 requests of 1-40 rows from 4 threads, one launch each of
+    LayerNorm's and softmax's kernels a dispatch (the kernel record's
+    serving_launches), the probabilities within 1e-5 of the plain versions.
 
 The second-to-last line of its output is the kernel record
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -167,6 +190,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -412,9 +436,10 @@ def serve(device, cfg, rows_list, max_batch):
                           attention=ck.flash_attention_ref)
     truth.load_state_dict(state)
     del state
-    engine = ServingEngine(model, [('tokens', (cfg.seq_len,), np.int32)],
-                           output_names=['logits'], max_batch=max_batch,
-                           device=device, name='bench_transformer')
+    engine = ServingEngine.from_forward(
+        model, [('tokens', (cfg.seq_len,), np.int32)],
+        output_names=['logits'], max_batch=max_batch, device=device,
+        name='bench_transformer')
     warmed = engine.warmup()
     log('  model built and %d buckets %s warm in %.1f s'
         % (warmed, engine.buckets, time.perf_counter() - t0))
@@ -2457,13 +2482,14 @@ def _concat_update(names, before, after):
                       for n in names])
 
 
-def module_fit(device, spec=RESNET, n_images=FIT_IMAGES):
+def module_fit(device, spec=RESNET, n_images=FIT_IMAGES, ckpt=None):
     """Phase (l1): train_imagenet's recipe through Module.fit on bench's
     model at full width; batch 1 against graph_train's f32 step; the acc
-    metric against the outputs; save_checkpoint, Module.load and predict.
-    Returns what phase (l3) needs."""
+    metric against the outputs; save_checkpoint (at the prefix ``ckpt``,
+    epoch 0 before the fit and epoch 1 after it, kept for phase (n); else
+    in a temporary directory), Module.load and predict. Returns what phase
+    (l3) needs."""
     import logging
-    import tempfile
     import torch
     import mxnet_tpu_torch as mt
     name, batch, image, classes = spec
@@ -2536,6 +2562,9 @@ def module_fit(device, spec=RESNET, n_images=FIT_IMAGES):
             seen['ev'].append(ev)
         seen['wall'].append(time.perf_counter())
 
+    if ckpt:
+        # the initial parameters too: phase (n1) serves both checkpoints
+        mod.save_checkpoint(ckpt, 0)
     t0 = time.perf_counter()
     mod.fit(train, num_epoch=1, optimizer='sgd', optimizer_params=FIT_OPT,
             initializer=_xavier(), eval_metric=['acc'], kvstore='device',
@@ -2594,7 +2623,7 @@ def module_fit(device, spec=RESNET, n_images=FIT_IMAGES):
     one = mt.io.NDArrayIter(X[:batch], y[:batch], batch_size=batch)
     want = mod.predict(one).handle
     with tempfile.TemporaryDirectory() as tmp:
-        prefix = os.path.join(tmp, 'resnet')
+        prefix = ckpt or os.path.join(tmp, 'resnet')
         mod.save_checkpoint(prefix, 1)
         loaded = mt.mod.Module.load(prefix, 1, context=ctx)
         loaded.bind(one.provide_data, one.provide_label, for_training=False)
@@ -3187,6 +3216,516 @@ def window_kernels(device, cfg, batches=WINDOW_KERNEL_BATCHES):
             for n in launches['fit']}
 
 
+# ---------------------------------------------------------------------------
+# (n) the serving plane on the card
+# ---------------------------------------------------------------------------
+
+# (n1): train_imagenet's fitted ResNet-50 from (l1)'s checkpoint, served
+# over HTTP. 8 client threads send 4 .npy requests each of 1-8 images
+# (sizes from RandomState(0)), and one JSON request of 1 image; before
+# them a lone request of 32 images, a full bucket.
+SERVE_MAX_BATCH = 32
+SERVE_CLIENTS = 8
+SERVE_CLIENT_REQUESTS = 4
+SERVE_WAIT_MS = 5.0
+# Each answer against Module.predict (per-batch, at batch 32) on the same
+# images. A full bucket runs the runner on the same 32 rows as predict's
+# batch, with cuDNN's deterministic algorithms: bit for bit. Another bucket
+# size runs other cuDNN algorithms (another summation order, or a Winograd
+# transform) in each of the 53 convolutions: a few f32 ulps a layer, about
+# 1e-5 relative in the logits. Relative RMS error of a request's answer
+# 1e-3, a hundred times that estimate; probabilities are compared as logs
+# (floored at 1e-30), where a logit's error shows as itself. The checkpoint
+# this recipe fits answers every image alike (one-hot probabilities: its
+# loss diverges to about 20 in 8 steps at lr 0.1; the initial net's too, its
+# activations grow through the 16 residual blocks), so no comparison of its
+# answers can tell a wrong row or a pad row. (n1) therefore also serves the
+# initial checkpoint's graph cut below SoftmaxOutput, its logits, which
+# differ from image to image (the spread between two images' answers is
+# printed and must exceed ten times the bound).
+SERVE_RESNET_REL_RMS = 1e-3
+# (n2): bench's decoder behind the batcher: 4 threads, 12 requests of 1-3
+# rows of 1024 tokens in all, the logits held as (d) holds them.
+DECODER_THREADS = 4
+DECODER_REQUESTS = 12
+# (n3): the decoder's head as a served Module (LayerNorm -> FullyConnected
+# to V, no bias -> softmax, per example (1024,) f32), from a checkpoint,
+# max_batch 64, requests of 1-40 rows from 4 threads. Its probabilities
+# against the plain versions on the same parameters: LayerNorm's kernel and
+# plain version agree to a few f32 ulps, the matmul is cuBLAS's on both
+# sides (at another row count: another summation order), and the
+# probabilities are about 1/V: 1e-5 absolute, the issue's bound, is far
+# above that and far below a wrong row's error (one 1/V).
+HEAD_MAX_BATCH = 64
+HEAD_REQUESTS = 12
+HEAD_MAX_ROWS = 40
+HEAD_ATOL = 1e-5
+
+
+class _telemetry_on(_flags_set):
+    """The port's telemetry on for a block, its JSONL log at ``path``.
+    Telemetry is decided once a process: it is decided again on the way in
+    and out (``_reset_for_tests`` drops the decision)."""
+
+    def __init__(self, path):
+        super().__init__(MXTPU_TELEMETRY='1', MXTPU_TELEMETRY_PATH=path)
+
+    def __enter__(self):
+        from mxnet_tpu_torch import telemetry
+        super().__enter__()
+        telemetry._reset_for_tests()
+        check(telemetry.enabled(), 'telemetry did not come on')
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch import telemetry
+        telemetry.shutdown()
+        super().__exit__(*exc)
+        telemetry._reset_for_tests()
+
+
+def _http(port, path, body=None, headers=None, timeout=120):
+    """(status, headers, body) of one request to the serving port."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request('http://127.0.0.1:%d%s' % (port, path),
+                                 data=body, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def _npy_bytes(a):
+    import io
+    buf = io.BytesIO()
+    np.save(buf, a, allow_pickle=False)
+    return buf.getvalue()
+
+
+def _pct(values, p):
+    return float(np.percentile(np.asarray(values, np.float64), p))
+
+
+def _np_rel_rms(got, want):
+    a, b = np.float64(got), np.float64(want)
+    return float(np.sqrt(np.mean((a - b) ** 2) / np.mean(b ** 2)))
+
+
+def _log_rel_rms(got, want):
+    """Relative RMS error of probabilities compared as logs (floored at
+    1e-30)."""
+    return _np_rel_rms(np.log(np.maximum(got, 1e-30, dtype=np.float64)),
+                       np.log(np.maximum(want, 1e-30, dtype=np.float64)))
+
+
+def _logits_checkpoint(ckpt, epoch, out):
+    """Save at ``out`` the checkpoint's graph cut below its SoftmaxOutput
+    (the last FullyConnected's logits), with the same parameters."""
+    import mxnet_tpu_torch as mt
+    sym, args, aux = mt.model.load_checkpoint(ckpt, epoch)
+    mt.model.save_checkpoint(out, epoch, sym.get_children()[0], args, aux)
+
+
+def _builds():
+    from mxnet_tpu_torch import telemetry
+    return telemetry.snapshot()['histograms'].get('serve.build',
+                                                  {}).get('count', 0)
+
+
+def _burst(n_threads, jobs, fn):
+    """Run ``fn(job)`` for each job from ``n_threads`` threads started
+    together; returns ([(job, result, seconds)], wall seconds)."""
+    import threading
+    per = [jobs[i::n_threads] for i in range(n_threads)]
+    out, errors = [], []
+    barrier = threading.Barrier(n_threads, timeout=120)
+
+    def worker(mine):
+        try:
+            barrier.wait()
+            for job in mine:
+                t = time.perf_counter()
+                res = fn(job)
+                out.append((job, res, time.perf_counter() - t))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=(m,)) for m in per]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), 'a client thread hung')
+    if errors:
+        raise errors[0]
+    return out, wall
+
+
+def _batcher_line(b, wall, unit_per_row, unit):
+    rows = [r for r, _, _ in b.dispatch_log]
+    padded = [bk for _, bk, _ in b.dispatch_log]
+    pad = 1 - sum(rows) / sum(padded)
+    log('    %d dispatches, %.2f rows a dispatch (requests a dispatch %s), '
+        'pad fraction %.4f; queue wait p50 %.3f ms; %.1f %s/s over the '
+        'burst\'s %.3f s'
+        % (len(rows), statistics.mean(rows),
+           [n for _, _, n in b.dispatch_log], pad,
+           _pct(b.queue_wait_log, 50), sum(rows) * unit_per_row / wall, unit,
+           wall))
+    return pad
+
+
+def serve_resnet(device, ckpt, epoch, spec=RESNET, logits=False):
+    """Phase (n1): the checkpoint ``ckpt``/``epoch`` (probabilities, or
+    with ``logits`` the graph's logits) through
+    ServingEngine.from_checkpoint, DynamicBatcher and the HTTP server,
+    against Module.predict. Returns the spread between two images'
+    answers."""
+    import io
+    import json
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serving import DynamicBatcher, ServingEngine
+    from mxnet_tpu_torch.serving.http import start_server
+    name, _, image, classes = spec
+    on_card = device.type == 'cuda'
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    shape = (3, image, image)
+    sizes = np.random.RandomState(0).randint(
+        1, 9, (SERVE_CLIENTS, SERVE_CLIENT_REQUESTS))
+    # the pool: the full bucket's 32 images, then each client request's,
+    # then the JSON request's one
+    n = SERVE_MAX_BATCH + int(sizes.sum()) + 1
+    n_pad = -(-n // SERVE_MAX_BATCH) * SERVE_MAX_BATCH
+    pool = np.zeros((n_pad,) + shape, np.float32)
+    pool[:n] = np.random.RandomState(1).standard_normal((n,) + shape)
+    starts = SERVE_MAX_BATCH + np.concatenate(
+        [[0], np.cumsum(sizes.ravel())])[:-1].reshape(sizes.shape)
+
+    # the reference: Module.predict per batch of 32 on the same checkpoint
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _per_batch():
+            t0 = time.perf_counter()
+            ref_mod = mt.mod.Module.load(ckpt, epoch, label_names=[],
+                                         context=ctx)
+            ref_mod.bind([('data', (SERVE_MAX_BATCH,) + shape)],
+                         for_training=False)
+            ref = ref_mod.predict(mt.io.NDArrayIter(
+                pool, None, batch_size=SERVE_MAX_BATCH)).asnumpy()
+            del ref_mod
+            log('  reference: Module.predict over %d images in batches of '
+                '%d, %.1f s' % (n_pad, SERVE_MAX_BATCH,
+                                time.perf_counter() - t0))
+        compare, what = ((_np_rel_rms, 'logits') if logits
+                         else (_log_rel_rms, 'log-probabilities'))
+        spread = compare(ref[1], ref[0])
+
+        with _telemetry_on(os.path.join(os.path.dirname(ckpt),
+                                        'serve-telemetry.jsonl')):
+            t0 = time.perf_counter()
+            engine = ServingEngine.from_checkpoint(
+                ckpt, epoch, [('data', shape)], context=ctx,
+                max_batch=SERVE_MAX_BATCH)
+            check(engine.device == device, 'engine on %s' % engine.device)
+            warmed = engine.warmup()
+            built = _builds()
+            log('  ServingEngine.from_checkpoint(%s) on %s, buckets %s warm '
+                'in %.1f s (%d serve.build spans)'
+                % (name, engine.device, engine.buckets,
+                   time.perf_counter() - t0, built))
+            check(warmed == len(engine.buckets) == built,
+                  'warmup built %d programs for %d buckets'
+                  % (built, len(engine.buckets)))
+            batcher = DynamicBatcher(engine, max_wait_ms=SERVE_WAIT_MS)
+            server = start_server(engine, batcher, port=0)
+            try:
+                port = server.port
+                npy = {'Content-Type': 'application/x-npy',
+                       'Accept': 'application/x-npy'}
+
+                def ask(job):
+                    i, j = job
+                    lo = starts[i, j]
+                    rid = 'n1-%d-%d' % (i, j)
+                    code, hdrs, body = _http(
+                        port, '/predict',
+                        _npy_bytes(pool[lo:lo + sizes[i, j]]),
+                        dict(npy, **{'X-Request-Id': rid}))
+                    check(code == 200, 'request %s answered %d: %r'
+                          % (rid, code, body[:200]))
+                    check(hdrs['X-Request-Id'] == rid,
+                          'X-Request-Id not echoed for %s' % rid)
+                    return np.load(io.BytesIO(body), allow_pickle=False)
+
+                # a lone full bucket first: bit for bit with predict
+                code, hdrs, body = _http(port, '/predict',
+                                         _npy_bytes(pool[:SERVE_MAX_BATCH]),
+                                         npy)
+                check(code == 200, 'the full bucket answered %d' % code)
+                full = np.load(io.BytesIO(body), allow_pickle=False)
+                same = bool(np.array_equal(full, ref[:SERVE_MAX_BATCH]))
+                log('  a lone request of %d images (one full bucket) '
+                    'against Module.predict\'s batch: %s (max abs %.3e)'
+                    % (SERVE_MAX_BATCH,
+                       'bit for bit' if same else 'NOT bit for bit',
+                       float(np.abs(full - ref[:SERVE_MAX_BATCH]).max())))
+                check(same, 'the full bucket disagrees with Module.predict')
+                batcher.dispatch_log.clear()
+                batcher.queue_wait_log.clear()
+
+                jobs = [(i, j) for j in range(SERVE_CLIENT_REQUESTS)
+                        for i in range(SERVE_CLIENTS)]
+                answers, wall = _burst(SERVE_CLIENTS, jobs, ask)
+                lo = n - 1
+                t = time.perf_counter()
+                code, hdrs, body = _http(
+                    port, '/predict',
+                    json.dumps({'data': pool[lo:lo + 1].tolist()}).encode(),
+                    {'Content-Type': 'application/json'})
+                json_s = time.perf_counter() - t
+                check(code == 200, 'the JSON request answered %d' % code)
+                payload = json.loads(body)
+                json_out = np.asarray(payload['outputs'][0], np.float32)
+                check(payload['rows'] == 1 and json_out.shape == (1, classes),
+                      'the JSON answer has shape %s' % (json_out.shape,))
+                worst = 0.0
+                for (i, j), got, _ in answers:
+                    lo = starts[i, j]
+                    want = ref[lo:lo + sizes[i, j]]
+                    check(got.shape == want.shape and np.isfinite(got).all(),
+                          'answer %s has shape %s' % ((i, j), got.shape))
+                    worst = max(worst, compare(got, want))
+                json_err = compare(json_out, ref[n - 1:n])
+                lat = [sec * 1e3 for _, _, sec in answers]
+                log('  %d .npy requests of %s images from %d threads, and '
+                    'one JSON request of 1 (%.2f ms, relative RMS error of '
+                    'its %s %.3e)'
+                    % (len(answers), sizes.tolist(), SERVE_CLIENTS,
+                       json_s * 1e3, what, json_err))
+                log('    request latency (host clock, client side): p50 %.2f '
+                    'ms, p99 %.2f ms' % (_pct(lat, 50), _pct(lat, 99)))
+                images = int(sizes.sum())
+                _batcher_line(batcher, wall, 1, 'images')
+                log('    %d images in %.3f s: %.1f images/s'
+                    % (images, wall, images / wall))
+                log('    each answer against Module.predict, %s: worst '
+                    'relative RMS error %.3e (held to %g; two images\' '
+                    'answers are %.3e apart)'
+                    % (what, worst, SERVE_RESNET_REL_RMS, spread))
+                check(worst <= SERVE_RESNET_REL_RMS
+                      and json_err <= SERVE_RESNET_REL_RMS,
+                      'a served answer disagrees with Module.predict')
+                check(_builds() == built, 'serve.build went from %d to %d '
+                      'after warmup' % (built, _builds()))
+                log('    serve.build spans after the traffic: %d, as after '
+                    'warmup' % _builds())
+                code, _, body = _http(port, '/healthz')
+                health = json.loads(body)
+                check(code == 200 and health['status'] == 'ok',
+                      '/healthz answered %d %s' % (code, health))
+                code, _, body = _http(port, '/metrics')
+                text = body.decode()
+                q = [ln for ln in text.splitlines()
+                     if ln.startswith('mxtpu_serve_request_latency_ms{')]
+                check(code == 200 and any('quantile="0.5"' in ln for ln in q)
+                      and any('quantile="0.95"' in ln for ln in q),
+                      '/metrics carries no serve_request_latency quantiles')
+                log('    /healthz 200 (%d requests, %d errors); /metrics: %s'
+                    % (health['requests'], health['errors'], q))
+                snap = telemetry.snapshot()
+                log('    server side: serve.request_latency p50 %.2f ms, p95 '
+                    '%.2f ms, p99 gauge %s ms; serve.queue_wait p50 %.3f ms'
+                    % (snap['histograms']['serve.request_latency']['p50'],
+                       snap['histograms']['serve.request_latency']['p95'],
+                       snap['gauges'].get('serve.request_latency_p99_ms'),
+                       snap['histograms']['serve.queue_wait']['p50']))
+            finally:
+                server.stop()
+            del engine, batcher, server
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return spread
+
+
+def serve_decoder(device, cfg, model, ref, max_batch=MAX_BATCH):
+    """Phase (n2): bench's decoder through ServingEngine.from_forward behind
+    DynamicBatcher; K1's launches a dispatch and the logits against the
+    plain-attention forward. Returns K1's launches."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.serving import DynamicBatcher, ServingEngine
+    engine = ServingEngine.from_forward(
+        model, [('tokens', (cfg.seq_len,), np.int32)],
+        output_names=['logits'], max_batch=max_batch, device=device,
+        name='bench_transformer')
+    engine.warmup()
+    rng = np.random.RandomState(2)
+    requests = [rng.randint(0, cfg.vocab, (int(r), cfg.seq_len))
+                .astype(np.int32)
+                for r in rng.randint(1, 4, DECODER_REQUESTS)]
+    batcher = DynamicBatcher(engine, max_wait_ms=SERVE_WAIT_MS).start()
+    try:
+        # the main path: counts are zeroed just before and read just after
+        ck.flash_fwd.launches = 0
+        ck.flash_fwd.launches_by_body = dict.fromkeys(ck._BODIES, 0)
+        answers, wall = _burst(
+            DECODER_THREADS, list(range(len(requests))),
+            lambda i: batcher.predict(requests[i], timeout=300)[0])
+        launches = ck.flash_fwd.launches
+        by_body = dict(ck.flash_fwd.launches_by_body)
+    finally:
+        batcher.close()
+    n_disp = len(batcher.dispatch_log)
+    want = cfg.n_layers * n_disp if device.type == 'cuda' else 0
+    rows = [r.shape[0] for r in requests]
+    log('  %d requests of %s rows from %d threads: %d flash launches in %d '
+        'dispatches (%d a dispatch), by body %s'
+        % (len(requests), rows, DECODER_THREADS, launches, n_disp,
+           launches // max(n_disp, 1), by_body))
+    check(launches == want and by_body.get('wgmma', 0) == launches,
+          'flash launches %d (by body %s) != %d layers x %d dispatches on '
+          'the wgmma body' % (launches, by_body, cfg.n_layers, n_disp))
+    lat = [sec * 1e3 for _, _, sec in answers]
+    log('    request latency (host clock): p50 %.2f ms, p99 %.2f ms'
+        % (_pct(lat, 50), _pct(lat, 99)))
+    _batcher_line(batcher, wall, cfg.seq_len, 'tokens')
+    worst = {'rel_rms': 0.0, 'top_gap': 0.0}
+    with torch.inference_mode():
+        for i, got, _ in answers:
+            got_t = on_device(got, device)
+            check(got.shape == (rows[i], cfg.seq_len, cfg.vocab)
+                  and bool(torch.isfinite(got_t).all()), 'logits shape/finite')
+            want_t = ref(torch.from_numpy(requests[i]).to(device)).float()
+            pick = got_t.argmax(-1, keepdim=True)
+            worst['rel_rms'] = max(worst['rel_rms'], rel_rms(got_t, want_t))
+            worst['top_gap'] = max(worst['top_gap'], float(
+                (want_t.amax(-1) - want_t.gather(-1, pick)[..., 0]).max()))
+            del got_t, want_t
+    log('    logits vs the plain-attention forward: worst relative RMS %.3e '
+        '(held to %g), reference logit at the served argmax at most %.4f '
+        'below its max (held to %g)'
+        % (worst['rel_rms'], LOGIT_REL_RMS, worst['top_gap'], ARGMAX_SLACK))
+    check(worst['rel_rms'] <= LOGIT_REL_RMS
+          and worst['top_gap'] <= ARGMAX_SLACK,
+          'served logits disagree with the reference forward')
+    return launches
+
+
+def serve_head(device, cfg, work):
+    """Phase (n3): the decoder's head as a Module checkpoint, served through
+    from_checkpoint and the batcher; K4's and K5's launches a dispatch and
+    the probabilities against the plain versions. Returns {wrapper:
+    launches}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.serving import DynamicBatcher, ServingEngine
+    D, V = cfg.d_model, cfg.vocab
+    on_card = device.type == 'cuda'
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    S = mt.sym
+    net = S.softmax(S.FullyConnected(S.LayerNorm(S.var('data'), eps=1e-5,
+                                                 name='ln'),
+                                     num_hidden=V, no_bias=True, name='head'),
+                    axis=-1, name='probs')
+    rng = np.random.RandomState(3)
+    params = {'ln_gamma': 1 + 0.1 * rng.standard_normal(D),
+              'ln_beta': 0.1 * rng.standard_normal(D),
+              'head_weight': rng.standard_normal((V, D)) / np.sqrt(D)}
+    mod = mt.mod.Module(net, label_names=[], context=mt.cpu())
+    mod.bind([('data', (1, D))], for_training=False)
+    mod.init_params(arg_params={k: mt.nd.array(v.astype(np.float32),
+                                               ctx=mt.cpu())
+                                for k, v in params.items()})
+    prefix = os.path.join(work, 'head')
+    mod.save_checkpoint(prefix, 0)
+    engine = ServingEngine.from_checkpoint(prefix, 0, [('data', (D,))],
+                                           context=ctx,
+                                           max_batch=HEAD_MAX_BATCH)
+    engine.warmup()
+    sizes = rng.randint(1, HEAD_MAX_ROWS + 1, HEAD_REQUESTS)
+    requests = [(2 + rng.standard_normal((int(r), D))).astype(np.float32)
+                for r in sizes]
+    counters = (ck.layernorm_fwd, ck.rmsnorm_fwd, ck.softmax_fwd,
+                ck.softmax_xent_fwd)
+    batcher = DynamicBatcher(engine, max_wait_ms=SERVE_WAIT_MS).start()
+    try:
+        # the main path: counts are zeroed just before and read just after
+        for fwd in counters:
+            fwd.launches = 0
+        before = {fwd: dict(fwd.launches_by_body)
+                  for fwd in (ck.layernorm_fwd, ck.softmax_fwd)}
+        answers, wall = _burst(
+            DECODER_THREADS, list(range(len(requests))),
+            lambda i: batcher.predict(requests[i], timeout=300)[0])
+        launches = {fwd.__name__: fwd.launches for fwd in counters}
+        bodies = {fwd.__name__: sorted(bodies_ran(fwd, b))
+                  for fwd, b in before.items()}
+    finally:
+        batcher.close()
+    n_disp = len(batcher.dispatch_log)
+    want = {'layernorm_fwd': n_disp, 'rmsnorm_fwd': 0, 'softmax_fwd': n_disp,
+            'softmax_xent_fwd': 0}
+    if not on_card:
+        want = dict.fromkeys(want, 0)
+    log('  Module(LayerNorm -> FullyConnected to %d, no bias -> softmax) from '
+        'its checkpoint, per example (%d,) f32, max_batch %d: %d requests of '
+        '%s rows from %d threads in %d dispatches; launches %s, on the '
+        'bodies %s'
+        % (V, D, HEAD_MAX_BATCH, len(requests), sizes.tolist(),
+           DECODER_THREADS, n_disp, launches, bodies))
+    check(launches == want, 'head launches %s != %s' % (launches, want))
+    lat = [sec * 1e3 for _, _, sec in answers]
+    log('    request latency (host clock): p50 %.2f ms, p99 %.2f ms'
+        % (_pct(lat, 50), _pct(lat, 99)))
+    _batcher_line(batcher, wall, 1, 'rows')
+    p = {k: torch.from_numpy(v.astype(np.float32)).to(device)
+         for k, v in params.items()}
+    worst = 0.0
+    with torch.inference_mode():
+        for i, got, _ in answers:
+            x = torch.from_numpy(requests[i]).to(device)
+            h = ck.layernorm_ref(x, p['ln_gamma'], p['ln_beta'], eps=1e-5)
+            plain = ck.softmax_ref(h @ p['head_weight'].t()).cpu().numpy()
+            check(got.shape == plain.shape and np.isfinite(got).all(),
+                  'head answer %d has shape %s' % (i, got.shape))
+            worst = max(worst, float(np.abs(got - plain).max()))
+    log('    probabilities against the plain versions: max abs error %.3e '
+        '(held to %g)' % (worst, HEAD_ATOL))
+    check(worst <= HEAD_ATOL, 'served head disagrees with the plain versions')
+    return launches
+
+
+def phase_n(device, cfg, model, ref, ckpt, spec=RESNET):
+    """Phase (n): the serving plane on the card. (n1) (l1)'s ResNet-50
+    checkpoint over HTTP, (n2) bench's decoder behind the batcher, (n3) the
+    decoder's head as a served Module, all with the port's telemetry on.
+    Returns (K1's launches, {row wrapper: launches})."""
+    t0 = time.perf_counter()
+    work = os.path.dirname(ckpt)
+    log('  (n1) train_imagenet\'s fitted %s from its checkpoint (epoch 1) '
+        'over HTTP' % spec[0])
+    serve_resnet(device, ckpt, 1, spec)
+    log('  (n1) the same net\'s logits from its initial checkpoint (epoch '
+        '0) over HTTP')
+    _logits_checkpoint(ckpt, 0, ckpt + '-logits')
+    spread = serve_resnet(device, ckpt + '-logits', 0, spec, logits=True)
+    check(spread > 10 * SERVE_RESNET_REL_RMS,
+          'the initial net answers two images alike (%.3e apart)' % spread)
+    with _telemetry_on(os.path.join(work, 'serve-telemetry.jsonl')):
+        log('  (n2) bench\'s decoder behind the batcher')
+        flash = serve_decoder(device, cfg, model, ref)
+        log('  (n3) the decoder\'s head as a served Module')
+        rows = serve_head(device, cfg, work)
+    log('  phase (n) took %.1f s' % (time.perf_counter() - t0))
+    return flash, rows
+
+
 def phase_m(device, cfg, spec=RESNET, per_batch=None):
     """Phase (m): (m1) the windowed Module.fit, score and predict on bench's
     ResNet-50, (m2) the kernels through the windows. Returns (m2)'s
@@ -3201,15 +3740,17 @@ def phase_m(device, cfg, spec=RESNET, per_batch=None):
     return launches
 
 
-def phase_l(device, cfg, spec=RESNET, n_images=FIT_IMAGES):
-    """Phase (l): (l1) Module.fit on bench's ResNet-50, (l2) the kernels
-    through Module, both through the per-batch loop, (l3) the Gluon loop.
-    Returns (l2)'s launches and (l1)'s times."""
+def phase_l(device, cfg, spec=RESNET, n_images=FIT_IMAGES, ckpt=None):
+    """Phase (l): (l1) Module.fit on bench's ResNet-50 (its checkpoints
+    saved at the prefix ``ckpt``: epoch 0 initial, epoch 1 fitted), (l2) the
+    kernels through Module,
+    both through the per-batch loop, (l3) the Gluon loop. Returns (l2)'s
+    launches and (l1)'s times."""
     log('  (l1) train_imagenet\'s recipe through Module.fit: %s, batch %d'
         % (spec[0], spec[1]))
     # (l1) and (l2) stay the per-batch reference: the windows are (m)'s
     with _per_batch():
-        fitted = module_fit(device, spec, n_images)
+        fitted = module_fit(device, spec, n_images, ckpt)
         log('  (l2) the kernels through Module.fit and Module.score')
         launches = module_kernels(device, cfg)
     log('  (l3) the Gluon loop: autograd.record, a loss, Trainer.step')
@@ -3232,6 +3773,12 @@ def phase_k(device, cfg, spec=RESNET):
 
 
 def main():
+    # phase (l1)'s checkpoint, phase (n)'s head and its telemetry logs
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_') as work:
+        return run(work)
+
+
+def run(work):
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available; this script runs on the card',
@@ -3294,10 +3841,14 @@ def main():
     exec_launches, ag_launches, resnet = phase_k(device, cfg)
 
     log('(l) Module.fit, the kernels through Module and the Gluon loop')
-    module_launches, per_batch = phase_l(device, cfg)
+    ckpt = os.path.join(work, 'resnet')
+    module_launches, per_batch = phase_l(device, cfg, ckpt=ckpt)
 
     log('(m) the fused windows of Module.fit, score and predict')
     window_launches = phase_m(device, cfg, per_batch=per_batch)
+
+    log('(n) the serving plane on the card')
+    serve_flash, serve_rows = phase_n(device, cfg, model, ref, ckpt)
 
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
@@ -3321,6 +3872,7 @@ def main():
         'replaces': 'mxnet_tpu/ops/pallas_kernels.py:90',
         'body': 'wgmma', 'launches': launches,
         'train_step_launches': step_launches,
+        'serving_launches': serve_flash,
         'max_abs_err': errs[(SERVED_LAYOUT, True)],
         'ms': t['kernel_ms'], 'plain_ms': t['plain_ms'],
         'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'],
@@ -3335,6 +3887,7 @@ def main():
             'autograd_launches': ag_launches[row_fns(kernel)[0].__name__],
             'module_launches': module_launches[row_fns(kernel)[0].__name__],
             'window_launches': window_launches[row_fns(kernel)[0].__name__],
+            'serving_launches': serve_rows[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):
         record['kernels'].append({

@@ -33,7 +33,11 @@ Ported so far:
   ``predict``, the DataParallelExecutorGroup), :mod:`.io` (NDArrayIter),
   :mod:`.metric`, :mod:`.callback`, the local :mod:`.kvstore`,
   :mod:`.model` (checkpoints, the update paths), ``nd.save``/``nd.load``
-  in both the JAX package's formats, and Gluon's Trainer and losses.
+  in both the JAX package's formats, and Gluon's Trainer and losses;
+- the serving plane (:mod:`.serving`: ``ServingEngine`` over a Module or
+  a forward, ``from_checkpoint``, ``DynamicBatcher``, the HTTP front end,
+  ``python -m mxnet_tpu_torch.serving.serve_model``) and the telemetry
+  core it reports to (:mod:`.telemetry`).
 
 The kernels and their plain versions are in :mod:`.ops.cuda_kernels`.
 """
@@ -50,6 +54,7 @@ from . import rtc
 from . import lr_scheduler
 from . import optimizer
 from . import transformer
+from . import telemetry
 from . import serving
 from . import random
 from . import autograd
@@ -75,7 +80,8 @@ from .attribute import AttrScope
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context', 'base',
            'config', 'context', 'ops', 'fused_rmsnorm', 'ndarray', 'nd',
-           'rtc', 'lr_scheduler', 'optimizer', 'transformer', 'serving',
+           'rtc', 'lr_scheduler', 'optimizer', 'transformer', 'telemetry',
+           'serving',
            'random', 'autograd', 'attribute', 'name', 'initializer', 'init',
            'symbol', 'sym', 'executor', 'io', 'metric', 'callback',
            'kvstore', 'kv', 'model', 'save_checkpoint', 'load_checkpoint',

@@ -1,8 +1,7 @@
 """Typed environment flags: the counterpart of the flag registry of
 ``mxnet_tpu/config.py`` (``Flag``, ``FlagRegistry``, ``flags``), with its
 ``flags.get``/``flags.reload`` surface and its parsing and validation
-(the JAX registry's MXNET_* aliases, enum choices and catalog text are
-not ported: no ported flag uses them).
+(the JAX registry's catalog text is not ported).
 
 Only the flags that the ported modules read are declared. Their names are
 the JAX package's, so one environment drives both packages:
@@ -29,11 +28,21 @@ the JAX package's, so one environment drives both packages:
   ``Module.fit``, ``score``, ``predict`` and ``iter_predict``
   (``module/fused_fit.py``, ``fused_eval.py``, ``window_pipeline.py``),
   with the JAX package's defaults: both windows on, W automatic;
-- ``MXTPU_CKPT_DIR``, ``MXTPU_FAULT_INJECT``, ``MXTPU_TELEMETRY``,
-  ``MXTPU_HEALTH``, ``MXTPU_DYNAMICS``, ``MXTPU_SHARDED_UPDATE`` and
-  ``MXTPU_GRAD_COMPRESS``: paths of the JAX package's ``Module.fit`` and
-  eval that the port does not have yet; set, each makes them raise
-  NotImplementedError (``module/base_module.py``).
+- ``MXTPU_TELEMETRY`` and the telemetry core's flags
+  (``MXTPU_TELEMETRY_PATH``, ``_MAX_MB``, ``_PORT``, ``_BIND``,
+  ``MXTPU_HOST_ID``, ``MXTPU_FLIGHT_RECORDER``, ``MXTPU_SLO_LATENCY_MS``,
+  ``_ERROR_PCT``, ``_WINDOW``, ``MXTPU_WATCHDOG_SECS``, ``_ACTION``):
+  the registry, the JSONL sink, the live endpoint, the flight recorder,
+  the SLO plane and the hang watchdog (:mod:`.telemetry`);
+- ``MXTPU_SERVE_BIND`` and ``MXTPU_SERVE_MAX_WAIT_MS``: the serving HTTP
+  front end's bind address and the batcher's coalescing deadline
+  (:mod:`.serving`);
+- ``MXTPU_CKPT_DIR``, ``MXTPU_FAULT_INJECT``, ``MXTPU_HEALTH``,
+  ``MXTPU_DYNAMICS``, ``MXTPU_SHARDED_UPDATE`` and ``MXTPU_GRAD_COMPRESS``,
+  and ``MXTPU_TELEMETRY`` for the training and eval loops: paths of the
+  JAX package's ``Module.fit`` and eval that the port does not have yet;
+  set, each makes them raise NotImplementedError
+  (``module/base_module.py``).
 
 A flag may name aliases (the reference's ``MXNET_*`` spellings), read when
 the flag's own name is unset.
@@ -46,12 +55,13 @@ __all__ = ['Flag', 'FlagRegistry', 'flags']
 
 class Flag:
     def __init__(self, name, type_, default, doc, min_value=None,
-                 max_value=None, aliases=()):
+                 max_value=None, aliases=(), choices=None):
         self.name = name
         self.aliases = tuple(aliases)
         self.type = type_
         self.default = default
         self.doc = doc
+        self.choices = choices
         self.min_value = min_value
         self.max_value = max_value
 
@@ -67,6 +77,9 @@ class Flag:
             raise ValueError(
                 'env %s=%r: expected %s' % (self.name, raw,
                                             self.type.__name__))
+        if self.choices is not None and val not in self.choices:
+            raise ValueError('env %s=%r: must be one of %s'
+                             % (self.name, raw, sorted(self.choices)))
         if self.min_value is not None and val < self.min_value:
             raise ValueError('env %s=%r: must be >= %s'
                              % (self.name, raw, self.min_value))
@@ -186,9 +199,6 @@ flags.declare('MXTPU_CKPT_DIR', str, '',
 flags.declare('MXTPU_FAULT_INJECT', str, '',
               'Declared for the JAX package\'s fault injection; setting it '
               'raises here')
-flags.declare('MXTPU_TELEMETRY', bool, False,
-              'Declared for the JAX package\'s telemetry; setting it raises '
-              'here')
 flags.declare('MXTPU_HEALTH', bool, False,
               'Declared for the JAX package\'s training-health sentinels; '
               'setting it raises here')
@@ -204,3 +214,71 @@ flags.declare('MXTPU_GRAD_COMPRESS', str, 'off',
               'Declared for the JAX package\'s quantized gradient '
               'collectives (off, int8, bf16, auto); any value but off raises '
               'here')
+
+# The telemetry core (mxnet_tpu_torch/telemetry) and the serving front end,
+# with the JAX package's names and defaults.
+flags.declare('MXTPU_TELEMETRY', bool, False,
+              'Runtime telemetry (mxnet_tpu_torch/telemetry): the counter, '
+              'gauge and histogram registry, spans, the JSONL log and the '
+              'end-of-run summary table, the live endpoint, the flight '
+              'recorder, the SLO plane. Off = every entry point is a shared '
+              'no-op. Module.fit, score and predict raise under it: their '
+              'step records and spans are not ported yet')
+flags.declare('MXTPU_TELEMETRY_PATH', str, 'telemetry.jsonl',
+              'Append-only JSONL metrics log written while MXTPU_TELEMETRY=1 '
+              '(one JSON record per line: spans, traces, events, the '
+              'end-of-run summary)')
+flags.declare('MXTPU_TELEMETRY_MAX_MB', float, 0.0,
+              'Size cap (MB) of the JSONL log: once the file would exceed it, '
+              'records are dropped (counted under telemetry.dropped_records, '
+              'warned once). 0 = unlimited', min_value=0.0)
+flags.declare('MXTPU_TELEMETRY_PORT', int, -1,
+              'Live telemetry endpoint (telemetry/serve.py, requires '
+              'MXTPU_TELEMETRY=1): /metrics (Prometheus text), /healthz and '
+              '/summary from a stdlib HTTP server on a daemon thread. 0 binds '
+              'an OS-assigned port; -1 (default) = off: no thread, no socket',
+              min_value=-1, max_value=65535)
+flags.declare('MXTPU_TELEMETRY_BIND', str, '127.0.0.1',
+              'Bind address of the live telemetry endpoint; loopback by '
+              "default, '0.0.0.0' (or empty) for all interfaces")
+flags.declare('MXTPU_HOST_ID', int, 0,
+              'This process\'s host index, stamped on every telemetry record '
+              'and /metrics sample', min_value=0)
+flags.declare('MXTPU_FLIGHT_RECORDER', int, 2048,
+              'Incident flight recorder (telemetry/flight.py, requires '
+              'MXTPU_TELEMETRY=1): a ring of the last N telemetry records, '
+              'dumped to flight-<reason>.jsonl beside the telemetry log by '
+              'each incident path (watchdog stall, SLO burn). 0 = off',
+              min_value=0, max_value=1 << 20)
+flags.declare('MXTPU_SLO_LATENCY_MS', float, 0.0,
+              'Serving latency objective (telemetry/slo.py, requires '
+              'MXTPU_TELEMETRY=1): a request slower than this counts against '
+              'the error budget like a server-side error. 0 = none',
+              min_value=0.0)
+flags.declare('MXTPU_SLO_ERROR_PCT', float, 0.0,
+              'Serving error budget (telemetry/slo.py): the allowed share (%) '
+              'of bad requests; a burn rate >= 1 over MXTPU_SLO_WINDOW flips '
+              '/healthz to slo_degraded. 0 = none (1% when only the latency '
+              'objective is set)', min_value=0.0, max_value=100.0)
+flags.declare('MXTPU_SLO_WINDOW', int, 128,
+              'Rolling request window (count) of the SLO burn rate',
+              min_value=8)
+flags.declare('MXTPU_WATCHDOG_SECS', float, 0.0,
+              'Hang watchdog (telemetry/watchdog.py): after the first '
+              'progress mark, a daemon thread expects marks at least this '
+              'often; a stall records a hang incident and flips /healthz to '
+              '503 hung. 0 (default) = off: no thread', min_value=0.0)
+flags.declare('MXTPU_WATCHDOG_ACTION', str, 'warn',
+              "What the watchdog does on a stall: 'warn' records it and keeps "
+              "waiting, 'abort' also exits the process with code 85",
+              choices={'warn', 'abort'})
+flags.declare('MXTPU_SERVE_BIND', str, '127.0.0.1',
+              'Bind address of the serving HTTP front end '
+              '(mxnet_tpu_torch/serving/http.py, serving.serve_model); '
+              "loopback by default, '0.0.0.0' (or empty) for all interfaces")
+flags.declare('MXTPU_SERVE_MAX_WAIT_MS', float, 5.0,
+              'Longest time (ms) the serving batcher holds the oldest queued '
+              'request while more arrivals coalesce into one padded '
+              'dispatch; a dispatch fires as soon as the largest bucket is '
+              'full or this deadline passes. 0 dispatches each poll at once',
+              min_value=0.0)

@@ -14,8 +14,9 @@ the per-batch forward loops. ``MXTPU_FUSED_FIT=0`` and
 ``MXTPU_FUSED_EVAL=0`` force the per-batch loops.
 
 The JAX package's fit also carries seams for checkpoints, fault injection,
-telemetry, training health and the sharded or compressed update. None of
-these is ported, and a flag that would turn one of them on raises
+the loops' telemetry (step records and spans), training health and the
+sharded or compressed update. None of these is ported, and a flag that
+would turn one of them on raises
 NotImplementedError naming its ROADMAP.md item
 (:func:`_check_unported_flags`).
 """
@@ -40,8 +41,9 @@ _UNPORTED_FLAGS = (
      '(module/checkpointing.py)', 'ROADMAP.md §1 item 12'),
     ('MXTPU_FAULT_INJECT', 'fault injection (faults.py)',
      'ROADMAP.md §1 item 12'),
-    ('MXTPU_TELEMETRY', 'telemetry (its health, ledger, watchdog, memory '
-     'and timeline planes)', 'ROADMAP.md §1 item 13'),
+    ('MXTPU_TELEMETRY', 'the telemetry of the training and eval loops '
+     '(their step records and spans; the core the serving plane reports to '
+     'is ported)', 'ROADMAP.md §1 item 13'),
     ('MXTPU_HEALTH', 'the training-health sentinels (telemetry/health.py)',
      'ROADMAP.md §1 item 13'),
     ('MXTPU_DYNAMICS', 'the per-layer training dynamics '

@@ -1,6 +1,25 @@
-"""Inference serving over the port's models: the bucketed batching
-contract of ``mxnet_tpu/serving`` (:mod:`.engine`). The dynamic batcher,
-the decode step cache and the HTTP front end are later slices."""
-from .engine import ServingEngine, bucket_ladder
+"""Inference serving plane over the port's models, the counterpart of
+``mxnet_tpu/serving``: from a checkpoint (or a torch forward) to a
+request/response loop.
 
-__all__ = ['ServingEngine', 'bucket_ladder']
+- :mod:`.engine` — :class:`ServingEngine`: a bound Module
+  (``ServingEngine(module)``, ``ServingEngine.from_checkpoint``) or a
+  torch forward (``ServingEngine.from_forward``) behind a ladder of
+  bucketed batch shapes (pad to the bucket, strip the pad rows);
+- :mod:`.batcher` — :class:`DynamicBatcher`: a thread-safe request queue
+  that coalesces waiting requests up to the largest bucket or
+  ``MXTPU_SERVE_MAX_WAIT_MS``, dispatches one padded device call and
+  splits the answers per request, with the fetch on a side thread;
+- :mod:`.http` — ``/predict``, ``/models``, ``/metrics`` and ``/healthz``
+  on a ThreadingHTTPServer, fronted by :mod:`.serve_model`
+  (``python -m mxnet_tpu_torch.serving.serve_model``).
+
+The serving metrics (``serve.*``) report through
+:mod:`mxnet_tpu_torch.telemetry`. The decode step cache
+(``mxnet_tpu/serving/step_cache.py``) waits for the port of the RNN
+stack (ROADMAP.md §1 item 8).
+"""
+from .engine import ServingEngine, bucket_ladder
+from .batcher import DynamicBatcher
+
+__all__ = ['ServingEngine', 'DynamicBatcher', 'bucket_ladder']

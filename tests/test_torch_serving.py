@@ -1,4 +1,5 @@
-"""The port's serving engine (mxnet_tpu_torch.serving) against the batching
+"""The port's serving engine over a torch forward
+(mxnet_tpu_torch.serving.ServingEngine.from_forward) against the batching
 contract of the JAX package's (mxnet_tpu.serving.engine): the same bucket
 ladder, zero-row padding up to the smallest covering bucket, pad rows
 stripped on axis 0, chunking past the largest bucket, and the same
@@ -23,8 +24,9 @@ def _row_sums(x):
 
 def _engine(max_batch=4, descs=(('x', (3,), np.float32),), fwd=_row_sums,
             **kw):
-    return ServingEngine(fwd, list(descs), output_names=['sum', 'double'],
-                         max_batch=max_batch, device='cpu', **kw)
+    return ServingEngine.from_forward(fwd, list(descs),
+                                      output_names=['sum', 'double'],
+                                      max_batch=max_batch, device='cpu', **kw)
 
 
 def test_bucket_ladder_matches_jax():
@@ -134,4 +136,5 @@ def test_engine_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip('this machine has a card; the default device is valid')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
-        ServingEngine(_row_sums, [('x', (3,), np.float32)], max_batch=2)
+        ServingEngine.from_forward(_row_sums, [('x', (3,), np.float32)],
+                                   max_batch=2)

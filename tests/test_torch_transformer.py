@@ -88,8 +88,9 @@ def test_served_logits_match_bench(bench_model):
     with bench's forward's logits for each row."""
     fwd, masters, _tokens = bench_model
     model = _port(masters, torch.float32)
-    engine = ServingEngine(model, [('tokens', (CFG.seq_len,), np.int32)],
-                           max_batch=2, device='cpu')
+    engine = ServingEngine.from_forward(
+        model, [('tokens', (CFG.seq_len,), np.int32)], max_batch=2,
+        device='cpu')
     rows = np.random.RandomState(7).randint(0, CFG.vocab, (3, CFG.seq_len))
     got = engine.infer(rows)[0]
     assert got.shape == (3, CFG.seq_len, CFG.vocab)
@@ -129,7 +130,14 @@ def test_import_leaves_jax_and_the_jax_package_out():
             'mxnet_tpu_torch.ops.reduce_ops, mxnet_tpu_torch.ops.nvrtc, '
             'mxnet_tpu_torch.ops.shape_ops, mxnet_tpu_torch.ops.optimizer_ops, '
             'mxnet_tpu_torch.optimizer, mxnet_tpu_torch.lr_scheduler, '
-            'mxnet_tpu_torch.rtc, mxnet_tpu_torch.ndarray, chip_smoke\n'
+            'mxnet_tpu_torch.rtc, mxnet_tpu_torch.ndarray, chip_smoke, '
+            'mxnet_tpu_torch.telemetry, mxnet_tpu_torch.telemetry.export, '
+            'mxnet_tpu_torch.serving.batcher, mxnet_tpu_torch.serving.http, '
+            'mxnet_tpu_torch.serving.serve_model\n'
+            'from mxnet_tpu_torch.telemetry import (registry, export, flight, '
+            'trace, slo, watchdog, serve, cluster)\n'
+            'from mxnet_tpu_torch.serving import (ServingEngine, '
+            'DynamicBatcher, bucket_ladder)\n'
             'from mxnet_tpu_torch import nd\n'
             'from mxnet_tpu_torch.rtc import Rtc\n'
             'nd.LayerNorm, nd.softmax, nd.softmax_cross_entropy, nd.add_n, '
