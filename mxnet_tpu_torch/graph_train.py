@@ -14,7 +14,8 @@ JAX package's:
 5. the loss ``mean(logsumexp - gold)`` on f32 logits, its gradients by
    torch autograd;
 6. one ``mp_sgd_mom_update`` (the registry op) per master, skipping the
-   data's.
+   data's, at bench's learning rate for the model (:func:`bench_lr`: 0.01
+   for AlexNet, 0.1 for the others) unless the caller gives one.
 
 ``compute_dtype=torch.float32`` gives the same step in f32, the reference
 that the bf16 step is held to on the card.
@@ -29,11 +30,17 @@ from .gluon.model_zoo import vision
 from .ops.registry import get as get_op
 
 __all__ = ['host_init', 'build_graph', 'make_train_step', 'TRAIN_ATTRS',
-           'loss_and_grads']
+           'bench_lr', 'loss_and_grads']
 
 # bench's hyper-parameters for the BN nets
 TRAIN_ATTRS = {'lr': 0.1, 'momentum': 0.9, 'wd': 1e-4, 'rescale_grad': 1.0,
                'clip_gradient': -1.0}
+
+
+def bench_lr(name):
+    """bench's learning rate for the zoo model ``name``: 0.01 for AlexNet,
+    which has no BatchNorm and diverges at the BN nets' 0.1, else 0.1."""
+    return 0.01 if name == 'alexnet' else TRAIN_ATTRS['lr']
 
 
 def host_init(name, shape, rng):
@@ -93,13 +100,14 @@ def loss_and_grads(runner, prog, masters, aux, images, labels,
 
 def make_train_step(name='resnet50_v1', batch=32, image=224, classes=1000,
                     device=None, seed=0, compute_dtype=torch.bfloat16,
-                    net=None):
+                    net=None, lr=None):
     """bench's step for the zoo model ``name`` (or ``net``), at data
     ``(batch, 3, image, image)``: ``(step, masters, aux, vel, images,
     labels, prog)``, where ``step(masters, aux, vel, images, labels) ->
     (masters, aux, vel, loss)`` runs one training step. Masters, velocities
     and aux states are f32 tuples in the graph's orders; the images are in
-    the compute dtype."""
+    the compute dtype. ``lr`` defaults to bench's for ``name``
+    (:func:`bench_lr`)."""
     device = as_torch_device(device)
     data_shape = (batch, 3, image, image)
     if net is None:
@@ -117,6 +125,7 @@ def make_train_step(name='resnet50_v1', batch=32, image=224, classes=1000,
     labels = torch.from_numpy(
         rng.randint(0, classes, (batch,)).astype(np.int32)).to(device)
     update = get_op('mp_sgd_mom_update').fn
+    attrs = dict(TRAIN_ATTRS, lr=bench_lr(name) if lr is None else lr)
     data_idx = prog.arg_names.index('data')
 
     def step(masters, aux, vel, images, labels):
@@ -129,7 +138,7 @@ def make_train_step(name='resnet50_v1', batch=32, image=224, classes=1000,
                     new_m.append(m)
                     new_v.append(v)
                     continue
-                _, nv, m32 = update(TRAIN_ATTRS, m.to(compute_dtype), g, v, m)
+                _, nv, m32 = update(attrs, m.to(compute_dtype), g, v, m)
                 new_m.append(m32)
                 new_v.append(nv)
         return tuple(new_m), new_aux, tuple(new_v), loss

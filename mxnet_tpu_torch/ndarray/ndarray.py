@@ -310,11 +310,28 @@ class NDArray:
         return invoke('Pad', [self], {'mode': mode, 'pad_width': tuple(pad_width),
                                       'constant_value': constant_value})
 
+    def sort(self, axis=-1, is_ascend=True):
+        return invoke('sort', [self], {'axis': axis, 'is_ascend': is_ascend})
+
+    def argsort(self, axis=-1, is_ascend=True, dtype='float32'):
+        return invoke('argsort', [self], {'axis': axis, 'is_ascend': is_ascend,
+                                          'dtype': dtype})
+
+    def topk(self, axis=-1, k=1, ret_typ='indices', is_ascend=False):
+        return invoke('topk', [self], {'axis': axis, 'k': k, 'ret_typ': ret_typ,
+                                       'is_ascend': is_ascend})
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return invoke('dot', [self, other], {'transpose_a': transpose_a,
+                                             'transpose_b': transpose_b})
+
     # -- indexing ---------------------------------------------------------
     def __setitem__(self, key, value):
         """A functional update, as in the JAX package: the write goes into
         a new tensor that replaces ``_data``. It is not recorded: the array
         leaves its recorded graph (a marked variable stays a leaf)."""
+        if key is not None:
+            _check_key(key)
         data = self._data.detach()
         if isinstance(value, NDArray):
             value = value._data
@@ -328,6 +345,7 @@ class NDArray:
         self._hist = None
 
     def __getitem__(self, key):
+        _check_key(key)
         if _ag.is_recording() and self._data.requires_grad:
             # recorded, so that gradients flow through indexing
             return invoke('_slice_like_getitem', [self],
@@ -466,14 +484,36 @@ for _n in ['abs', 'sign', 'round', 'rint', 'fix', 'floor', 'ceil', 'trunc',
 # indexing with jnp's rules for integer index arrays
 # ---------------------------------------------------------------------------
 
+def _check_key(key):
+    """TypeError for the keys jnp refuses: a list (not a tuple) as the whole
+    key, and a float index, array or scalar, anywhere in it."""
+    if isinstance(key, list):
+        raise TypeError('Using a non-tuple sequence for multidimensional '
+                        'indexing is not allowed; use `arr[array(seq)]` '
+                        'instead of `arr[seq]`')
+    for k in _key_items(key):
+        if isinstance(k, NDArray):
+            k = k._data
+        if isinstance(k, torch.Tensor):
+            floating, name = k.is_floating_point(), str(k.dtype)[6:]
+        elif isinstance(k, (np.ndarray, float, np.floating)):
+            dt = np.asarray(k).dtype
+            floating, name = np.issubdtype(dt, np.floating), str(dt)
+        else:
+            continue
+        if floating:
+            raise TypeError('Indexer must have integer or boolean type, got '
+                            'indexer with type %s' % name)
+
+
 def _key_items(key):
     return key if isinstance(key, tuple) else (key,)
 
 
 def _as_index(k, device):
     """An index item as torch takes it: NDArrays, numpy arrays and lists
-    become tensors on ``device`` (integer ones int64; MXNet's float index
-    arrays are truncated to integers)."""
+    become tensors on ``device`` (integer ones int64; a float one was
+    refused by :func:`_check_key`)."""
     if isinstance(k, NDArray):
         k = k._data
     elif isinstance(k, (np.ndarray, list)):

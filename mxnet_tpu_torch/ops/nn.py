@@ -32,7 +32,12 @@ library calls (cuDNN and cuBLAS on the card), with the JAX ops' numbers:
   normalises over a few values;
 - SoftmaxOutput's backward is the reference's (softmax - one-hot, scaled
   and masked by its attrs), whatever the head gradient; MakeLoss's is its
-  ``grad_scale`` (over the batch or the valid count), likewise.
+  ``grad_scale`` (over the batch or the valid count), likewise, and so are
+  those of the regression heads and SVMOutput.
+
+The rest of the JAX module's names are plain torch too: InstanceNorm,
+L2Normalization, LRN, SoftmaxActivation (a plain softmax in the JAX package
+as well), the regression heads, SVMOutput and the Sequence ops.
 
 A Python number beside a tensor is rounded to the tensor's dtype first, as
 jnp's weak-typed scalars are (:func:`_k`).
@@ -44,7 +49,8 @@ import torch.nn.functional as F
 
 from ..config import flags
 from . import cuda_kernels as ck
-from .registry import register, register_alias
+from .registry import get as get_op, register, register_alias
+from .shape_ops import along_axis
 
 __all__ = ['use_fused']
 
@@ -103,18 +109,22 @@ def _log_softmax(attrs, x):
 
 @register('softmax_cross_entropy', input_names=['data', 'label'])
 def _softmax_cross_entropy(attrs, data, label):
-    lab = label.to(torch.int32)
+    # the labels broadcast against the rows as jnp.take_along_axis
+    # broadcasts them (a (1,) label serves every row), ValueError where
+    # they do not
+    data, lab = along_axis(data, label.to(torch.int32), data.dim() - 1)
     if use_fused(data):
         # per-row logsumexp - gold in one kernel: no softmax in memory
-        return ck.softmax_xent(data, lab).sum().to(data.dtype)
+        return ck.softmax_xent(data, lab[:, 0].contiguous()).sum().to(
+            data.dtype)
     logp = torch.log_softmax(data, dim=-1)
     # jnp.take_along_axis: a negative label counts from the end, and one
     # still outside [0, V) picks NaN
     V = data.shape[-1]
     idx = torch.where(lab < 0, lab + V, lab)
     inside = (idx >= 0) & (idx < V)
-    picked = torch.gather(logp, -1, idx.clamp(0, V - 1).long()[:, None])[:, 0]
-    return -picked.masked_fill(~inside, float('nan')).sum()
+    picked = torch.gather(logp, -1, idx.clamp(0, V - 1).long())[:, 0]
+    return -picked.masked_fill(~inside[:, 0], float('nan')).sum()
 
 
 def _k(v, like):
@@ -500,3 +510,184 @@ def _make_loss(attrs, x):
 
 
 register_alias('make_loss', 'MakeLoss')
+
+
+# ---------------------------------------------------------------------------
+# InstanceNorm, L2Normalization, LRN, SoftmaxActivation
+# ---------------------------------------------------------------------------
+
+@register('InstanceNorm', input_names=['data', 'gamma', 'beta'],
+          param_defaults={'eps': 1e-3})
+def _instance_norm(attrs, x, gamma, beta):
+    """Normalises each sample's channel over its spatial axes (the biased
+    variance), in x's dtype."""
+    axes = tuple(range(2, x.dim()))
+    mean = x.mean(axes, keepdim=True)
+    var = x.var(axes, unbiased=False, keepdim=True)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    return ((x - mean) * torch.rsqrt(var + attrs.get('eps', 1e-3))
+            * gamma.reshape(bshape) + beta.reshape(bshape))
+
+
+@register('L2Normalization', param_defaults={'eps': 1e-10,
+                                             'mode': 'instance'})
+def _l2_normalization(attrs, x):
+    """x over the root of its sum of squares (plus eps): over each sample
+    ('instance'), each position across channels ('channel') or each
+    channel over space ('spatial')."""
+    mode = attrs.get('mode', 'instance')
+    axes = ((1,) if mode == 'channel' else tuple(range(1, x.dim()))
+            if mode == 'instance' else tuple(range(2, x.dim())))
+    return x / torch.sqrt(x.square().sum(axes, keepdim=True)
+                          + attrs.get('eps', 1e-10))
+
+
+@register('LRN', param_defaults={'alpha': 1e-4, 'beta': 0.75, 'knorm': 2.0,
+                                 'nsize': 5})
+def _lrn(attrs, x):
+    """Local response normalisation across channels: x * (knorm + alpha /
+    nsize * the sum of squares over nsize channels) ** -beta."""
+    alpha, beta = attrs.get('alpha', 1e-4), attrs.get('beta', 0.75)
+    knorm, nsize = attrs.get('knorm', 2.0), int(attrs.get('nsize', 5))
+    half = nsize // 2
+    sq = F.pad(x.square().movedim(1, -1), (half, half)).movedim(-1, 1)
+    ssum = sq.unfold(1, nsize, 1).sum(-1)
+    return x * torch.pow(knorm + alpha / nsize * ssum, -beta)
+
+
+@register('SoftmaxActivation', param_defaults={'mode': 'instance'})
+def _softmax_activation(attrs, x):
+    """softmax over the channels ('channel') or over all of each sample's
+    values ('instance'), by torch: the JAX op is a plain softmax too."""
+    if attrs.get('mode', 'instance') == 'channel':
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# The regression heads and SVMOutput: a forward, and the reference's own
+# backward whatever the head gradient
+# ---------------------------------------------------------------------------
+
+class _RegressionFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, fwd, bwd, grad_scale):
+        out = fwd(data)
+        ctx.save_for_backward(out, label)
+        ctx.bwd, ctx.scale = bwd, grad_scale / data.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad = ctx.bwd(out, label) * ctx.scale
+        return grad.to(out.dtype), None, None, None, None
+
+
+def _make_regression(name, fwd, bwd):
+    @register(name, input_names=['data', 'label'],
+              param_defaults={'grad_scale': 1.0})
+    def head(attrs, data, label):
+        return _RegressionFunction.apply(data, label.reshape(data.shape),
+                                         fwd, bwd,
+                                         attrs.get('grad_scale', 1.0))
+    head.__doc__ = ('%s: the forward, and the gradient (its rule on the '
+                    'output and the label) x grad_scale / batch.' % name)
+    return head
+
+
+_make_regression('LinearRegressionOutput', torch.clone,
+                 lambda o, lab: o - lab)
+_make_regression('LogisticRegressionOutput', torch.sigmoid,
+                 lambda o, lab: o - lab)
+_make_regression('MAERegressionOutput', torch.clone,
+                 lambda o, lab: torch.sign(o - lab))
+
+
+class _SVMFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, linear):
+        ctx.save_for_backward(data, label)
+        ctx.cfg = margin, reg, linear
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        # the hinge's gradient on the wrong classes where the margin is
+        # violated, minus their sum on the true class
+        data, label = ctx.saved_tensors
+        margin, reg, linear = ctx.cfg
+        lab = label.to(torch.int32)
+        onehot = _one_hot(lab, data.shape[1], -1, data.dtype)
+        correct = get_op('pick').fn({'axis': 1, 'keepdims': True}, data, lab)
+        slack = margin - (correct - data)
+        zero = torch.zeros((), dtype=data.dtype)
+        gdata = torch.where(slack > 0, _k(reg, data) if linear
+                            else _k(2 * reg, data) * slack, zero)
+        gdata = gdata * (1 - onehot)
+        gdata = gdata - gdata.sum(1, keepdim=True) * onehot
+        return gdata, None, None, None, None
+
+
+@register('SVMOutput', input_names=['data', 'label'],
+          param_defaults={'margin': 1.0, 'regularization_coefficient': 1.0,
+                          'use_linear': False})
+def _svm_output(attrs, data, label):
+    """The scores (the identity), with the multi-class hinge loss's
+    gradient: squared (or linear with ``use_linear``), of ``margin``,
+    times ``regularization_coefficient``."""
+    return _SVMFunction.apply(data, label, attrs.get('margin', 1.0),
+                              attrs.get('regularization_coefficient', 1.0),
+                              attrs.get('use_linear', False))
+
+
+# ---------------------------------------------------------------------------
+# Sequence ops: time-major data (T, N, ...), the lengths a sample
+# ---------------------------------------------------------------------------
+
+_SEQ = dict(input_names=['data', 'sequence_length'],
+            optional_inputs={'sequence_length': 'use_sequence_length'})
+
+
+def _lengths(attrs, seq_len):
+    if not attrs.get('use_sequence_length', False) or seq_len is None:
+        return None
+    return seq_len.to(torch.int32).long()
+
+
+@register('SequenceLast', param_defaults={'use_sequence_length': False,
+                                          'axis': 0}, **_SEQ)
+def _sequence_last(attrs, data, seq_len=None):
+    """Each sample's last step (its length's, clamped into range as jnp's
+    gather clamps)."""
+    sl = _lengths(attrs, seq_len)
+    if sl is None:
+        return data[-1]
+    T = data.shape[0]
+    idx = torch.where(sl - 1 < 0, sl - 1 + T, sl - 1).clamp(0, T - 1)
+    return data[idx, torch.arange(data.shape[1], device=data.device)]
+
+
+@register('SequenceMask', param_defaults={'use_sequence_length': False,
+                                          'value': 0.0, 'axis': 0}, **_SEQ)
+def _sequence_mask(attrs, data, seq_len=None):
+    """``value`` at each sample's steps past its length."""
+    sl = _lengths(attrs, seq_len)
+    if sl is None:
+        return data
+    mask = (torch.arange(data.shape[0], device=data.device)[:, None]
+            < sl[None, :])
+    mask = mask.reshape(mask.shape + (1,) * (data.dim() - 2))
+    return torch.where(mask, data, _k(attrs.get('value', 0.0), data))
+
+
+@register('SequenceReverse', param_defaults={'use_sequence_length': False,
+                                             'axis': 0}, **_SEQ)
+def _sequence_reverse(attrs, data, seq_len=None):
+    """Each sample's first ``length`` steps reversed, the rest kept."""
+    sl = _lengths(attrs, seq_len)
+    if sl is None:
+        return data.flip(0)
+    t = torch.arange(data.shape[0], device=data.device)[:, None]
+    src = torch.where(t < sl[None, :], sl[None, :] - 1 - t, t)
+    return data[src, torch.arange(data.shape[1], device=data.device)[None, :]]

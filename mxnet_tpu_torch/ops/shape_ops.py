@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from ..base import np_dtype, torch_dtype
 from .registry import register, register_alias
 
-__all__ = ['infer_reshape', 'flip_steps']
+__all__ = ['infer_reshape', 'flip_steps', 'along_axis']
 
 
 def infer_reshape(src, target):
@@ -79,6 +79,28 @@ def _index_int(indices):
     """Indices as jnp's ``astype(int32)`` makes them (a float truncated
     toward zero), in the int64 torch indexes with."""
     return indices.to(torch.int32).long()
+
+
+def along_axis(data, index, axis):
+    """``(data, index)`` as ``jnp.take_along_axis(data, expand_dims(index,
+    axis), axis)`` takes them: ``index`` (one axis fewer than ``data``) gets
+    ``axis`` back at size 1, and the two broadcast against each other over
+    every other axis (a (1,) index serves every row). ValueError where jnp
+    raises: a rank that does not match, shapes that do not broadcast."""
+    if index.dim() + 1 != data.dim():
+        raise ValueError('indices and arr must have the same number of '
+                         'dimensions; %d vs. %d' % (index.dim() + 1, data.dim()))
+    idx = index.unsqueeze(axis)
+    dshape = list(data.shape)
+    dshape[axis] = 1
+    try:
+        shape = list(torch.broadcast_shapes(tuple(dshape), tuple(idx.shape)))
+    except RuntimeError:
+        raise ValueError('Incompatible shapes for broadcasting: shapes=[%s, '
+                         '%s]' % (tuple(idx.shape), tuple(dshape))) from None
+    idx = idx.expand(shape)
+    shape[axis] = data.shape[axis]
+    return data.expand(shape), idx
 
 
 def _clamped(idx, n):
@@ -367,7 +389,7 @@ def _fill_value(dtype):
 def _pick(attrs, data, index):
     ax = int(attrs.get('axis', -1)) % data.dim()
     n = data.shape[ax]
-    idx = _index_int(index).unsqueeze(ax)
+    data, idx = along_axis(data, _index_int(index), ax)
     idx = torch.where(idx < 0, idx + n, idx)
     inside = (idx >= 0) & (idx < n)
     picked = torch.gather(data, ax, idx.clamp(0, max(n - 1, 0)))

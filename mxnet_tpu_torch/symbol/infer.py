@@ -113,6 +113,30 @@ def _softmax_out_params(attrs, in_shapes):
     return {'label': (data[0],)}
 
 
+@param_shape_hook('InstanceNorm')
+def _in_params(attrs, in_shapes):
+    data = in_shapes[0]
+    return {'gamma': (data[1],), 'beta': (data[1],)} if data else {}
+
+
+@param_shape_hook('SVMOutput')
+def _svm_out_params(attrs, in_shapes):
+    data = in_shapes[0]
+    return {'label': (data[0],)} if data else {}
+
+
+def _reg_out_params(attrs, in_shapes):
+    """The regression heads: the label has the data's shape."""
+    data = in_shapes[0]
+    return {'label': tuple(data)} if data else {}
+
+
+for _name in ('LinearRegressionOutput', 'MAERegressionOutput',
+              'LogisticRegressionOutput'):
+    param_shape_hook(_name)(_reg_out_params)
+del _name
+
+
 def _node_arg_name(node, i):
     names = node.opdef().input_names
     return names[i] if i < len(names) else 'arg%d' % i

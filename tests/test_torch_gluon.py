@@ -147,7 +147,8 @@ def test_resnet_new_statistics_match_jax(jax_run, port_run):
         _close(got[n], want[n], rtol=1e-5, arel=1e-5, what=n)
 
 
-@pytest.mark.parametrize('name', ['resnet18_v2', 'resnet50_v1'])
+@pytest.mark.parametrize('name', ['resnet18_v2', 'resnet50_v1', 'vgg11_bn',
+                                  'densenet121', 'squeezenet1.1'])
 def test_zoo_names_and_shapes_match_jax(name):
     """get_model's nets have the JAX package's parameter names and
     (deferred) shapes."""
@@ -186,8 +187,9 @@ def test_resnet_v2_forward_matches_jax():
     _close(tnet(nd.array(x, ctx=CPU)).asnumpy(), want)
     with pytest.raises(ValueError):
         vision.get_model('resnet19_v1')
-    with pytest.raises(NotImplementedError):
-        vision.get_model('vgg16')
+    with pytest.raises(ValueError):
+        vision.get_model('vgg17')
+    assert isinstance(vision.get_model('vgg16'), vision.VGG)
 
 
 def _layers(lib):

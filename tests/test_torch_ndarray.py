@@ -248,6 +248,46 @@ def test_ndarray_core_matches_mx_nd():
         x.asscalar()
 
 
+_KEYS_REFUSED = {'list': lambda ndm, ctx: [2, 0],
+                 'nested list': lambda ndm, ctx: [[2, 0]],
+                 'float NDArray': lambda ndm, ctx: ndm.array([2, 0], ctx=ctx),
+                 'float numpy': lambda ndm, ctx: np.array([2.0, 0.0]),
+                 'float in a tuple': lambda ndm, ctx: (1.0, 2),
+                 'float numpy in a tuple':
+                     lambda ndm, ctx: (np.array([2.0, 0.0]), 1)}
+_KEYS_TAKEN = {'int32 NDArray':
+                   lambda ndm, ctx: ndm.array([2, 0], ctx=ctx, dtype='int32'),
+               'int numpy': lambda ndm, ctx: np.array([2, 0]),
+               'tuple': lambda ndm, ctx: (2, 1),
+               'list in a tuple': lambda ndm, ctx: ([2, 0], 1)}
+
+
+@pytest.mark.parametrize('key', sorted(_KEYS_REFUSED))
+def test_indexing_raises_where_jax_raises(key):
+    """A list as the whole key and a float index (an NDArray, a numpy
+    array, a number) raise TypeError on read and write, as jnp refuses them
+    in the JAX package."""
+    make = _KEYS_REFUSED[key]
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    for ndm, ctx in ((nd, cpu()), (mx.nd, mx.cpu())):
+        x = ndm.array(a, ctx=ctx)
+        with pytest.raises(TypeError):
+            x[make(ndm, ctx)]
+        if ndm is nd:       # the JAX package raises on write too, but not
+            with pytest.raises(TypeError):      # always a TypeError
+                x[make(ndm, ctx)] = 5.0
+
+
+@pytest.mark.parametrize('key', sorted(_KEYS_TAKEN))
+def test_integer_keys_index_as_in_jax(key):
+    make = _KEYS_TAKEN[key]
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    got = nd.array(a, ctx=cpu())[make(nd, cpu())]
+    want = mx.nd.array(a, ctx=mx.cpu())[make(mx.nd, mx.cpu())]
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+
+
 def test_ndarray_copies_contexts_and_out():
     t = torch.arange(6, dtype=torch.float32).reshape(2, 3)
     x = nd.from_torch(t)

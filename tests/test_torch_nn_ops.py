@@ -203,6 +203,58 @@ CASES += [
           {'multi_output': True, 'use_ignore': True, 'ignore_label': 1},
           [_f(2, 3, 4), np.array([[0, 1, 2, 2], [1, 0, 0, 2]], np.float32)]),
 ]
+# -- softmax_cross_entropy: the labels broadcast against the rows as
+#    jnp.take_along_axis broadcasts them (a (1,) label serves every row) --
+CASES += [
+    _case('xent-one-label', 'softmax_cross_entropy', {},
+          [_f(4, 5), np.array([3], np.float32)], diff=[0]),
+    _case('xent-one-row', 'softmax_cross_entropy', {},
+          [_f(1, 5), np.array([3, 1, 2, 0], np.float32)], diff=[0]),
+    _case('xent-labels', 'softmax_cross_entropy', {},
+          [_f(4, 5), np.array([3, 1, -1, 0], np.float32)], diff=[0]),
+]
+# -- the rest of the JAX module's names -------------------------------------
+_SEQ_LEN = np.array([2, 4, 1], np.float32)
+CASES += [
+    _case('instancenorm', 'InstanceNorm', {'eps': 1e-3},
+          [_f(2, 3, 4, 5), _f(3), _f(3)]),
+    _case('instancenorm-1d', 'InstanceNorm', {}, [_f(2, 3, 7), _f(3), _f(3)]),
+    _case('lrn', 'LRN', {}, [_f(2, 7, 3, 4)]),
+    _case('lrn-wide', 'LRN', {'nsize': 3, 'alpha': 0.1, 'beta': 0.5,
+                              'knorm': 1.0}, [_f(2, 4, 3)]),
+    _case('softmaxact', 'SoftmaxActivation', {}, [_f(3, 4, 2)]),
+    _case('softmaxact-channel', 'SoftmaxActivation', {'mode': 'channel'},
+          [_f(3, 4, 2)]),
+    _case('linreg', 'LinearRegressionOutput', {}, [_f(4, 3), _f(4, 3)],
+          diff=[0]),
+    _case('linreg-scale-reshaped', 'LinearRegressionOutput',
+          {'grad_scale': 3.0}, [_f(6, 1), _f(6)], diff=[0]),
+    _case('logreg', 'LogisticRegressionOutput', {'grad_scale': 0.5},
+          [_f(5, 2), (_f(5, 2) > 0).astype(np.float32)], diff=[0]),
+    _case('maereg', 'MAERegressionOutput', {}, [_f(4, 3), _f(4, 3)],
+          diff=[0]),
+    _case('svm', 'SVMOutput', {}, [_f(6, 4), _LAB], diff=[0]),
+    _case('svm-linear', 'SVMOutput', {'use_linear': True, 'margin': 0.5,
+                                      'regularization_coefficient': 2.0},
+          [_f(6, 4), _LAB], diff=[0]),
+    _case('seqlast', 'SequenceLast', {}, [_f(4, 3, 2)]),
+    _case('seqlast-len', 'SequenceLast', {'use_sequence_length': True},
+          [_f(4, 3, 2), _SEQ_LEN], diff=[0]),
+    _case('seqmask', 'SequenceMask', {}, [_f(4, 3, 2)]),
+    _case('seqmask-len', 'SequenceMask', {'use_sequence_length': True,
+                                          'value': -2.0},
+          [_f(4, 3, 2), _SEQ_LEN], diff=[0]),
+    _case('seqreverse', 'SequenceReverse', {}, [_f(4, 3, 2)]),
+    _case('seqreverse-len', 'SequenceReverse', {'use_sequence_length': True},
+          [_f(4, 3), _SEQ_LEN], diff=[0]),
+]
+for _mode in ('instance', 'channel', 'spatial'):
+    CASES.append(_case('l2norm-' + _mode, 'L2Normalization', {'mode': _mode},
+                       [_f(2, 3, 4, 2)]))
+for _dt in ('float32', 'bfloat16'):
+    CASES.append(_case('linreg-' + _dt + '-batch', 'LinearRegressionOutput',
+                       {'grad_scale': 2.0}, [_f(3, 5), _f(3, 5)], _dt,
+                       diff=[0]))
 IDS = [c['id'] for c in CASES]
 assert len(set(IDS)) == len(IDS)
 
@@ -257,8 +309,8 @@ def _jax_case(case):
         return out if isinstance(out, tuple) else (out,)
 
     outs, vjp = jax.vjp(f, *[args[i] for i in case['diff']])
-    cot = [jnp.asarray(np.random.RandomState(case['cot_seed'])
-                       .randn(*o.shape).astype(np.float32)).astype(o.dtype)
+    cot = [jnp.asarray(np.asarray(np.random.RandomState(case['cot_seed'])
+                                  .randn(*o.shape), np.float32)).astype(o.dtype)
            if k == 0 else jnp.zeros_like(o) for k, o in enumerate(outs)]
     return outs, vjp(tuple(cot)), cot[0]
 
@@ -344,6 +396,35 @@ def test_op_matches_jax(case, jax_results, bn_form):
                                    err_msg='grad of input %d' % i)
 
 
+@pytest.mark.parametrize('label', [[3, 1, 2], [[3]]], ids=['rows', 'rank'])
+def test_xent_labels_raise_where_jax_raises(label):
+    """Labels that do not broadcast against the rows (3 of 4), or of
+    another rank, raise ValueError in both packages, in both branches."""
+    x, lab = _f(4, 5), np.array(label, np.float32)
+    with pytest.raises(ValueError):
+        jreg.get('softmax_cross_entropy').fn({}, jnp.asarray(x),
+                                             jnp.asarray(lab))
+    for force in ('0', '1'):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv('MXTPU_FORCE_PALLAS', force)
+            with pytest.raises(ValueError):
+                treg.get('softmax_cross_entropy').fn(
+                    {}, torch.from_numpy(x), torch.from_numpy(lab))
+
+
+def test_xent_kernel_branch_takes_one_label(monkeypatch):
+    """With the kernel branch forced (its plain version on the CPU), a (1,)
+    label reaches softmax_xent broadcast to every row: the JAX plain
+    branch's value."""
+    x, lab = _f(4, 5), np.array([3], np.float32)
+    want = float(jreg.get('softmax_cross_entropy').fn(
+        {}, jnp.asarray(x), jnp.asarray(lab)))
+    monkeypatch.setenv('MXTPU_FORCE_PALLAS', '1')
+    got = float(treg.get('softmax_cross_entropy').fn(
+        {}, torch.from_numpy(x), torch.from_numpy(lab)))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
 def test_bn_new_statistics_carry_no_gradient():
     x = torch.randn(4, 3, 2, 2, requires_grad=True)
     g, b = torch.ones(3, requires_grad=True), torch.zeros(3, requires_grad=True)
@@ -396,16 +477,22 @@ def test_rrelu_in_training_draws_slopes_in_bounds():
 
 def test_aliases_and_registry_fields():
     for alias, name in (('BatchNorm_v1', 'BatchNorm'), ('Pooling_v1', 'Pooling'),
-                        ('Softmax', 'SoftmaxOutput')):
+                        ('Softmax', 'SoftmaxOutput'),
+                        ('CuDNNBatchNorm', 'BatchNorm')):
         assert treg.get(alias) is treg.get(name)
     bn = treg.get('BatchNorm')
     jbn = jreg.get('BatchNorm')
     assert bn.aux_inputs == jbn.aux_inputs and bn.mutate_inputs == \
         jbn.mutate_inputs and bn.param_defaults == jbn.param_defaults
     for name in ('FullyConnected', 'Convolution', 'Deconvolution', 'Pooling',
-                 'Activation', 'LeakyReLU', 'Dropout', 'SoftmaxOutput'):
+                 'Activation', 'LeakyReLU', 'Dropout', 'SoftmaxOutput',
+                 'InstanceNorm', 'L2Normalization', 'LRN', 'SoftmaxActivation',
+                 'LinearRegressionOutput', 'LogisticRegressionOutput',
+                 'MAERegressionOutput', 'SVMOutput', 'SequenceLast',
+                 'SequenceMask', 'SequenceReverse'):
         t, j = treg.get(name), jreg.get(name)
         assert t.input_names == j.input_names, name
+        assert t.optional_inputs == j.optional_inputs, name
         assert t.param_defaults == j.param_defaults, name
         assert (t.needs_rng, t.train_aware) == (j.needs_rng, j.train_aware)
     fc = treg.get('FullyConnected')

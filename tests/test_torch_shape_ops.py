@@ -155,6 +155,15 @@ CASES = [
      [_f(M), _f(np.array([0, 3, -2, 1, 2], np.float32))]),
     ('pick-int32', 'pick', {}, [_f(M * 9, 'int32'),
                                 _f(np.array([0, 5, -9, 2], np.float32))]),
+    # the index broadcasts against the data as jnp.take_along_axis's does:
+    # a (1,) index serves every row, a (1, 5) data row every index
+    ('pick-one-index', 'pick', {}, [_f(M), _f(np.array([3], np.float32))]),
+    ('pick-one-index-keepdims', 'pick', {'keepdims': True},
+     [_f(M), _f(np.array([-1], np.float32))]),
+    ('pick-one-index-axis0', 'pick', {'axis': 0},
+     [_f(M), _f(np.array([3], np.float32))]),
+    ('pick-one-row', 'pick', {}, [_f(M[:1]), _f(np.array([3, 1, 2, 0],
+                                                        np.float32))]),
     ('gather_nd', 'gather_nd', {},
      [_f(X), _f(np.array([[0, 1, -1, 5], [1, 3, 0, -9]], np.float32))]),
     ('gather_nd-full', 'gather_nd', {},
@@ -248,6 +257,17 @@ def test_op_matches_jax(case):
             _same(g, w, (name, i))
     else:
         _same(got, want, name)
+
+
+@pytest.mark.parametrize('index', [[3, 1, 2], [[3]]], ids=['rows', 'rank'])
+def test_pick_raises_where_jax_raises(index):
+    """An index that does not broadcast against the data's rows (3 of 4),
+    or of another rank, raises ValueError in both packages."""
+    index = np.array(index, np.float32)
+    with pytest.raises(ValueError):
+        jreg.get('pick').fn({}, jnp.asarray(M), jnp.asarray(index))
+    with pytest.raises(ValueError):
+        treg.get('pick').fn({}, torch.from_numpy(M), torch.from_numpy(index))
 
 
 def test_slice_channel_needs_equal_parts():
