@@ -200,7 +200,27 @@ order they run:
     16384] f32 with a (1,) label through the softmax_xent kernel (counted,
     against the plain version with the label broadcast) and a (3,) label
     raising ValueError before any launch (the kernel record's
-    op_library_launches).
+    op_library_launches);
+(p) the training loop's telemetry and the profiler (run after (o), before
+    (e)): (p1) (l1)'s recipe over 8 batches, through the per-batch loop
+    (MXTPU_FUSED_FIT=0) and the fused window (W = 4), each run four times
+    from the same masters under cuDNN's deterministic algorithms: telemetry
+    off, on (MXTPU_TELEMETRY=1, MXTPU_TIMELINE=1; the window's with
+    MXTPU_XPROF=4:8), on, off. Every run's final parameters and aux states
+    bit for bit the first's; each loop's leaf spans in its JSONL log,
+    fit.steps 8 (the window's fused_fit.windows 2 and steps_per_call 4),
+    the Speedometer's gauge; the goodput record's buckets and overhead
+    summing to its wall within 5 ms, its step bucket above 0; the timeline
+    record's draw, put, dispatch and fetch ms a step; the XPROF trace's
+    kernel events; a batch's host ms with telemetry on and off, printed,
+    not held. (p2) (l2)'s head through the per-batch Module.fit and
+    Module.score inside mx.profiler.Profiler(mode='all'): the fit.*,
+    eval.*, exec_group.* and executor.* spans in profile.json, the device
+    trace in profile_cuda/ naming layernorm_rows_kernel (K4's warp body)
+    and xent_kernel (K3) as often as their launch counters grew (the kernel
+    record's profiler_launches), each batch's loss held as (l2) holds it,
+    and K3's and K4's device ms a launch from the trace, printed beside
+    (e)'s event timings.
 
 The second-to-last line of its output is the kernel record
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -1361,10 +1381,10 @@ def rtc_times(device, cfg, rtcs):
                      % device_ms(lambda: F.rms_norm(x, (x.shape[-1],), g, 1e-6),
                                  flush=flush))
         log('  %-18s %-22s kernel %.4f ms, plain %.4f ms, library %s ms, bound '
-            '%.4f ms (%s: %.1f MB), bound / kernel %.3f%s'
+            '%.4g ms (%s: %d bytes), bound / kernel %.4g%s'
             % (name, tuple(args[0].shape), kernel_ms, plain_ms,
                'n/a' if library_ms is None else '%.4f' % library_ms, bound_ms,
-               bound_by, nbytes / 1e6, bound_ms / kernel_ms, extra))
+               bound_by, nbytes, bound_ms / kernel_ms, extra))
         out[name] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
         del args, res, ins, outs
@@ -2679,12 +2699,15 @@ def module_fit(device, spec=RESNET, n_images=FIT_IMAGES, ckpt=None):
                 batch_ms=batch_ms, wall_ms=wall_ms, speed=seen['speed'])
 
 
-def module_kernels(device, cfg, batches=MODULE_BATCHES):
+def module_kernels(device, cfg, batches=MODULE_BATCHES, profile=None):
     """Phase (l2): phase (k2)'s head, MakeLoss(softmax_cross_entropy(Cast(
     FullyConnected(LayerNorm(x)), f32), label)), at bench's widths through
     Module.fit for one epoch and then Module.score, with K4's and K3's
     launches counted in each; each batch's loss against the plain versions
-    on the same parameters. Returns {wrapper: launches in fit and score}."""
+    on the same parameters. Returns {wrapper: launches in fit and score}.
+    With ``profile`` (phase (p2)) the fit and the score run inside
+    ``mx.profiler.Profiler`` writing to that path."""
+    import contextlib
     import torch
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.ops import cuda_kernels as ck
@@ -2729,19 +2752,25 @@ def module_kernels(device, cfg, batches=MODULE_BATCHES):
     counters = (ck.layernorm_fwd, ck.rmsnorm_fwd, ck.softmax_fwd,
                 ck.softmax_xent_fwd)
     launches = {}
-    # the main path: counts are zeroed just before and read just after
-    for fwd in counters:
-        fwd.launches = 0
-    mod.fit(it, num_epoch=1, optimizer='sgd', optimizer_params=FIT_OPT,
-            eval_metric='loss', kvstore='device',
-            batch_end_callback=against_plain)
-    mod.get_outputs()[0].wait_to_read()
-    launches['fit'] = {fwd.__name__: fwd.launches for fwd in counters}
-    for fwd in counters:
-        fwd.launches = 0
-    res = mod.score(it, 'loss', batch_end_callback=against_plain)
-    mod.get_outputs()[0].wait_to_read()
-    launches['score'] = {fwd.__name__: fwd.launches for fwd in counters}
+    around = mt.profiler.Profiler(mode='all', filename=profile) if profile \
+        else contextlib.nullcontext()
+    with around:
+        # the main path: counts are zeroed just before and read just after
+        for fwd in counters:
+            fwd.launches = 0
+        mod.fit(it, num_epoch=1, optimizer='sgd', optimizer_params=FIT_OPT,
+                eval_metric='loss', kvstore='device',
+                batch_end_callback=against_plain)
+        mod.get_outputs()[0].wait_to_read()
+        launches['fit'] = {fwd.__name__: fwd.launches for fwd in counters}
+        for fwd in counters:
+            fwd.launches = 0
+        res = mod.score(it, 'loss', batch_end_callback=against_plain)
+        mod.get_outputs()[0].wait_to_read()
+        launches['score'] = {fwd.__name__: fwd.launches for fwd in counters}
+        if on_card:
+            # every launch ends inside the device trace's window
+            torch.cuda.synchronize()
     want = {'layernorm_fwd': batches, 'rmsnorm_fwd': 0, 'softmax_fwd': 0,
             'softmax_xent_fwd': batches}
     if not on_card:
@@ -4336,6 +4365,345 @@ def phase_o(device, cfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# (p) the training loop's telemetry and the profiler on the card
+# ---------------------------------------------------------------------------
+
+TELE_FIT_BATCHES = 8    # (p1): train_imagenet's recipe, 8 batches of 32
+# (p1) holds every run's final parameters and aux states to the first run's
+# (telemetry off) bit for bit, under cuDNN's deterministic algorithms (as
+# (m1)): the spans read host clocks and add no synchronisation and no
+# device work. The goodput record rounds its wall and each of its eight
+# buckets to 1 ms, so their sum is the wall within 5 ms.
+GOODPUT_SUM_S = 0.005
+TELE_LEAVES = {
+    'per-batch': ('fit.dispatch', 'fit.draw', 'fit.metric', 'fit.callback',
+                  'exec_group.forward', 'exec_group.backward',
+                  'executor.forward', 'executor.backward', 'module.update'),
+    'window': ('fused_fit.build', 'fused_fit.draw', 'fused_fit.put',
+               'fused_fit.dispatch', 'fused_fit.fetch')}
+# (p2): the host spans profile.json must hold, and the kernels its device
+# trace must name (by the name their template instances begin with), with
+# the row kernel each is the body of
+PROFILE_SPANS = ('fit.batch', 'fit.dispatch', 'fit.draw', 'fit.metric',
+                 'fit.callback', 'eval.dispatch', 'eval.metric',
+                 'exec_group.forward', 'exec_group.backward',
+                 'executor.forward', 'executor.backward', 'module.update')
+PROFILE_KERNELS = {'layernorm_rows_kernel': 'layernorm',
+                   'xent_kernel': 'softmax_xent'}
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def trace_kernels(trace_dir):
+    """{kernel name without its namespaces, template arguments and
+    parameters: [launches, device ms]} from the 'kernel' events of the one
+    chrome trace in ``trace_dir`` (the row kernels are in an anonymous
+    namespace: 'void (anonymous namespace)::xent_kernel<float, int>(...)'
+    is 'xent_kernel')."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith('.json')]
+    check(len(files) == 1, 'the device trace in %s holds %s'
+          % (trace_dir, files))
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)['traceEvents']
+    out = {}
+    for e in events:
+        if e.get('cat') != 'kernel':
+            continue
+        name = e['name'].replace('(anonymous namespace)::', '')
+        name = name[5:] if name.startswith('void ') else name
+        base = name.split('<')[0].split('(')[0].strip().rsplit('::', 1)[-1]
+        got = out.setdefault(base, [0, 0.0])
+        got[0] += 1
+        got[1] += float(e.get('dur', 0.0)) / 1e3
+    return out
+
+
+def trace_gaps(trace_dir, kname):
+    """Print where a device trace lost kernels: the kernel launches (the
+    runtime's launch events) whose correlation id has no kernel event, by
+    their host time from the trace's first event, beside ``kname``'s
+    kernel events."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith('.json')]
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)['traceEvents']
+    t0 = min(e['ts'] for e in events if 'ts' in e)
+    kernels = {e.get('args', {}).get('correlation') for e in events
+               if e.get('cat') == 'kernel'}
+    launches = [e for e in events if e.get('cat') in ('cuda_runtime',
+                                                       'cuda_driver')
+                and 'Launch' in e.get('name', '')]
+    lost = [(e['name'], round(e['ts'] - t0, 1),
+             e.get('args', {}).get('correlation')) for e in launches
+            if e.get('args', {}).get('correlation') not in kernels]
+    mine = [round(e['ts'] - t0, 1) for e in events
+            if e.get('cat') == 'kernel' and kname in e['name']]
+    log('  trace gaps: %d launches, %d without a kernel event: %s; %s at %s; '
+        'kernel events from %.1f to %.1f us'
+        % (len(launches), len(lost), lost[:8], kname, mine,
+           min(e['ts'] for e in events if e.get('cat') == 'kernel') - t0,
+           max(e['ts'] for e in events if e.get('cat') == 'kernel') - t0))
+
+
+def check_telemetry_records(loop, path, n_batches, show):
+    """The JSONL log of one (p1) fit with telemetry on: the loop's leaf
+    spans, its counters and gauges, the goodput record's sum and the
+    timeline record's phases; with ``show`` its goodput, timeline and span
+    means are printed."""
+    recs = _jsonl(path)
+    spans = {r['name'] for r in recs if r['type'] == 'span'}
+    missing = [s_ for s_ in TELE_LEAVES[loop] if s_ not in spans]
+    check(not missing, 'the %s loop logged no %s' % (loop, missing))
+    summ = [r for r in recs if r['type'] == 'summary'][-1]
+    counters = summ['snapshot']['counters']
+    gauges = summ['snapshot']['gauges']
+    want = {'fit.steps': n_batches}
+    if loop == 'window':
+        want['fused_fit.windows'] = n_batches // 4
+    got = {k: counters.get(k) for k in want}
+    check(got == want, 'counters %s, not %s' % (got, want))
+    if loop == 'window':
+        check(gauges.get('fused_fit.steps_per_call') == 4,
+              'fused_fit.steps_per_call is %s'
+              % gauges.get('fused_fit.steps_per_call'))
+    check(gauges.get('speedometer.samples_per_sec', 0) > 0,
+          'the Speedometer set no gauge')
+    good = [r for r in recs if r['type'] == 'goodput'][-1]
+    b = good['buckets']
+    err = abs(sum(b.values()) - good['wall_s'])
+    check(err <= GOODPUT_SUM_S and b['step'] > 0,
+          'the goodput record does not sum to its wall (%.4f s off)' % err)
+    tl = [r for r in recs if r['type'] == 'timeline'][-1]
+    row = tl['per_host'][0]
+    ph = row['phases']
+    check(all(ph[p] is not None for p in ('draw', 'put', 'dispatch',
+                                          'fetch')),
+          'the timeline record lacks a phase')
+    n_spans = sum(h['count'] for h in summ['snapshot']['histograms'].values())
+    if not show:
+        return n_spans
+    log('  %s loop, goodput (s): %s of wall %.3f; buckets and overhead %.4f '
+        'from the wall (held to %g); goodput %.2f%%, top badput %s'
+        % (loop, ', '.join('%s %.3f' % kv for kv in b.items()),
+           good['wall_s'], err, GOODPUT_SUM_S, good['goodput_pct'],
+           good['badput_top']))
+    log('  %s loop, step timeline: %.3f ms a step: draw %s, put %s, '
+        'dispatch %s, fetch %s ms a step; compute %.3f, io %.3f, host-side '
+        '%.3f ms; largest phase %s'
+        % (loop, row['step_time_ms'], ph['draw'], ph['put'], ph['dispatch'],
+           ph['fetch'], row['compute_ms'], row['io_ms'], row['host_ms'],
+           tl.get('critical_phase')))
+    hists = summ['snapshot']['histograms']
+    log('  %s loop, span means (ms): %s'
+        % (loop, ', '.join('%s %.3f' % (n, hists[n]['mean'])
+                           for n in TELE_LEAVES[loop])))
+    return n_spans
+
+
+def span_cost_us(work, n=5000):
+    """The host us of one telemetry span (a timeline phase's, so that every
+    tap runs), with telemetry on (the JSONL sink, the timeline) and off."""
+    from mxnet_tpu_torch import telemetry
+    out = {}
+    for on in (False, True):
+        env = dict(MXTPU_TELEMETRY='1', MXTPU_TIMELINE='1',
+                   MXTPU_TELEMETRY_PATH=os.path.join(work, 'spans.jsonl')) \
+            if on else {}
+        with _flags_set(**env):
+            telemetry._reset_for_tests()
+            check(telemetry.enabled() == on, 'telemetry is not %s'
+                  % ('on' if on else 'off'))
+            t = time.perf_counter()
+            for _ in range(n):
+                with telemetry.span('fit.dispatch', 'fit'):
+                    pass
+            out[on] = (time.perf_counter() - t) * 1e6 / n
+            if on:
+                telemetry.shutdown()
+        telemetry._reset_for_tests()
+    return out
+
+
+def telemetry_fit(device, work, spec=RESNET, n_batches=TELE_FIT_BATCHES):
+    """Phase (p1): (l1)'s recipe with the port's telemetry on and off,
+    through the per-batch loop and the fused window. Returns {loop: {'on':
+    batch ms, 'off': batch ms}}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import profiler, telemetry
+    name, batch, image, classes = spec
+    ctx = mt.gpu(device.index or 0)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    X = rng.standard_normal((n_batches * batch, 3, image, image)).astype(
+        np.float32)
+    y = rng.randint(0, classes, n_batches * batch).astype(np.int32)
+    train = mt.io.NDArrayIter(X, y, batch_size=batch)
+    mod = mt.mod.Module(_zoo_symbol(name, classes, (batch, 3, image, image)))
+    mod.bind(train.provide_data, train.provide_label)
+    mt.random.seed(0)
+    mod.init_params(_xavier())
+    args, aux = mod.get_params()
+    masters0 = {n: a.handle.detach().clone() for n, a in args.items()}
+    aux0 = {n: a.handle.detach().clone() for n, a in aux.items()}
+    log('  Module(%s under SoftmaxOutput) on %s, %d batches of %d from seed '
+        '0; set up in %.1f s' % (name, mod._context, n_batches, batch,
+                                 time.perf_counter() - t0))
+
+    def one_fit(loop, tag, on, xprof=None):
+        """(final parameters and aux states, host ms a batch, JSONL path)"""
+        mod.set_params({n: mt.nd.from_torch(t.clone(), ctx)
+                        for n, t in masters0.items()},
+                       {n: mt.nd.from_torch(t.clone(), ctx)
+                        for n, t in aux0.items()})
+        mod.init_optimizer(kvstore='device', optimizer='sgd',
+                           optimizer_params=FIT_OPT, force_init=True)
+        train.reset()
+        env = {'MXTPU_FUSED_FIT': '1' if loop == 'window' else '0'}
+        path = None
+        if on:
+            path = os.path.join(work, 'p1-%s-%s.jsonl' % (loop, tag))
+            env.update(MXTPU_TELEMETRY='1', MXTPU_TELEMETRY_PATH=path,
+                       MXTPU_TIMELINE='1')
+        if xprof:
+            env.update(MXTPU_XPROF='4:8', MXTPU_XPROF_DIR=xprof)
+        with _flags_set(**env):
+            telemetry._reset_for_tests()
+            profiler._xprof_reset_for_tests()
+            check(telemetry.enabled() == on, 'telemetry is not %s'
+                  % ('on' if on else 'off'))
+            mt.random.seed(0)
+            _sync(device)
+            t = time.perf_counter()
+            mod.fit(train, num_epoch=1, optimizer='sgd',
+                    optimizer_params=FIT_OPT, eval_metric=['acc'],
+                    kvstore='device', batch_end_callback=mt.callback.Speedometer(
+                        batch, FIT_SPEEDOMETER))
+            _sync(device)
+            ms = (time.perf_counter() - t) * 1e3 / n_batches
+            if on:
+                telemetry.write_summary(log=False)
+                telemetry.shutdown()
+        telemetry._reset_for_tests()
+        profiler._xprof_reset_for_tests()
+        a, x = mod.get_params()
+        got = {n: v.handle.detach().clone()
+               for n, v in list(a.items()) + list(x.items())}
+        return got, ms, path
+
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    costs = {}
+    try:
+        for loop in ('per-batch', 'window'):
+            xprof = os.path.join(work, 'xprof') if loop == 'window' else None
+            one_fit(loop, 'warm-up', False)
+            runs = [one_fit(loop, 'off1', False),
+                    one_fit(loop, 'on1', True, xprof),
+                    one_fit(loop, 'on2', True),
+                    one_fit(loop, 'off2', False)]
+            first = runs[0][0]
+            same = [all(torch.equal(r[0][n], first[n]) for n in first)
+                    for r in runs[1:]]
+            log('  %s loop: final parameters and aux states against the '
+                'first run (telemetry off): telemetry on %s, on again %s, '
+                'off again %s (held bit for bit)'
+                % (loop, *('bit for bit' if s_ else 'NOT bit for bit'
+                           for s_ in same)))
+            check(all(same), 'the %s loop\'s parameters differ with '
+                  'telemetry on' % loop)
+            for run, what in ((runs[1], 'on'), (runs[2], 'on again')):
+                # the second run on (no XPROF capture, whose start, stop
+                # and export land in the first's wall) is the one printed
+                n_spans = check_telemetry_records(loop, run[2], n_batches,
+                                                  show=what == 'on again')
+            off = statistics.mean([runs[0][1], runs[3][1]])
+            on = statistics.mean([runs[1][1], runs[2][1]]) if not xprof \
+                else runs[2][1]
+            costs[loop] = {'off': off, 'on': on,
+                           'spans': n_spans / n_batches}
+            log('  %s loop, a batch\'s host ms over the fit (8 batches, '
+                'synchronised at the end; after a warm-up fit): telemetry '
+                'off %.3f and %.3f, on %.3f and %.3f%s (on %+.2f%% against '
+                'off)' % (loop, runs[0][1], runs[3][1], runs[1][1],
+                          runs[2][1], ' (the first with the XPROF capture)'
+                          if xprof else '', 100 * (on / off - 1)))
+            if xprof:
+                kern = trace_kernels(xprof)
+                n = sum(v[0] for v in kern.values())
+                busy = sum(v[1] for v in kern.values())
+                log('  MXTPU_XPROF=4:8 device trace (about one window): %d '
+                    'kernel events (%d a step of 4), %.3f ms busy a step; '
+                    'largest: %s' % (n, n // 4, busy / 4, ', '.join(
+                        '%s %.3f ms' % (k, v[1] / 4) for k, v in sorted(
+                            kern.items(), key=lambda kv: -kv[1][1])[:3])))
+                check(n > 0, 'the XPROF device trace holds no kernel')
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    del mod
+    us = span_cost_us(work)
+    log('  a telemetry span\'s host cost: %.2f us on (sink, histogram, '
+        'timeline tap), %.3f us off; %s'
+        % (us[True], us[False], '; '.join(
+            '%s loop %.2f spans a batch: %.4f ms a batch'
+            % (loop, c['spans'], c['spans'] * us[True] / 1e3)
+            for loop, c in costs.items())))
+    return costs
+
+
+def profiled_head(device, cfg, work):
+    """Phase (p2): (l2)'s head through the per-batch Module.fit and
+    Module.score inside mx.profiler.Profiler. Returns ({row wrapper:
+    launches}, {row kernel: device ms a launch from the trace})."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    os.makedirs(os.path.join(work, 'p2'), exist_ok=True)
+    path = os.path.join(work, 'p2', 'profile.json')
+    warp0 = ck.layernorm_fwd.launches_by_body['warp']
+    with _per_batch():
+        launches = module_kernels(device, cfg, profile=path)
+    grew = {'layernorm': ck.layernorm_fwd.launches_by_body['warp'] - warp0,
+            'softmax_xent': launches['softmax_xent_fwd']}
+    check(grew['layernorm'] == launches['layernorm_fwd'],
+          'LayerNorm ran off its warp body')
+    with open(path) as f:
+        names = {e['name'] for e in json.load(f)['traceEvents']}
+    missing = [s_ for s_ in PROFILE_SPANS if s_ not in names]
+    log('  profile.json: %d span names; %s'
+        % (len(names), 'every fit.*, eval.*, exec_group.* and executor.* '
+           'span asked for' if not missing else 'missing %s' % missing))
+    check(not missing, 'profile.json lacks %s' % missing)
+    kern = trace_kernels(path[:-len('.json')] + '_cuda')
+    # the launches the trace holds no kernel of: at most the capture's
+    # markers (profiler._start_capture)
+    trace_gaps(path[:-len('.json')] + '_cuda', 'layernorm_rows_kernel')
+    per_launch = {}
+    for kname, row in PROFILE_KERNELS.items():
+        n, ms = kern.get(kname, (0, 0.0))
+        log('  device trace: %s %d launches (its counter grew by %d), %.4f '
+            'ms a launch' % (kname, n, grew[row], ms / n if n else 0.0))
+        check(n == grew[row] and n > 0, '%s: %d in the trace, %d launched'
+              % (kname, n, grew[row]))
+        per_launch[row] = ms / n
+    return launches, per_launch
+
+
+def phase_p(device, cfg, work):
+    """Phase (p): (p1) the training loop's telemetry on (l1)'s recipe, (p2)
+    the profiler over (l2)'s head. Returns (p2)'s launches and its trace's
+    ms a launch of K3 and K4."""
+    t0 = time.perf_counter()
+    log('  (p1) train_imagenet\'s recipe with the telemetry on and off, '
+        'per batch and in the window')
+    telemetry_fit(device, work)
+    log('  (p2) mx.profiler over (l2)\'s head through Module.fit and score')
+    launches, per_launch = profiled_head(device, cfg, work)
+    log('  phase (p) took %.1f s' % (time.perf_counter() - t0))
+    return launches, per_launch
+
+
 def main():
     # phase (l1)'s checkpoint, phase (n)'s head and its telemetry logs
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as work:
@@ -4353,6 +4721,10 @@ def run(work):
     from mxnet_tpu_torch.transformer import TransformerConfig
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # CUPTI stays set up between this script's torch.profiler captures (as
+    # mx.profiler keeps it, profiler._start_capture): torn down and set up
+    # again lazily, a later capture lost kernel records from its start
+    os.environ.setdefault('TEARDOWN_CUPTI', '0')
     device = torch.device('cuda', 0)
     t_start = time.perf_counter()
 
@@ -4417,11 +4789,19 @@ def run(work):
     log('(o) the op library and the zoo families on the card')
     op_launches = phase_o(device, cfg)
 
+    log('(p) the training loop\'s telemetry and the profiler on the card')
+    prof_launches, trace_ms = phase_p(device, cfg, work)
+
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
     tt = train_times(device, cfg, *step_args)
     del step_args
     rt = row_times(device, cfg)
+    for kernel, ms in trace_ms.items():
+        log('  %s: %.4f ms a launch in (p2)\'s device trace at [8192, %d] '
+            'f32, %.4f ms by CUDA events above at its (e) shape'
+            % (kernel, ms, cfg.d_model if kernel == 'layernorm'
+               else cfg.vocab, rt[kernel]['ms']))
     rtc_t = rtc_times(device, cfg, rtcs)
     log('(f) where the time goes: torch.profiler over 3 forwards at batch %d'
         % MAX_BATCH)
@@ -4456,6 +4836,7 @@ def run(work):
             'window_launches': window_launches[row_fns(kernel)[0].__name__],
             'serving_launches': serve_rows[row_fns(kernel)[0].__name__],
             'op_library_launches': op_launches[row_fns(kernel)[0].__name__],
+            'profiler_launches': prof_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):
         record['kernels'].append({

@@ -37,7 +37,11 @@ Ported so far:
 - the serving plane (:mod:`.serving`: ``ServingEngine`` over a Module or
   a forward, ``from_checkpoint``, ``DynamicBatcher``, the HTTP front end,
   ``python -m mxnet_tpu_torch.serving.serve_model``) and the telemetry
-  core it reports to (:mod:`.telemetry`).
+  core it reports to (:mod:`.telemetry`);
+- the training loop's telemetry (the spans and counters of fit, score and
+  the windows, goodput, the step timeline) and :mod:`.profiler`
+  (``mx.profiler``: the host-span chrome trace with a ``torch.profiler``
+  device trace beside it).
 
 The kernels and their plain versions are in :mod:`.ops.cuda_kernels`.
 """
@@ -54,6 +58,7 @@ from . import rtc
 from . import lr_scheduler
 from . import optimizer
 from . import transformer
+from . import profiler
 from . import telemetry
 from . import serving
 from . import random
@@ -80,7 +85,8 @@ from .attribute import AttrScope
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context', 'base',
            'config', 'context', 'ops', 'fused_rmsnorm', 'ndarray', 'nd',
-           'rtc', 'lr_scheduler', 'optimizer', 'transformer', 'telemetry',
+           'rtc', 'lr_scheduler', 'optimizer', 'transformer', 'profiler',
+           'telemetry',
            'serving',
            'random', 'autograd', 'attribute', 'name', 'initializer', 'init',
            'symbol', 'sym', 'executor', 'io', 'metric', 'callback',

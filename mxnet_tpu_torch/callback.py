@@ -1,7 +1,9 @@
 """Training callbacks: the counterpart of ``mxnet_tpu/callback.py``
 (``module_checkpoint``, ``do_checkpoint``, ``log_train_metric``,
 ``Speedometer``, ``ProgressBar``, ``LogValidationMetricsCallback``), with
-the JAX package's log line formats and without its telemetry gauges.
+the JAX package's log line formats. ``Speedometer`` also sets the
+``speedometer.samples_per_sec`` telemetry gauge (a no-op with telemetry
+off).
 
 ``Speedometer`` times the host's wall clock between the batch-end calls
 that ``Module.fit`` makes after each batch's metric update; that update
@@ -13,6 +15,7 @@ import math
 import sys
 import time
 
+from . import telemetry
 
 __all__ = ['Speedometer', 'do_checkpoint', 'module_checkpoint',
            'log_train_metric', 'ProgressBar', 'LogValidationMetricsCallback']
@@ -79,6 +82,9 @@ class Speedometer:
         if param.nbatch % self.frequent:
             return
         speed = self.frequent * self.batch_size / (now - self._window_open)
+        # the measurement's telemetry mirror; the pinned `Speed:` line below
+        # is unchanged
+        telemetry.gauge('speedometer.samples_per_sec').set(round(speed, 2))
         metric = param.eval_metric
         if metric is None:
             logging.info('Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec',

@@ -33,14 +33,22 @@ the JAX package's, so one environment drives both packages:
   ``MXTPU_HOST_ID``, ``MXTPU_FLIGHT_RECORDER``, ``MXTPU_SLO_LATENCY_MS``,
   ``_ERROR_PCT``, ``_WINDOW``, ``MXTPU_WATCHDOG_SECS``, ``_ACTION``):
   the registry, the JSONL sink, the live endpoint, the flight recorder,
-  the SLO plane and the hang watchdog (:mod:`.telemetry`);
+  the SLO plane and the hang watchdog (:mod:`.telemetry`), which the
+  training and eval loops report to as the serving plane does;
+- ``MXTPU_GOODPUT`` and ``MXTPU_GOODPUT_LOST_S``, ``MXTPU_TIMELINE``: the
+  goodput and step-timeline planes (``telemetry/goodput.py``,
+  ``telemetry/timeline.py``);
+- ``MXTPU_XPROF``, ``MXTPU_XPROF_DIR`` and ``MXTPU_PROFILER_XLA_TRACE``:
+  the profiler's step-windowed device trace and whether the profiler
+  attaches one (:mod:`.profiler`; the last keeps the JAX package's name,
+  and ``auto`` attaches it);
 - ``MXTPU_SERVE_BIND`` and ``MXTPU_SERVE_MAX_WAIT_MS``: the serving HTTP
   front end's bind address and the batcher's coalescing deadline
   (:mod:`.serving`);
 - ``MXTPU_CKPT_DIR``, ``MXTPU_FAULT_INJECT``, ``MXTPU_HEALTH``,
-  ``MXTPU_DYNAMICS``, ``MXTPU_SHARDED_UPDATE`` and ``MXTPU_GRAD_COMPRESS``,
-  and ``MXTPU_TELEMETRY`` for the training and eval loops: paths of the
-  JAX package's ``Module.fit`` and eval that the port does not have yet;
+  ``MXTPU_DYNAMICS``, ``MXTPU_SHARDED_UPDATE`` and ``MXTPU_GRAD_COMPRESS``:
+  paths of the JAX package's ``Module.fit`` and eval that the port does
+  not have yet;
   set, each makes them raise NotImplementedError
   (``module/base_module.py``).
 
@@ -221,9 +229,9 @@ flags.declare('MXTPU_TELEMETRY', bool, False,
               'Runtime telemetry (mxnet_tpu_torch/telemetry): the counter, '
               'gauge and histogram registry, spans, the JSONL log and the '
               'end-of-run summary table, the live endpoint, the flight '
-              'recorder, the SLO plane. Off = every entry point is a shared '
-              'no-op. Module.fit, score and predict raise under it: their '
-              'step records and spans are not ported yet')
+              'recorder, the SLO plane, the spans and counters of '
+              'Module.fit, score and predict and their windows. Off = every '
+              'entry point is a shared no-op')
 flags.declare('MXTPU_TELEMETRY_PATH', str, 'telemetry.jsonl',
               'Append-only JSONL metrics log written while MXTPU_TELEMETRY=1 '
               '(one JSON record per line: spans, traces, events, the '
@@ -272,6 +280,43 @@ flags.declare('MXTPU_WATCHDOG_ACTION', str, 'warn',
               "What the watchdog does on a stall: 'warn' records it and keeps "
               "waiting, 'abort' also exits the process with code 85",
               choices={'warn', 'abort'})
+flags.declare('MXTPU_GOODPUT', bool, True,
+              'Goodput accounting (telemetry/goodput.py, requires '
+              'MXTPU_TELEMETRY=1): every second of the run\'s wall clock in '
+              'a named bucket (step, compile, input_wait, checkpoint, eval, '
+              'comm, rework) from the loops\' leaf spans, and the remainder '
+              'as overhead, so that the buckets sum to the wall clock; the '
+              'goodput.* gauges, a goodput JSONL record and the "where the '
+              'time went" summary block. 0 = off')
+flags.declare('MXTPU_GOODPUT_LOST_S', float, 0.0,
+              'Lost-work seconds of earlier supervised attempts, which a '
+              'supervisor stamps into a relaunched child\'s environment; the '
+              'goodput record reports them as prior_lost_s with job_wall_s '
+              'and job_goodput_pct beside the process\'s own buckets',
+              min_value=0.0)
+flags.declare('MXTPU_TIMELINE', bool, False,
+              'Step timeline (telemetry/timeline.py, requires '
+              'MXTPU_TELEMETRY=1): the fit loops\' phase spans (draw, put, '
+              'dispatch, fetch, checkpoint, kvstore) summed per phase and '
+              'divided by the steps, the step decomposed into compute, io '
+              'and host-side time with the largest phase named; the '
+              'timeline.* gauges, a timeline JSONL record and the "step '
+              'timeline" summary block. 0 = off')
+flags.declare('MXTPU_XPROF', str, '',
+              "One-shot step-windowed device trace: 'start:stop' (training "
+              "step counts) starts a torch.profiler capture (CPU and CUDA "
+              "activity) once `start` steps have completed and stops it at "
+              "`stop`, writing its chrome trace into MXTPU_XPROF_DIR. The "
+              "fused fit advances a whole window of steps a call, so the "
+              "boundaries fall on window multiples there. Empty = off")
+flags.declare('MXTPU_XPROF_DIR', str, 'xprof_trace',
+              'Output directory of the MXTPU_XPROF device trace')
+flags.declare('MXTPU_PROFILER_XLA_TRACE', str, 'auto',
+              "Attach the device trace (torch.profiler, into "
+              "<profile stem>_cuda/) to the profiler's host-span trace while "
+              "it runs: '1' or 'auto' attach it, '0' never. The JAX "
+              "package's name, kept so that one environment drives both",
+              choices={'0', '1', 'auto'})
 flags.declare('MXTPU_SERVE_BIND', str, '127.0.0.1',
               'Bind address of the serving HTTP front end '
               '(mxnet_tpu_torch/serving/http.py, serving.serve_model); '

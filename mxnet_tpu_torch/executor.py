@@ -21,7 +21,10 @@ matmul results with ``dots``. The gradients are the same either way.
 ``grad_req`` write/add/null, the outputs and the arg/grad/aux/output
 dicts, ``copy_params_from`` and ``reshape``. A training forward keeps its
 graph for the backward that follows it; a backward without one runs the
-forward first. Not ported yet: the staged per-op path (``group2ctx``,
+forward first. Forward and backward are the ``executor.forward`` and
+``executor.backward`` telemetry spans (host time: the kernels they launch
+run on after they return), which the profiler's trace also takes. Not
+ported yet: the staged per-op path (``group2ctx``,
 host ops), ``partial_forward``, ``first_nonfinite_node`` and monitor
 callbacks, which raise NotImplementedError.
 """
@@ -30,6 +33,7 @@ import functools
 import torch
 
 from . import random as _random
+from . import telemetry as _tele
 from .base import MXNetError, np_dtype
 from .context import Context
 from .ndarray.ndarray import NDArray, zeros as nd_zeros
@@ -245,6 +249,10 @@ class Executor:
         """Run the graph; ``kwargs`` write argument values first. A training
         forward of an executor with gradients keeps its graph for the
         backward."""
+        with _tele.span('executor.forward', 'executor'):
+            return self._forward_impl(is_train, **kwargs)
+
+    def _forward_impl(self, is_train, **kwargs):
         for k, v in kwargs.items():
             if k in self.arg_dict:
                 if isinstance(v, NDArray):
@@ -271,6 +279,10 @@ class Executor:
     def backward(self, out_grads=None, is_train=True):
         """Gradients of the outputs (by ``out_grads``, ones by default) into
         the gradient arrays, by each argument's ``grad_req``."""
+        with _tele.span('executor.backward', 'executor'):
+            self._backward_impl(out_grads, is_train)
+
+    def _backward_impl(self, out_grads, is_train):
         if not self._grad_names:
             return
         if self._pending is None:

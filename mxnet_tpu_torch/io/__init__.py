@@ -8,14 +8,20 @@ group copies each batch into the arrays bound on the card. A seeded
 shuffle draws from the host stream (:func:`..random.host_rng`), so
 ``random.seed(s)`` gives the same order in both packages.
 
+With telemetry on, each batch an iterator yields counts in the
+``io.batches`` counter, and the time ``PrefetchingIter`` waits for its
+producer threads in the ``io.prefetch_wait`` histogram (ms).
+
 Not ported yet: the record, image, MNIST, CSV and LibSVM iterators.
 """
 from collections import namedtuple
 import threading
+import time
 
 import numpy as np
 
 from .. import random as _random
+from .. import telemetry as _tele
 from ..context import cpu
 from ..ndarray import NDArray, array
 
@@ -87,6 +93,7 @@ class DataIter:
 
     def next(self):
         if self.iter_next():
+            _tele.counter('io.batches').inc()
             return DataBatch(data=self.getdata(), label=self.getlabel(),
                              pad=self.getpad(), index=self.getindex())
         raise StopIteration
@@ -198,6 +205,7 @@ class NDArrayIter(DataIter):
 
     def next(self):
         if self.iter_next():
+            _tele.counter('io.batches').inc()
             return DataBatch(data=self.getdata(), label=self.getlabel(),
                              pad=self.getpad(), index=None,
                              provide_data=self.provide_data,
@@ -342,8 +350,17 @@ class PrefetchingIter(DataIter):
             e.set()
 
     def iter_next(self):
-        for e in self.data_ready:
-            e.wait()
+        if _tele.enabled():
+            # how long the consumer waits for the producer threads: is the
+            # input pipeline the bottleneck?
+            t0 = time.time()
+            for e in self.data_ready:
+                e.wait()
+            _tele.histogram('io.prefetch_wait').observe(
+                (time.time() - t0) * 1e3)
+        else:
+            for e in self.data_ready:
+                e.wait()
         if self.next_batch[0] is None:
             for i in self.next_batch:
                 assert i is None, 'Number of entry mismatches between iterators'

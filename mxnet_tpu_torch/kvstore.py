@@ -7,7 +7,10 @@ runs the updater on the stored value or stores the sum; ``pull`` copies
 the stored value into every target, cast to the target's dtype (a
 multi-precision updater keeps f32 masters under bf16 weights) and on the
 target's device. ``set_optimizer`` installs the optimizer's updater, and
-the optimizer states save and load through it.
+the optimizer states save and load through it. With telemetry on, push
+and pull are the ``kvstore.push`` and ``kvstore.pull`` spans, and the
+bytes of their values count in ``kvstore.push_bytes`` and
+``kvstore.pull_bytes``.
 
 ``create('local' | 'device' | 'local_allreduce_cpu' |
 'local_allreduce_device')`` makes one. The dist types (a parameter server
@@ -15,10 +18,21 @@ across processes, NCCL across cards) are not ported: they raise
 NotImplementedError (ROADMAP.md §1 item 11).
 """
 from . import optimizer as opt
+from . import telemetry as _tele
 from .base import MXNetError
 from .ndarray import NDArray
 
 __all__ = ['KVStore', 'create']
+
+
+def _tele_bytes(counter_name, values):
+    """Count the bytes of a push's or pull's values (a flat list or a list
+    of lists of NDArrays) into a telemetry counter."""
+    total = 0
+    for v in values:
+        for a in (v if isinstance(v, (list, tuple)) else [v]):
+            total += a.size * a.handle.element_size()
+    _tele.counter(counter_name).inc(total)
 
 
 class KVStore:
@@ -42,26 +56,33 @@ class KVStore:
     def push(self, key, value, priority=0):
         """Sum each key's values; run the updater on the stored value with
         the sum, or store the sum."""
-        keys, values = _key_value(key, value)
-        for k, vlist in zip(keys, values):
-            if not isinstance(vlist, (list, tuple)):
-                vlist = [vlist]
-            merged = self._reduce(vlist)
-            if self._updater is not None:
-                self._updater(_updater_key(k), merged, self._store[k])
-            else:
-                self._store[k] = merged
+        with _tele.span('kvstore.push', 'kvstore'):
+            keys, values = _key_value(key, value)
+            if _tele.enabled():
+                _tele_bytes('kvstore.push_bytes', values)
+            for k, vlist in zip(keys, values):
+                if not isinstance(vlist, (list, tuple)):
+                    vlist = [vlist]
+                merged = self._reduce(vlist)
+                if self._updater is not None:
+                    self._updater(_updater_key(k), merged, self._store[k])
+                else:
+                    self._store[k] = merged
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Copy each key's stored value into its target(s)."""
         assert out is not None
-        keys, outs = _key_value(key, out)
-        for k, olist in zip(keys, outs):
-            if not isinstance(olist, (list, tuple)):
-                olist = [olist]
-            src = self._store[k]._data
-            for o in olist:
-                o._data = src.to(o._data.device, o._data.dtype, copy=True)
+        with _tele.span('kvstore.pull', 'kvstore'):
+            keys, outs = _key_value(key, out)
+            if _tele.enabled():
+                _tele_bytes('kvstore.pull_bytes', outs)
+            for k, olist in zip(keys, outs):
+                if not isinstance(olist, (list, tuple)):
+                    olist = [olist]
+                src = self._store[k]._data
+                for o in olist:
+                    o._data = src.to(o._data.device, o._data.dtype,
+                                     copy=True)
 
     def _reduce(self, vlist):
         """The sum of ``vlist`` on the first value's device."""

@@ -13,12 +13,21 @@ fused eval window (:class:`.fused_eval.FusedEvalLoop`) where they can, else
 the per-batch forward loops. ``MXTPU_FUSED_FIT=0`` and
 ``MXTPU_FUSED_EVAL=0`` force the per-batch loops.
 
+The loops report to the telemetry (``MXTPU_TELEMETRY=1``; each site a
+no-op while it is off) with the JAX package's names: the per-batch fit's
+``fit.batch`` span around its leaves ``fit.dispatch``, ``fit.draw``,
+``fit.metric`` and ``fit.callback``, the ``fit.steps`` and ``fit.epochs``
+counters, the watchdog's ``fit.step`` and ``fit.epoch_end`` marks, the
+profiler's step count (``MXTPU_XPROF``) and the step timeline's; the
+per-batch eval's ``eval.dispatch``, ``eval.metric`` and ``eval.fetch``
+spans, the ``eval.batches`` counter and the ``eval_samples_per_sec``
+gauge. The watchdog is suspended as fit and each eval pass end.
+
 The JAX package's fit also carries seams for checkpoints, fault injection,
-the loops' telemetry (step records and spans), training health and the
+training health and dynamics, the run ledger, cluster aggregation and the
 sharded or compressed update. None of these is ported, and a flag that
-would turn one of them on raises
-NotImplementedError naming its ROADMAP.md item
-(:func:`_check_unported_flags`).
+would turn one of them on raises NotImplementedError naming its ROADMAP.md
+item (:func:`_check_unported_flags`).
 """
 import logging
 import os
@@ -27,6 +36,8 @@ import warnings
 
 from .. import metric as metric_mod
 from .. import ndarray as nd
+from .. import profiler as _profiler
+from .. import telemetry as _tele
 from ..config import flags
 from ..initializer import Uniform
 from ..io import DataDesc
@@ -41,9 +52,6 @@ _UNPORTED_FLAGS = (
      '(module/checkpointing.py)', 'ROADMAP.md §1 item 12'),
     ('MXTPU_FAULT_INJECT', 'fault injection (faults.py)',
      'ROADMAP.md §1 item 12'),
-    ('MXTPU_TELEMETRY', 'the telemetry of the training and eval loops '
-     '(their step records and spans; the core the serving plane reports to '
-     'is ported)', 'ROADMAP.md §1 item 13'),
     ('MXTPU_HEALTH', 'the training-health sentinels (telemetry/health.py)',
      'ROADMAP.md §1 item 13'),
     ('MXTPU_DYNAMICS', 'the per-layer training dynamics '
@@ -141,6 +149,7 @@ class BaseModule:
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
         eval_metric.reset()
+        tic = time.time()
         # the fused window: W forwards a host call and one fetch a window,
         # where the module and metric allow it (module/fused_eval.py)
         from .fused_eval import FusedEvalLoop
@@ -155,8 +164,12 @@ class BaseModule:
             for nbatch, eval_batch in enumerate(eval_data):
                 if num_batch is not None and nbatch == num_batch:
                     break
-                self.forward(eval_batch, is_train=False)
-                self.update_metric(eval_metric, eval_batch.label)
+                with _tele.span('eval.dispatch', 'eval'):
+                    self.forward(eval_batch, is_train=False)
+                with _tele.span('eval.metric', 'eval'):
+                    self.update_metric(eval_metric, eval_batch.label)
+                _tele.counter('eval.batches').inc()
+                _tele.watchdog.note_progress('eval.step')
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
@@ -164,11 +177,17 @@ class BaseModule:
                     for callback in _as_list(batch_end_callback):
                         callback(params)
                 actual_num_batch += 1
+        _set_eval_rate(actual_num_batch, getattr(eval_data, 'batch_size', 0),
+                       tic)
         if score_end_callback:
             params = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
                                    eval_metric=eval_metric, locals=locals())
             for callback in _as_list(score_end_callback):
                 callback(params)
+        # the eval pass's marks armed the watchdog: disarm it, so that host
+        # work after a standalone score cannot trip it (inside fit the next
+        # epoch's first mark re-arms it)
+        _tele.watchdog.suspend()
         return eval_metric.get_name_value()
 
     def iter_predict(self, eval_data, num_batch=None, reset=True):
@@ -178,19 +197,28 @@ class BaseModule:
         _check_unported_flags()
         if reset:
             eval_data.reset()
-        from .fused_eval import FusedEvalLoop
-        fused = FusedEvalLoop.build_cached(self, None, logger=self.logger)
-        if fused is not None:
-            yield from fused.iter_windows(eval_data, num_batch)
-            return
-        for nbatch, eval_batch in enumerate(eval_data):
-            if num_batch is not None and nbatch == num_batch:
-                break
-            self.forward(eval_batch, is_train=False)
-            pad = eval_batch.pad
-            outputs = [out[0:out.shape[0] - pad]
-                       for out in self.get_outputs()]
-            yield (outputs, nbatch, eval_batch)
+        try:
+            from .fused_eval import FusedEvalLoop
+            fused = FusedEvalLoop.build_cached(self, None,
+                                               logger=self.logger)
+            if fused is not None:
+                yield from fused.iter_windows(eval_data, num_batch)
+                return
+            for nbatch, eval_batch in enumerate(eval_data):
+                if num_batch is not None and nbatch == num_batch:
+                    break
+                with _tele.span('eval.dispatch', 'eval'):
+                    self.forward(eval_batch, is_train=False)
+                pad = eval_batch.pad
+                with _tele.span('eval.fetch', 'eval'):
+                    outputs = [out[0:out.shape[0] - pad]
+                               for out in self.get_outputs()]
+                _tele.counter('eval.batches').inc()
+                yield (outputs, nbatch, eval_batch)
+        finally:
+            # the windows marked the watchdog: disarm it when the consumer
+            # stops (exhaustion or an early close of the generator)
+            _tele.watchdog.suspend()
 
     def predict(self, eval_data, num_batch=None, merge_batches=True,
                 reset=True, always_output_list=False):
@@ -200,6 +228,7 @@ class BaseModule:
         _check_unported_flags()
         if reset:
             eval_data.reset()
+        tic = time.time()
         from .fused_eval import FusedEvalLoop
         fused = FusedEvalLoop.build_cached(self, None, logger=self.logger)
         if fused is not None:
@@ -212,11 +241,18 @@ class BaseModule:
             for nbatch, eval_batch in enumerate(eval_data):
                 if num_batch is not None and nbatch == num_batch:
                     break
-                self.forward(eval_batch, is_train=False)
+                with _tele.span('eval.dispatch', 'eval'):
+                    self.forward(eval_batch, is_train=False)
                 pad = eval_batch.pad
-                outputs = [out[0:out.shape[0] - pad].copy()
-                           for out in self.get_outputs()]
+                with _tele.span('eval.fetch', 'eval'):
+                    outputs = [out[0:out.shape[0] - pad].copy()
+                               for out in self.get_outputs()]
+                _tele.counter('eval.batches').inc()
                 output_list.append(outputs)
+        _set_eval_rate(len(output_list), getattr(eval_data, 'batch_size', 0),
+                       tic)
+        # as score(): predict's windows marked the watchdog
+        _tele.watchdog.suspend()
         if len(output_list) == 0:
             return output_list
         if merge_batches:
@@ -244,6 +280,7 @@ class BaseModule:
         a time."""
         assert num_epoch is not None, 'please specify number of epochs'
         _check_unported_flags()
+        _tele.enabled()     # decided before the first build is counted
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -269,54 +306,80 @@ class BaseModule:
             fused = FusedFitLoop.build_cached(self, eval_metric,
                                               logger=self.logger)
 
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            if fused is not None:
-                fused.run_epoch(train_data, eval_metric, epoch,
-                                batch_end_callback)
+        # one cached bool each: the watchdog's progress marks and the step
+        # timeline's step count (its phases ride the spans below)
+        wd_on = _tele.watchdog.enabled()
+        tl_on = _tele.timeline.enabled()
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                tic = time.time()
+                eval_metric.reset()
+                if fused is not None:
+                    fused.run_epoch(train_data, eval_metric, epoch,
+                                    batch_end_callback)
+                    self._fit_epoch_end(epoch, eval_metric, tic,
+                                        epoch_end_callback, eval_data,
+                                        validation_metric, eval_end_callback,
+                                        eval_batch_end_callback)
+                    train_data.reset()
+                    continue
+                nbatch = 0
+                data_iter = iter(train_data)
+                end_of_batch = False
+                next_data_batch = next(data_iter)
+                while not end_of_batch:
+                    data_batch = next_data_batch
+                    if monitor is not None:
+                        monitor.tic()
+                    # the batch's host time by part (each a no-op unless
+                    # telemetry is on or the profiler runs)
+                    with _tele.span('fit.batch', 'fit'):
+                        with _tele.span('fit.dispatch', 'fit'):
+                            self.forward_backward(data_batch)
+                            self.update()
+                        _tele.counter('fit.steps').inc()
+                        if wd_on:
+                            _tele.watchdog.note_progress('fit.step')
+                        # the MXTPU_XPROF step window
+                        _profiler.note_step()
+                        try:
+                            with _tele.span('fit.draw', 'fit'):
+                                next_data_batch = next(data_iter)
+                            self.prepare(next_data_batch)
+                        except StopIteration:
+                            end_of_batch = True
+                        with _tele.span('fit.metric', 'fit'):
+                            self.update_metric(eval_metric, data_batch.label)
+                        if monitor is not None:
+                            monitor.toc_print()
+                        if batch_end_callback is not None:
+                            batch_end_params = BatchEndParam(
+                                epoch=epoch, nbatch=nbatch,
+                                eval_metric=eval_metric, locals=locals())
+                            with _tele.span('fit.callback', 'fit'):
+                                for callback in _as_list(batch_end_callback):
+                                    callback(batch_end_params)
+                    if tl_on:
+                        _tele.timeline.note_step(1)
+                    nbatch += 1
+
                 self._fit_epoch_end(epoch, eval_metric, tic,
                                     epoch_end_callback, eval_data,
                                     validation_metric, eval_end_callback,
                                     eval_batch_end_callback)
                 train_data.reset()
-                continue
-            nbatch = 0
-            data_iter = iter(train_data)
-            end_of_batch = False
-            next_data_batch = next(data_iter)
-            while not end_of_batch:
-                data_batch = next_data_batch
-                if monitor is not None:
-                    monitor.tic()
-                self.forward_backward(data_batch)
-                self.update()
-                try:
-                    next_data_batch = next(data_iter)
-                    self.prepare(next_data_batch)
-                except StopIteration:
-                    end_of_batch = True
-                self.update_metric(eval_metric, data_batch.label)
-                if monitor is not None:
-                    monitor.toc_print()
-                if batch_end_callback is not None:
-                    batch_end_params = BatchEndParam(
-                        epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
-                        locals=locals())
-                    for callback in _as_list(batch_end_callback):
-                        callback(batch_end_params)
-                nbatch += 1
-
-            self._fit_epoch_end(epoch, eval_metric, tic, epoch_end_callback,
-                                eval_data, validation_metric,
-                                eval_end_callback, eval_batch_end_callback)
-            train_data.reset()
+        finally:
+            # fit is over, however it ended: stop expecting marks, so that
+            # host work after training cannot trip the watchdog
+            if wd_on:
+                _tele.watchdog.suspend()
 
     def _fit_epoch_end(self, epoch, eval_metric, tic, epoch_end_callback,
                        eval_data, validation_metric, eval_end_callback,
                        eval_batch_end_callback):
         """The metric's log line, the parameters synced from the devices,
         the epoch-end callbacks and the validation score."""
+        _tele.counter('fit.epochs').inc()
         name_vals = eval_metric.get_name_value()
         for name, val in name_vals:
             self.logger.info('Epoch[%d] Train-%s=%f', epoch, name, val)
@@ -337,6 +400,9 @@ class BaseModule:
             for name, val in res:
                 self.logger.info('Epoch[%d] Validation-%s=%f',
                                  epoch, name, val)
+        # score() suspends the watchdog as it ends; within fit the next
+        # epoch is coming, so re-arm it here
+        _tele.watchdog.note_progress('fit.epoch_end')
 
     # -- parameter contract (implemented by subclasses) --------------------
     @property
@@ -439,6 +505,16 @@ class BaseModule:
                        optimizer_params=(('learning_rate', 0.01),),
                        force_init=False):
         raise NotImplementedError()
+
+
+def _set_eval_rate(nbatches, batch_size, tic):
+    """The eval loops' ``eval_samples_per_sec`` gauge, the eval twin of the
+    Speedometer's (a no-op while telemetry is off)."""
+    if nbatches and batch_size:
+        dt = time.time() - tic
+        if dt > 0:
+            _tele.gauge('eval_samples_per_sec').set(
+                round(nbatches * batch_size / dt, 2))
 
 
 def _as_list(obj):

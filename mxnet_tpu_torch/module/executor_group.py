@@ -20,6 +20,7 @@ import logging
 import numpy as np
 
 from .. import ndarray as nd
+from .. import telemetry as _tele
 from ..io import DataDesc
 
 __all__ = ['DataParallelExecutorGroup']
@@ -241,14 +242,16 @@ class DataParallelExecutorGroup:
                 dst[name]._data = block[0]._data.to(dst[name]._data.device)
 
     def forward(self, data_batch, is_train=None):
-        _load_general(data_batch.data, self.data_arrays, self.data_layouts)
-        if is_train is None:
-            is_train = self.for_training
-        if self.label_arrays is not None and data_batch.label:
-            _load_general(data_batch.label, self.label_arrays,
-                          self.label_layouts)
-        for e in self.execs:
-            e.forward(is_train=is_train)
+        with _tele.span('exec_group.forward', 'executor'):
+            _load_general(data_batch.data, self.data_arrays,
+                          self.data_layouts)
+            if is_train is None:
+                is_train = self.for_training
+            if self.label_arrays is not None and data_batch.label:
+                _load_general(data_batch.label, self.label_arrays,
+                              self.label_layouts)
+            for e in self.execs:
+                e.forward(is_train=is_train)
 
     def get_output_shapes(self):
         outputs = self.execs[0].outputs
@@ -278,6 +281,10 @@ class DataParallelExecutorGroup:
 
     def backward(self, out_grads=None):
         assert self.for_training, 're-bind with for_training=True to run backward'
+        with _tele.span('exec_group.backward', 'executor'):
+            self._backward_impl(out_grads)
+
+    def _backward_impl(self, out_grads):
         for i, exec_ in enumerate(self.execs):
             out_grads_slice = None
             if out_grads is not None:

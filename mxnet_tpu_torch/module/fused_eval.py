@@ -30,9 +30,16 @@ Eligibility (``build`` returns None and the per-batch loop runs): a plain
 Module, one executor, shapes it can infer; stacked-output mode also needs
 W stacked f32 outputs under 256 MB. MXTPU_FUSED_EVAL=0 turns the window
 off; MXTPU_EVAL_STEPS_PER_CALL sets W (4 by default);
-MXTPU_FUSED_EVAL_PREFETCH=0 uploads each window in turn. The health
-sentinels and telemetry of the JAX module are not ported (ROADMAP.md §1
-item 13).
+MXTPU_FUSED_EVAL_PREFETCH=0 uploads each window in turn.
+
+Telemetry (``MXTPU_TELEMETRY=1``), with the JAX package's names: the
+window's ``fused_eval.build``, ``fused_eval.draw``, ``fused_eval.put``,
+``fused_eval.dispatch`` and ``fused_eval.fetch`` spans, the
+``fused_eval.windows`` and ``eval.batches`` counters, the
+``fused_eval.steps_per_call`` gauge and the watchdog's
+``fused_eval.window`` mark; the tail batches take the per-batch loop's
+``eval.*`` spans. The JAX module's health sentinels are not ported
+(ROADMAP.md §1 item 13).
 """
 import logging
 
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import random as _random
+from .. import telemetry as _tele
 from ..config import flags
 from ..ndarray.ndarray import NDArray
 from . import window_pipeline as _wp
@@ -74,7 +82,8 @@ class FusedEvalLoop:
         self._arg_names = list(e._prog.arg_names)
         self._aux_names = list(e._prog.aux_names)
         self._pipe = WindowPipeline(window,
-                                    device_fn=lambda: e._ctx.torch_device())
+                                    device_fn=lambda: e._ctx.torch_device(),
+                                    span_prefix='fused_eval')
         self.windows = 0
         self.fetches = 0
 
@@ -173,7 +182,8 @@ class FusedEvalLoop:
         key = (has_labels, shapes_key)
         entry = self._programs.get(key)
         if entry is None:
-            entry = self._build_program(has_labels)
+            with _tele.span('fused_eval.build', 'fused_eval'):
+                entry = self._build_program(has_labels)
             self._programs[key] = entry
         return entry
 
@@ -268,9 +278,17 @@ class FusedEvalLoop:
                 window_fn, fixed_names = self._program(snaps)
                 fixed, aux = self._snapshot(fixed_names)
                 seeds = [_random.next_seed() for _ in range(self.window)]
-                data_stack, label_stack = fut()
-                pieces = window_fn(fixed, aux, data_stack, label_stack, seeds)
+                with _tele.span('fused_eval.put', 'fused_eval'):
+                    data_stack, label_stack = fut()
+                with _tele.span('fused_eval.dispatch', 'fused_eval'):
+                    pieces = window_fn(fixed, aux, data_stack, label_stack,
+                                       seeds)
                 self.windows += 1
+                _tele.counter('fused_eval.windows').inc()
+                _tele.counter('eval.batches').inc(self.window)
+                # eval windows mark the watchdog too, or a long score
+                # between epochs would trip it
+                _tele.watchdog.note_progress('fused_eval.window')
                 win_snaps = snaps
                 snaps, drawn = collect()
                 fut = pipe.start_put(snaps, drawn, pool) \
@@ -293,11 +311,12 @@ class FusedEvalLoop:
     def _fetch(self, pieces):
         """One copy of a window's results to the host: the statistics'
         (W, 2 * metrics) array, or each output's stack."""
-        if self.stat_fns is not None:
-            self.fetches += 1
-            return pieces.cpu().numpy()
-        self.fetches += len(pieces)
-        return [o.cpu() for o in pieces]
+        with _tele.span('fused_eval.fetch', 'fused_eval'):
+            if self.stat_fns is not None:
+                self.fetches += 1
+                return pieces.cpu().numpy()
+            self.fetches += len(pieces)
+            return [o.cpu() for o in pieces]
 
     # -- score -------------------------------------------------------------
     def run_score(self, eval_data, eval_metric, num_batch,
@@ -308,6 +327,7 @@ class FusedEvalLoop:
         from .base_module import _as_list
 
         m = self.module
+        _tele.gauge('fused_eval.steps_per_call').set(self.window)
         nbatch = 0
 
         def fire_callback(nbatch):
@@ -319,8 +339,11 @@ class FusedEvalLoop:
 
         for kind, a, b in self._drive(eval_data, num_batch):
             if kind == 'tail':
-                m.forward(a, is_train=False)
-                m.update_metric(eval_metric, a.label)
+                with _tele.span('eval.dispatch', 'eval'):
+                    m.forward(a, is_train=False)
+                with _tele.span('eval.metric', 'eval'):
+                    m.update_metric(eval_metric, a.label)
+                _tele.counter('eval.batches').inc()
                 fire_callback(nbatch)
                 nbatch += 1
                 continue
@@ -344,15 +367,20 @@ class FusedEvalLoop:
         window at a time. The outputs are NDArrays on the host, trimmed of
         the pad rows where the per-batch loop trims them (axis 0)."""
         m = self.module
+        _tele.gauge('fused_eval.steps_per_call').set(self.window)
         nbatch = 0
         for kind, a, b in self._drive(eval_data, num_batch):
             if kind == 'tail':
-                m.forward(a, is_train=False)
+                with _tele.span('eval.dispatch', 'eval'):
+                    m.forward(a, is_train=False)
                 pad = a.pad or 0
-                # on the host like the windowed outputs, so that predict's
-                # merge never joins across devices
-                outputs = [host_wrap(out._data[0:out.shape[0] - pad].cpu())
-                           for out in m.get_outputs()]
+                with _tele.span('eval.fetch', 'eval'):
+                    # on the host like the windowed outputs, so that
+                    # predict's merge never joins across devices
+                    outputs = [host_wrap(
+                        out._data[0:out.shape[0] - pad].cpu())
+                        for out in m.get_outputs()]
+                _tele.counter('eval.batches').inc()
                 yield outputs, nbatch, a
                 nbatch += 1
                 continue

@@ -42,11 +42,24 @@ kvstore or a 'local' or 'device' one; host-metric mode also needs W
 stacked f32 outputs under 256 MB. Once a window is built, an error inside
 it raises: nothing reruns its batches one at a time.
 
-Not ported: the sharded (ZeRO) update and the compressed gradients
-(ROADMAP.md §1 item 11), faults and the checkpointer hook (item 12), the
-health and dynamics sentinels and the telemetry (item 13), and the record
-iterators' deferred device augmentation (item 10). Without a mesh the JAX
-loop's ``_prepare_tail`` has nothing to do, and it is left out.
+Telemetry (``MXTPU_TELEMETRY=1``), with the JAX package's names: the
+window's ``fused_fit.build``, ``fused_fit.draw``, ``fused_fit.put``,
+``fused_fit.dispatch`` and ``fused_fit.fetch`` spans, the ``fit.steps`` (W
+a window) and ``fused_fit.windows`` counters, the
+``fused_fit.steps_per_call`` gauge, the ``fused_fit.overlap_ms`` histogram
+(the upload's time hidden under host work), the watchdog's
+``fused_fit.window`` mark and the profiler's and step timeline's step
+counts (W a window); the tail batches take the per-batch loop's marks.
+The spans time the host: ``fused_fit.dispatch`` is the window's launches,
+and the device's time lands in the next ``fused_fit.fetch`` that waits
+for it.
+
+Not ported: the sharded (ZeRO) update and the compressed gradients with
+their ``update.*`` and ``comm.*`` gauges (ROADMAP.md §1 item 11), faults
+and the checkpointer hook (item 12), the health and dynamics sentinels and
+the run ledger (item 13), and the record iterators' deferred device
+augmentation (item 10). Without a mesh the JAX loop's ``_prepare_tail``
+has nothing to do, and it is left out.
 
 Flags: MXTPU_FUSED_FIT=0 turns the window off; MXTPU_FIT_STEPS_PER_CALL
 sets W (4 by default); MXTPU_FUSED_FIT_PREFETCH=0 uploads each window in
@@ -61,7 +74,9 @@ import torch
 
 from .. import metric as metric_mod
 from .. import optimizer as opt_mod
+from .. import profiler as _profiler
 from .. import random as _random
+from .. import telemetry as _tele
 from ..config import flags
 from ..executor import mirror_wrap
 from ..kvstore import _updater_key
@@ -283,7 +298,8 @@ class FusedFitLoop:
         self._plan = oplan  # the instance build() checked eligibility on
         self._accum = (module._grad_req == 'add')
         self._pipe = WindowPipeline(window,
-                                    device_fn=lambda: e._ctx.torch_device())
+                                    device_fn=lambda: e._ctx.torch_device(),
+                                    span_prefix='fused_fit')
         self._upd_keys = updater_keys(module, self._grad_names)
         ensure_opt_states(module, self._grad_names, self._upd_keys,
                           e.arg_dict)
@@ -577,14 +593,17 @@ class FusedFitLoop:
             batch's metric update and callbacks: the statistics' sums into
             the metric's children, or (host-metric mode) the metric's own
             update on each step's outputs against the draw-time labels."""
-            if self.stat_fns is not None:
-                host = pieces.cpu().numpy()         # (W, 2 * n_metrics)
-                self.fetches += 1
-                steps = host.shape[0]
-            else:
-                outs_host = [o.cpu() for o in pieces]   # (W, ...)
-                self.fetches += len(outs_host)
-                steps = outs_host[0].shape[0]
+            with _tele.span('fused_fit.fetch', 'fused_fit'):
+                # the window's one copy to the host: the host waits here
+                # for the window's device work
+                if self.stat_fns is not None:
+                    host = pieces.cpu().numpy()     # (W, 2 * n_metrics)
+                    self.fetches += 1
+                    steps = host.shape[0]
+                else:
+                    outs_host = [o.cpu() for o in pieces]   # (W, ...)
+                    self.fetches += len(outs_host)
+                    steps = outs_host[0].shape[0]
             for i in range(steps):
                 if self.stat_fns is not None:
                     for j, child in enumerate(self.children):
@@ -616,6 +635,8 @@ class FusedFitLoop:
         from ..model import BatchEndParam
         from .base_module import _as_list
         m = self.module
+        _tele.gauge('fused_fit.steps_per_call').set(self.window)
+        tl_on = _tele.timeline.enabled()
         nbatch = 0
         pending = None
         it = iter(train_data)
@@ -655,8 +676,9 @@ class FusedFitLoop:
                                    for d in snaps[0][0])
                 prog_key = (attrs_key, shapes_key)
                 if prog_key not in self._programs:
-                    self._programs[prog_key] = self._build_program(
-                        static_attrs)
+                    with _tele.span('fused_fit.build', 'fused_fit'):
+                        self._programs[prog_key] = self._build_program(
+                            static_attrs)
                 window_fn = self._programs[prog_key]
                 # host-metric mode: the draw-time labels for the deferred
                 # eval_metric.update
@@ -670,15 +692,27 @@ class FusedFitLoop:
                 lr_arr, wd_arr = self._sample_window_lr()
                 seeds = [_random.next_seed() for _ in range(self.window)]
                 t = clk()
-                data_stack, label_stack = fut()
+                with _tele.span('fused_fit.put', 'fused_fit'):
+                    data_stack, label_stack = fut()
+                if pool is not None:
+                    _tele.histogram('fused_fit.overlap_ms').observe(
+                        fut.hidden_ms)
                 tm['put'] += clk() - t
                 t = clk()
-                lr, wd = self._lr_tensors(lr_arr, wd_arr)
-                params, states, aux, gaccs, pieces = window_fn(
-                    params, states, aux, gaccs, data_stack, label_stack,
-                    seeds, lr, wd)
-                self._writeback(params, states, aux, gaccs)
+                with _tele.span('fused_fit.dispatch', 'fused_fit'):
+                    lr, wd = self._lr_tensors(lr_arr, wd_arr)
+                    params, states, aux, gaccs, pieces = window_fn(
+                        params, states, aux, gaccs, data_stack, label_stack,
+                        seeds, lr, wd)
+                    self._writeback(params, states, aux, gaccs)
                 self.windows += 1
+                _tele.counter('fit.steps').inc(self.window)
+                _tele.counter('fused_fit.windows').inc()
+                # the watchdog's mark: one window issued (a wedged device
+                # shows at the next put or fetch, which then stops marking)
+                _tele.watchdog.note_progress('fused_fit.window')
+                # the MXTPU_XPROF step window, in whole windows
+                _profiler.note_step(self.window)
                 tm['dispatch'] += clk() - t
                 # the device runs this window while the host draws the next
                 # one (its upload starts on the side thread) and fetches
@@ -691,6 +725,9 @@ class FusedFitLoop:
                 if pending is not None:
                     nbatch = apply_stats(pending[0], pending[1], nbatch)
                 pending = (pieces, labels_snap)
+                if tl_on:
+                    # the step timeline: a whole window of steps
+                    _tele.timeline.note_step(self.window)
                 tm['fetch'] += clk() - t
         finally:
             # an upload in flight is resolved before the teardown, or an
@@ -709,6 +746,11 @@ class FusedFitLoop:
                            index=idx)
             m.forward_backward(sb)
             m.update()
+            _tele.counter('fit.steps').inc()
+            _tele.watchdog.note_progress('fit.step')
+            if tl_on:
+                _tele.timeline.note_step(1)
+            _profiler.note_step()
             m.update_metric(eval_metric, sb.label)
             self.tail_batches += 1
             if batch_end_callback is not None:

@@ -19,6 +19,7 @@ import warnings
 
 from .. import context as ctx_mod
 from .. import optimizer as opt
+from .. import telemetry as _tele
 from ..initializer import Uniform, InitDesc
 from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
                      _update_params_on_kvstore, load_checkpoint)
@@ -361,18 +362,19 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
-        if self._update_on_kvstore:
-            _update_params_on_kvstore(self._exec_group.param_arrays,
-                                      self._exec_group.grad_arrays,
-                                      self._kvstore,
-                                      self._exec_group.param_names)
-        else:
-            _update_params(self._exec_group.param_arrays,
-                           self._exec_group.grad_arrays,
-                           updater=self._updater,
-                           num_device=len(self._exec_group.execs),
-                           kvstore=self._kvstore,
-                           param_names=self._exec_group.param_names)
+        with _tele.span('module.update', 'executor'):
+            if self._update_on_kvstore:
+                _update_params_on_kvstore(self._exec_group.param_arrays,
+                                          self._exec_group.grad_arrays,
+                                          self._kvstore,
+                                          self._exec_group.param_names)
+            else:
+                _update_params(self._exec_group.param_arrays,
+                               self._exec_group.grad_arrays,
+                               updater=self._updater,
+                               num_device=len(self._exec_group.execs),
+                               kvstore=self._kvstore,
+                               param_names=self._exec_group.param_names)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

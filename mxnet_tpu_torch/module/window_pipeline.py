@@ -24,7 +24,11 @@ here:
   memory out while the window reads it. The pinned stack is written once,
   at draw time, and torch's host allocator keeps its block until the copy
   that reads it has finished. On the CPU the same thread runs, without
-  streams;
+  streams. The resolver carries ``hidden_ms`` once called: the share of
+  the side thread's upload time that the main thread did not wait for
+  (the fit window's ``fused_fit.overlap_ms`` histogram);
+- the draw is the ``<prefix>.draw`` telemetry span (``fused_fit.draw``,
+  ``fused_eval.draw``);
 - the metric plans (:func:`plan_metric`): the sufficient statistics of
   Accuracy, TopKAccuracy and CrossEntropy (and composites of them), in
   torch on the outputs' device, one vector a step, so that the host
@@ -34,9 +38,12 @@ The JAX module's registered compile, mesh placements, health and
 dynamics sentinels and bisect belong to ROADMAP.md §1 items 11 and 13 and
 are not ported.
 """
+import time
+
 import torch
 
 from .. import metric as metric_mod
+from .. import telemetry as _tele
 from ..config import flags
 from ..context import cpu
 from ..ndarray.ndarray import NDArray
@@ -160,12 +167,14 @@ def rebind_children(eval_metric, current_children):
 
 class WindowPipeline:
     """Draw, stack and upload for one window loop. ``device_fn`` gives
-    the bound executor's torch device. The owning loop lives across
+    the bound executor's torch device; ``span_prefix`` names the telemetry
+    spans ('fused_fit' or 'fused_eval'). The owning loop lives across
     fit/score calls, and its upload thread with it."""
 
-    def __init__(self, window, device_fn):
+    def __init__(self, window, device_fn, span_prefix='window'):
         self.window = window
         self._device_fn = device_fn
+        self._span = span_prefix
         self._dev_cache_key = None
         self._dev_cache = None
         self._pool_obj = None
@@ -178,6 +187,10 @@ class WindowPipeline:
         slot of the window's stacks. Returns ``(snaps, drawn)``: snaps a
         list of (data, labels, pad, index) tuples whose tensors are the
         slots, drawn what :meth:`device_batches` takes."""
+        with _tele.span(self._span + '.draw', self._span):
+            return self._collect(it, limit)
+
+    def _collect(self, it, limit):
         n = self.window if limit is None else min(self.window, limit)
         pin = self._device_fn().type == 'cuda'
         stacks, key, snaps = None, [], []
@@ -253,27 +266,41 @@ class WindowPipeline:
         """Begin the window's upload; returns a resolver that gives the
         device stacks. With a pool the copy is issued from the side thread
         (on a side stream on the card) while the previous window runs; the
-        resolver makes the compute stream wait for it."""
+        resolver makes the compute stream wait for it. The resolver's
+        ``hidden_ms`` is then the side thread's time (its issue of the copy)
+        that the main thread did not wait for; 0 without a pool."""
         if pool is None:
             res = self.device_batches(snaps, drawn)
-            return lambda: res
+
+            def serial():
+                return res
+            serial.hidden_ms = 0.0
+            return serial
         dev = self._device_fn()
         if dev.type == 'cuda' and self._stream is None:
             self._stream = torch.cuda.Stream(dev)
         side = self._stream if dev.type == 'cuda' else None
+        took = {}
 
         def task():
-            if side is None:
-                return self.device_batches(snaps, drawn), None
-            with torch.cuda.stream(side):
-                res = self.device_batches(snaps, drawn)
-                done = torch.cuda.Event()
-                done.record(side)
-            return res, done
+            t0 = time.perf_counter()
+            try:
+                if side is None:
+                    return self.device_batches(snaps, drawn), None
+                with torch.cuda.stream(side):
+                    res = self.device_batches(snaps, drawn)
+                    done = torch.cuda.Event()
+                    done.record(side)
+                return res, done
+            finally:
+                took['s'] = time.perf_counter() - t0
         fut = pool.submit(task)
 
         def resolver():
+            t0 = time.perf_counter()
             res, done = fut.result()
+            resolver.hidden_ms = max(
+                0.0, took.get('s', 0.0) - (time.perf_counter() - t0)) * 1e3
             if done is not None:
                 compute = torch.cuda.current_stream(dev)
                 compute.wait_event(done)
@@ -281,6 +308,7 @@ class WindowPipeline:
                     if t.is_cuda:
                         t.record_stream(compute)
             return res
+        resolver.hidden_ms = 0.0
         return resolver
 
     @staticmethod

@@ -6,7 +6,9 @@ file at its first use, and loaded with ``ctypes``. The hash covers the
 source and the flags, so an edited source is rebuilt and a stale
 library is never loaded. The build happens on the machine with the card
 (nothing here imports or builds at package import). Different sources
-build in parallel when loaded from several threads.
+build in parallel when loaded from several threads. The seconds of each
+build go into the telemetry's ``cuda.compile_secs`` counter (goodput's
+compile bucket).
 """
 import ctypes
 import hashlib
@@ -14,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 __all__ = ['load', 'build_log', 'toolkit_root']
@@ -83,6 +86,10 @@ def load(name):
         if lib is None:
             out = _library_path(name)
             if not out.exists():
+                t0 = time.perf_counter()
                 _build(name, out)
+                from .. import telemetry
+                telemetry.counter('cuda.compile_secs').inc(
+                    time.perf_counter() - t0)
             lib = _loaded[name] = ctypes.CDLL(str(out))
         return lib

@@ -10,7 +10,8 @@ A thin ``ctypes`` binding to ``libnvrtc`` and the CUDA driver library
   device's primary context (``cuModuleLoadData``) and returns the kernel's
   function handle. Modules are cached per (source, options, device), so the
   same source compiles once per process and card; :data:`stats` counts the
-  compiles and their time.
+  compiles and their time, and the telemetry's ``cuda.compile_secs``
+  counter (goodput's compile bucket) takes the seconds.
 - :func:`launch` launches a function handle on PyTorch's current stream of
   its device and counts the launch in ``launch.launches``.
 
@@ -240,9 +241,12 @@ def compile_kernel(source, name, device):
         _check_cu(cu.cuModuleLoadData(ctypes.byref(module), cubin), 'cuModuleLoadData')
         _check_cu(cu.cuModuleGetFunction(ctypes.byref(fn), module, name.encode()),
                   'cuModuleGetFunction(%s)' % name)
+    secs = time.perf_counter() - t0
+    from .. import telemetry
+    telemetry.counter('cuda.compile_secs').inc(secs)
     with _lock:
         stats['compiles'] += 1
-        stats['compile_ms'] += (time.perf_counter() - t0) * 1e3
+        stats['compile_ms'] += secs * 1e3
         return _functions.setdefault(key, fn)
 
 

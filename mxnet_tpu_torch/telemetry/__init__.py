@@ -1,15 +1,21 @@
 """Runtime telemetry, the backend-neutral core of ``mxnet_tpu/telemetry``:
-the planes the serving plane reports to.
+the planes the training loop and the serving plane report to.
 
 - a metrics registry (:mod:`.registry`): counters, gauges, histograms
   with recent-window p50/p95;
 - a span tracer (:func:`span`): times a host-side region into a
-  histogram and a JSONL span record (the JAX package also merges spans
-  into ``profiler.py``'s chrome trace; that waits for the profiler's
-  port);
+  histogram and a JSONL span record and, whenever the profiler runs
+  (:mod:`..profiler`), into its chrome trace too, even with telemetry off;
 - exporters (:mod:`.export`): the append-only JSONL log (host-stamped,
   size-capped by ``MXTPU_TELEMETRY_MAX_MB``) and the end-of-run summary
   table;
+- goodput accounting (:mod:`.goodput`, ``MXTPU_GOODPUT``, on by
+  default with telemetry): the run's wall clock in named buckets (step,
+  compile, input wait, eval, ...) from the loops' leaf spans, summing to
+  the wall;
+- the step timeline (:mod:`.timeline`, ``MXTPU_TIMELINE``): the fit
+  loops' phase spans per step (draw, put, dispatch, fetch) and the step's
+  decomposition, with the largest phase named;
 - the live plane (:mod:`.serve`, ``MXTPU_TELEMETRY_PORT``): ``/metrics``
   (Prometheus text), ``/healthz`` and ``/summary`` over HTTP;
 - request-level tracing (:mod:`.trace`): one trace id per serving
@@ -21,20 +27,39 @@ the planes the serving plane reports to.
   ``MXTPU_FLIGHT_RECORDER``): a ring of the latest records, dumped to
   ``flight-<reason>.jsonl`` by each incident path;
 - the hang watchdog (:mod:`.watchdog`, ``MXTPU_WATCHDOG_SECS``): a
-  progress monitor whose stall flips /healthz to ``hung``.
+  progress monitor fed by the fit, eval and serving loops, whose stall
+  flips /healthz to ``hung``.
 
 Not ported: the planes bound to XLA (``xla``, ``programs``, ``roofline``,
-``memory``) and the training-side planes (``health``, ``dynamics``,
-``ledger``, ``goodput``, ``timeline``) and cluster aggregation; reaching
-one raises NotImplementedError naming ROADMAP.md §1 item 13.
+``memory``), the training-health planes (``health``, ``dynamics``), the
+run ledger (``ledger``), cluster aggregation and the step timeline's
+sync-round half; reaching one raises NotImplementedError naming ROADMAP.md
+§1 item 13.
 
 Everything is OFF by default. ``MXTPU_TELEMETRY=1`` turns it on;
 ``MXTPU_TELEMETRY_PATH`` points the JSONL log (default
 ``telemetry.jsonl``). While off, every entry point hands out a shared
 no-op object: no I/O, no registry writes, one cached-bool check per call
-site. The serving plane (:mod:`mxnet_tpu_torch.serving`) reports the
-JAX package's names: the ``serve.request_latency`` and
-``serve.queue_wait`` histograms, the ``serve.requests`` /
+site.
+
+Instrumented sites, with the JAX package's names: ``fit.batch`` (the
+parent) with its leaves ``fit.dispatch`` / ``fit.draw`` / ``fit.metric``
+/ ``fit.callback`` and the ``fit.steps`` / ``fit.epochs`` counters (the
+per-batch loop); ``fused_fit.build|draw|put|dispatch|fetch``, the
+``fused_fit.windows`` counter, the ``fused_fit.steps_per_call`` gauge and
+the ``fused_fit.overlap_ms`` histogram (the fit window);
+``eval.dispatch|metric|fetch``, the ``eval.batches`` counter and the
+``eval_samples_per_sec`` gauge (the per-batch score and predict);
+``fused_eval.build|draw|put|dispatch|fetch``, ``fused_eval.windows`` and
+``fused_eval.steps_per_call`` (the eval window); ``executor.forward|
+backward``, ``exec_group.forward|backward``, ``module.update``; the
+``io.batches`` counter and the ``io.prefetch_wait`` histogram; the
+``kvstore.push|pull`` spans with the ``kvstore.push_bytes|pull_bytes``
+counters; the ``speedometer.samples_per_sec`` gauge; the
+``cuda.compile_secs`` counter (the port's kernel builds, in place of the
+JAX package's ``xla.compile_secs``). The serving plane
+(:mod:`mxnet_tpu_torch.serving`) reports the ``serve.request_latency``
+and ``serve.queue_wait`` histograms, the ``serve.requests`` /
 ``serve.errors`` / ``serve.dispatches`` / ``serve.rows`` /
 ``serve.pad_rows`` counters, the queue, batch and pad gauges, and the
 ``serve.build`` / ``serve.dispatch`` / ``serve.fetch`` spans.
@@ -47,7 +72,10 @@ import time
 
 from .registry import (Registry, NULL_COUNTER, NULL_GAUGE, NULL_HISTOGRAM)
 from . import export as _export
-from . import cluster  # noqa: F401  (host_index only)
+from .. import profiler as _profiler
+from . import cluster  # noqa: F401  (host_index and the sync vector's keys)
+from . import goodput  # noqa: F401  (public submodule)
+from . import timeline  # noqa: F401  (public submodule)
 from . import serve  # noqa: F401  (public submodule: telemetry.serve.*)
 from . import watchdog  # noqa: F401  (public submodule)
 from . import trace  # noqa: F401  (public submodule)
@@ -57,12 +85,12 @@ from . import flight  # noqa: F401  (public submodule)
 __all__ = ['enabled', 'counter', 'gauge', 'histogram', 'span',
            'current_span_path', 'event', 'snapshot', 'summary',
            'write_summary', 'shutdown', 'serve', 'watchdog', 'trace', 'slo',
-           'flight', 'get_registry']
+           'flight', 'goodput', 'timeline', 'get_registry']
 
 # the JAX package's telemetry planes that are not ported, each raising
 # where it is reached
 _UNPORTED = ('xla', 'programs', 'health', 'roofline', 'memory', 'dynamics',
-             'ledger', 'goodput', 'timeline')
+             'ledger')
 
 
 def __getattr__(name):
@@ -180,14 +208,16 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """Times a host region: histogram (ms) + JSONL record. Nesting is
-    tracked per thread; the JSONL record carries the full path
-    ('serve.build/...') so traces reconstruct the tree."""
+    """Times a host region: histogram (ms) + JSONL record, and a
+    chrome-trace event whenever the profiler runs. Nesting is tracked per
+    thread; the JSONL record carries the full path
+    ('fit.batch/fit.dispatch') so traces reconstruct the tree."""
 
-    __slots__ = ('name', 't0', 'path')
+    __slots__ = ('name', 'cat', 't0', 'path')
 
-    def __init__(self, name):
+    def __init__(self, name, category):
         self.name = name
+        self.cat = category
 
     def __enter__(self):
         stack = _stack()
@@ -207,19 +237,27 @@ class _Span:
         st = _state
         if st.active:
             st.registry.histogram(self.name).observe(dur_ms)
+            # the step-phase ledger (MXTPU_TIMELINE): leaf phase spans add
+            # to their phase — one cached bool while off
+            if timeline.enabled():
+                timeline.note_span(self.name, dur_ms)
             if st.sink is not None:
                 st.sink.emit({'type': 'span', 'name': self.name,
                               'path': self.path, 't': self.t0,
                               'dur_ms': round(dur_ms, 4)})
+        if _profiler.is_running():
+            _profiler.record_event(self.name, int(self.t0 * 1e6),
+                                   int(t1 * 1e6), self.cat)
 
 
 def span(name, category='telemetry'):
-    """Context manager timing a host-side region: with telemetry on, a
-    histogram observation (ms) under ``name`` and a JSONL span record;
-    off, the shared no-op. ``category`` is the JAX package's chrome-trace
-    category, kept for its callers' signature."""
-    if enabled():
-        return _Span(name)
+    """Context manager timing a host-side region.
+
+    Telemetry on: a histogram observation (ms) under ``name`` and a JSONL
+    span record. Profiler running: a chrome-trace event in its trace, with
+    telemetry off too. Neither: the shared no-op."""
+    if enabled() or _profiler.is_running():
+        return _Span(name, category)
     return _NULL_SPAN
 
 
@@ -244,23 +282,44 @@ def snapshot():
 
 
 def summary():
-    """The human-readable end-of-run table, as a string (read-only)."""
+    """The human-readable end-of-run table, as a string (read-only: no
+    gauge is written and no record emitted). Its goodput block is the
+    books so far, or, once write_summary() has closed them, the written
+    ones (the wall after the run's end is nobody's step)."""
     elapsed = (time.time() - _state.t_start) if _state.t_start else None
-    return _export.summary_table(_state.registry.snapshot(), elapsed)
+    good = goodput.snapshot_goodput() if _state.summary_written \
+        else goodput.current()
+    return _export.summary_table(_state.registry.snapshot(), elapsed,
+                                 goodput=good,
+                                 timeline=timeline.snapshot_timeline())
 
 
 def write_summary(log=True):
-    """Append the JSONL summary record and (by default) log the table.
-    Returns the table string, or None when telemetry is off."""
+    """Append the goodput and timeline records and the JSONL summary
+    record, and (by default) log the table. Returns the table string, or
+    None when telemetry is off."""
     if not enabled():
         return None
     elapsed = time.time() - _state.t_start
+    # wall-clock attribution: publishes the goodput.* gauges and the
+    # goodput JSONL record before the snapshot below, so that the gauges
+    # land in the summary record too
+    gsnap = goodput.summarize(elapsed)
+    # the step timeline (MXTPU_TIMELINE): this host's attribution from its
+    # ledger, published the same way
+    tsnap = timeline.summarize()
     snap = _state.registry.snapshot()
     if _state.sink is not None:
-        _state.sink.emit({'type': 'summary', 'elapsed_s': round(elapsed, 3),
-                          'snapshot': snap})
+        rec = {'type': 'summary', 'elapsed_s': round(elapsed, 3),
+               'snapshot': snap}
+        if gsnap:
+            rec['goodput'] = gsnap
+        if tsnap:
+            rec['timeline'] = tsnap
+        _state.sink.emit(rec)
         _state.sink.flush()
-    table = _export.summary_table(snap, elapsed)
+    table = _export.summary_table(snap, elapsed, goodput=gsnap,
+                                  timeline=tsnap)
     if log:
         logging.info('%s', table)
     _state.summary_written = True
@@ -303,3 +362,5 @@ def _reset_for_tests():
     watchdog._reset_for_tests()
     slo._reset_for_tests()
     flight._reset_for_tests()
+    goodput._reset_for_tests()
+    timeline._reset_for_tests()

@@ -3,15 +3,16 @@ the append-only JSONL log and the human-readable summary table.
 
 The JSONL sink is the machine-readable record: one JSON object per line,
 each with a ``type`` ('start', 'span', 'event', 'trace', 'slo', 'hang',
-'flight', 'summary') and a ``t`` epoch-seconds stamp. Records buffer in
+'flight', 'goodput', 'timeline', 'summary') and a ``t`` epoch-seconds stamp. Records buffer in
 memory and flush every ``_FLUSH_EVERY`` lines or ``_FLUSH_SECS`` seconds
 (and at shutdown). ``MXTPU_TELEMETRY_MAX_MB`` caps the file.
 
 ``summary_table`` renders a registry snapshot as the end-of-run table:
-counters, gauges and histograms. The JAX table's sections of planes that
-are not ported (programs, roofline, memory, goodput, cluster, timeline,
-run ledger, run health) are left out; for the same snapshot and no such
-plane the two tables are the same text.
+counters, gauges, the "where the time went" block (goodput), the "step
+timeline" block and histograms. The JAX table's sections of planes that
+are not ported (programs, roofline, memory, cluster, run ledger, run
+health) are left out; for the same snapshot, goodput and timeline the two
+tables are the same text.
 """
 import json
 import logging
@@ -155,13 +156,97 @@ def _fmt(v):
     return str(v)
 
 
-def summary_table(snapshot, elapsed_s=None):
-    """Registry snapshot -> aligned text table (one block per kind)."""
+def _goodput_lines(good):
+    """The "where the time went" block (telemetry.goodput's dict): one row a
+    bucket with its seconds and share of the wall, the goodput verdict and
+    the rework and provenance context."""
+    lines = ['-- where the time went --']
+    wall = float(good.get('wall_s') or 0.0)
+    buckets = good.get('buckets') or {}
+    # the canonical bucket order (telemetry.goodput.BUCKETS)
+    order = ('step', 'compile', 'input_wait', 'checkpoint', 'eval',
+             'comm', 'rework', 'overhead')
+    names = [n for n in order if n in buckets]
+    names += [n for n in sorted(buckets) if n not in order]
+    for name in names:
+        secs = float(buckets[name] or 0.0)
+        pct = (100.0 * secs / wall) if wall > 0.0 else 0.0
+        label = name
+        if name == 'comm' and good.get('comm_source'):
+            label = 'comm (%s)' % good['comm_source']
+        lines.append('  %-18s  %9ss  %5.1f%%'
+                     % (label, _fmt(round(secs, 3)), pct))
+    lines.append('  %-18s  %9ss' % ('wall', _fmt(round(wall, 3))))
+    verdict = 'goodput           %s%%' % _fmt(good.get('goodput_pct'))
+    if good.get('badput_top'):
+        verdict += ' (top badput: %s)' % good['badput_top']
+    lines.append('  %s' % verdict)
+    if good.get('rework_steps'):
+        lines.append('  rework_steps      %d' % int(good['rework_steps']))
+    if good.get('prior_lost_s'):
+        lines.append('  prior_lost        %ss across relaunches -> '
+                     'job goodput %s%% of %ss'
+                     % (_fmt(good['prior_lost_s']),
+                        _fmt(good.get('job_goodput_pct')),
+                        _fmt(good.get('job_wall_s'))))
+    return lines
+
+
+def _timeline_lines(tl):
+    """The "step timeline" block (telemetry.timeline's attribution dict):
+    one decomposition row a host (the step split into compute, collective
+    wait, io and host-side time, and the clock offset), then the skew and
+    the gating host and phase."""
+    lines = ['-- step timeline --']
+    lines.append('  hosts             %s' % tl.get('hosts'))
+    per = tl.get('per_host') or []
+    if per:
+        lines.append('  host   step_ms    compute    collect    io    '
+                     '     host_side  offset_ms')
+        crit = tl.get('critical_host')
+        for r in per:
+            mark = '*' if (r.get('host') == crit and len(per) > 1) else ''
+            lines.append('  %-5s  %-9s  %-9s  %-9s  %-9s  %-9s  %s'
+                         % ('%s%s' % (r.get('host'), mark),
+                            _fmt(r.get('step_time_ms')),
+                            _fmt(r.get('compute_ms')),
+                            _fmt(r.get('collective_ms')),
+                            _fmt(r.get('io_ms')),
+                            _fmt(r.get('host_ms')),
+                            _fmt(r.get('clock_offset_ms'))))
+    if tl.get('skew_ms') is not None:
+        lines.append('  skew              %s ms/step (fastest-host idle '
+                     'at the allreduce)' % _fmt(float(tl['skew_ms'])))
+    if tl.get('critical_phase') is not None:
+        line = '  critical_path     host %s %s' % (tl.get('critical_host'),
+                                                   tl['critical_phase'])
+        if tl.get('phase_excess_ms') is not None:
+            if (tl.get('hosts') or 1) > 1:
+                line += ' (+%s ms/step of skew)' \
+                    % _fmt(float(tl['phase_excess_ms']))
+            else:
+                line += ' (%s ms/step)' % _fmt(float(tl['phase_excess_ms']))
+        lines.append(line)
+    return lines
+
+
+def summary_table(snapshot, elapsed_s=None, goodput=None, timeline=None):
+    """Registry snapshot -> aligned text table (one block per kind).
+    ``goodput`` is telemetry.goodput's dict, rendered as the "where the time
+    went" block, and ``timeline`` telemetry.timeline's attribution, rendered
+    as the "step timeline" block; the ``goodput.*`` and ``timeline.*``
+    gauges that those blocks carry are left out of the gauges block."""
     lines = ['== telemetry summary%s ==' %
              (' (%.1fs)' % elapsed_s if elapsed_s is not None else '')]
     counters = snapshot.get('counters', {})
     gauges = snapshot.get('gauges', {})
     hists = snapshot.get('histograms', {})
+    if goodput:
+        gauges = {n: v for n, v in gauges.items()
+                  if not n.startswith('goodput.')}
+    if timeline:
+        gauges = {n: v for n, v in gauges.items()
+                  if not n.startswith('timeline.')}
     if counters:
         lines.append('-- counters --')
         w = max(len(n) for n in counters)
@@ -172,6 +257,10 @@ def summary_table(snapshot, elapsed_s=None):
         w = max(len(n) for n in gauges)
         for name in sorted(gauges):
             lines.append('  %-*s  %s' % (w, name, _fmt(gauges[name])))
+    if goodput:
+        lines.extend(_goodput_lines(goodput))
+    if timeline:
+        lines.extend(_timeline_lines(timeline))
     if hists:
         lines.append('-- histograms (ms) --')
         w = max(len(n) for n in hists)

@@ -2,11 +2,14 @@
 detect a wedged loop and act on it.
 
 ``MXTPU_WATCHDOG_SECS=<t>`` arms a daemon-thread progress monitor fed by
-:func:`note_progress` (one cached-bool check plus a clock store); in the
-port the serving batcher marks each completed dispatch
+:func:`note_progress` (one cached-bool check plus a clock store): the fit
+loops mark each step or window (``fit.step``, ``fused_fit.window``,
+``fit.epoch_end``), the eval loops each window (``fused_eval.window``,
+``eval.step``) and the serving batcher each completed dispatch
 (``serve.dispatch``). The monitor arms at the FIRST mark (so a long
 first build cannot false-trip) and then requires a mark at least every
-``t`` seconds. On a stall it:
+``t`` seconds; :func:`suspend`, which the fit and eval loops call as they
+end, stops expecting marks until the next one. On a stall it:
 
 - dumps every thread's stack plus the last progress mark and the serving
   counters as a ``hang`` JSONL incident (when telemetry is on) and logs
@@ -31,8 +34,8 @@ import threading
 import time
 import traceback
 
-__all__ = ['HANG_EXIT_CODE', 'enabled', 'note_progress', 'hang_info',
-           'snapshot_watchdog', 'stop']
+__all__ = ['HANG_EXIT_CODE', 'enabled', 'note_progress', 'suspend',
+           'hang_info', 'snapshot_watchdog', 'stop']
 
 # distinct from every exit code a Python process produces on its own
 # (tracebacks exit 1, CLI misuse 2, signals 128+n)
@@ -124,6 +127,24 @@ def note_progress(what):
                 'clearing the hang state', what, recovered)
 
 
+def suspend():
+    """The watched region ended (fit returned or unwound, an eval pass
+    finished): stop expecting marks until the next one arrives, so that
+    host work after training, or the idle time between epoch-at-a-time
+    fit() calls, never trips the watchdog. An active hang is cleared too:
+    with the region over, "the loop is stalled now" no longer holds. The
+    next :func:`note_progress` re-arms it."""
+    if not enabled():
+        return
+    _state.last_mark = None
+    _state.last_what = None
+    with _state.lock:
+        if _state.tripped:
+            _state.tripped = False
+            if _state.hang is not None:
+                _state.hang['active'] = False
+
+
 def hang_info():
     """The ACTIVE hang digest (the loop is stalled right now), or None.
     telemetry/serve.py flips /healthz to 503 on it."""
@@ -189,15 +210,16 @@ def _thread_stacks():
 
 
 def _telemetry_digest():
-    """The last telemetry state worth having in a hang report: the
-    serving counters. Empty when telemetry is off — the watchdog does not
-    require it."""
+    """The last telemetry state worth having in a hang report: the step,
+    window and serving counters. Empty when telemetry is off — the
+    watchdog does not require it."""
     from . import _state as tst
     if not tst.active:
         return {}
     reg = tst.registry
     out = {}
-    for name in ('serve.requests', 'serve.dispatches', 'serve.errors'):
+    for name in ('fit.steps', 'fused_fit.windows', 'eval.batches',
+                 'serve.requests', 'serve.dispatches', 'serve.errors'):
         c = reg.get(name)
         if c is not None and getattr(c, 'value', 0):
             out[name] = c.value
@@ -223,7 +245,6 @@ def _trip(stalled):
         if st.tripped:     # raced a concurrent trip
             return
         st.tripped = True
-        st.hang = digest
     from . import _state as tst, counter as _counter
     _counter('watchdog.hangs').inc()
     rec = {'type': 'hang'}
@@ -242,6 +263,11 @@ def _trip(stalled):
                                    digest['last_progress']})
     except Exception:  # noqa: BLE001 — forensics must not add a crash
         pass
+    # /healthz and hang_info() show the hang once its records are on disk
+    # (a mark that arrived meanwhile has already cleared the trip)
+    with st.lock:
+        digest['active'] = st.tripped
+        st.hang = digest
     logging.warning(
         'watchdog: no progress for %.1fs (threshold %.1fs; '
         'last mark: %s) — the run looks hung. Thread stacks recorded%s',

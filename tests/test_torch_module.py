@@ -51,7 +51,7 @@ NETS = {'mlp_bn': (4, 10), 'narrow_resnet': (16, 3, 32, 32)}
 OPT = {'learning_rate': 0.1, 'momentum': 0.9, 'wd': 1e-4}
 # the flags of the unported paths, each with a value that turns its path on
 UNPORTED = {'MXTPU_CKPT_DIR': 'x', 'MXTPU_FAULT_INJECT': 'x',
-            'MXTPU_TELEMETRY': '1', 'MXTPU_HEALTH': '1', 'MXTPU_DYNAMICS': '1',
+            'MXTPU_HEALTH': '1', 'MXTPU_DYNAMICS': '1',
             'MXTPU_SHARDED_UPDATE': '1', 'MXTPU_GRAD_COMPRESS': 'int8'}
 WINDOW_FLAGS = ('MXTPU_FUSED_FIT', 'MXTPU_FUSED_EVAL',
                 'MXTPU_FIT_STEPS_PER_CALL', 'MXTPU_EVAL_STEPS_PER_CALL')

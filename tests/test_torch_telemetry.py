@@ -365,8 +365,7 @@ def test_live_endpoint(tele, monkeypatch):
 
 
 @pytest.mark.parametrize('name', ['xla', 'programs', 'health', 'roofline',
-                                  'memory', 'dynamics', 'ledger', 'goodput',
-                                  'timeline'])
+                                  'memory', 'dynamics', 'ledger'])
 def test_unported_planes_raise(name):
     with pytest.raises(NotImplementedError, match='item 13'):
         getattr(ttele, name)
