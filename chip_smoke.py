@@ -220,7 +220,42 @@ order they run:
     and xent_kernel (K3) as often as their launch counters grew (the kernel
     record's profiler_launches), each batch's loss held as (l2) holds it,
     and K3's and K4's device ms a launch from the trace, printed beside
-    (e)'s event timings.
+    (e)'s event timings;
+(q) the data plane (run after (p), before (e)): (q0) a .rec and .idx of
+    320 images of 3 x 256 x 256 uint8 ('.raw': this machine has no Pillow)
+    from RandomState(0), labels in [0, 1000), written by the port's
+    MXIndexedRecordIO on the native writer (built with g++ from
+    src/recordio.cc; the check fails if it did not load), read back byte
+    for byte by the native and the Python readers, in order and by key,
+    with the write, read and scan MB/s; (q1) train_imagenet's --data-train
+    recipe, (l1)'s Module on it: ImageRecordIter(data_shape (3, 224, 224),
+    batch 32, shuffle, rand_crop, rand_mirror, the means of MXNet's
+    common/data.py, std 1, preprocess_threads 4), one epoch of 10 batches
+    from the same masters after random.seed(7), under cuDNN's
+    deterministic algorithms, three ways: the per-batch loop on the host
+    augment, the window on the host augment, the window on the deferred
+    device augment (device_augment=1); batch 1 of run 1 (outputs and the
+    parameters after its update) bit for bit against the same decoded
+    batch through NDArrayIter from the same masters, run 3's masters after
+    window 1 bit for bit against 4 per-batch steps on the eager device
+    augment, no synchronising call inside a window, every loss finite,
+    one batch of the device augment (cropping on the card, and after the
+    host crop) within 1e-6 relative of the host augment with the
+    randomness off; each run's images/s, a batch's CUDA-event and host
+    wall ms, goodput's input_wait share, the timeline's draw and put ms a
+    step and the bytes uploaded a batch, beside (l1)/(m1)'s NDArrayIter
+    figures; (q2) MNISTIter over idx files written from synthetic_mnist
+    into an MLP through Module.fit (accuracy above 0.5 after one epoch),
+    and gluon.data.vision.MNIST(root) through transform_first, the
+    DataLoader (batch 128, shuffle) and split_and_load into a Gluon MLP
+    under autograd.record() with the loss and Trainer (the loss falling);
+    (q3) (l2)'s head inputs (x [3 x 8192, 1024] f32 and labels from
+    RandomState(22)) through ArrayDataset, DataLoader(batch_size=8192) and
+    split_and_load into nd.LayerNorm (K4) -> nd.FullyConnected to 16384
+    -> Cast f32 -> nd.softmax_cross_entropy (K3) under autograd.record(),
+    backward and gluon.Trainer(sgd).step: K4's and K3's launches 3 and 3
+    (K5 and K6 0; the kernel record's data_plane_launches), each batch's
+    loss against the plain versions on the parameters it ran with.
 
 The second-to-last line of its output is the kernel record
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -231,6 +266,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1103,9 +1139,12 @@ def rtc_plain(name):
 
 def rtc_library(name, args):
     """One PyTorch call computing the user kernel's function (a yardstick
-    only; the port never calls it), or None where there is none."""
+    only; the port never calls it), or None where there is none. k7a's has
+    two, x * 5 and then exp: torch has no one call for exp(5 x)."""
     import torch
     import torch.nn.functional as F
+    if name == 'rtc_k7a_reference':
+        return lambda: torch.exp(args[0] * 5.0)
     if name == 'rtc_k7b_triple':
         return lambda: torch.mul(args[0], 3.0)
     if name == 'rtc_k7d_gelu':
@@ -3788,15 +3827,15 @@ def phase_n(device, cfg, model, ref, ckpt, spec=RESNET):
 def phase_m(device, cfg, spec=RESNET, per_batch=None):
     """Phase (m): (m1) the windowed Module.fit, score and predict on bench's
     ResNet-50, (m2) the kernels through the windows. Returns (m2)'s
-    launches."""
+    launches and (m1)'s times."""
     t0 = time.perf_counter()
     log('  (m1) train_imagenet\'s recipe through the windowed Module.fit: '
         '%s, batch %d' % (spec[0], spec[1]))
-    window_fit(device, spec, per_batch)
+    windowed = window_fit(device, spec, per_batch)
     log('  (m2) the kernels through the fit and score windows')
     launches = window_kernels(device, cfg)
     log('  phase (m) took %.1f s' % (time.perf_counter() - t0))
-    return launches
+    return launches, windowed
 
 
 def phase_l(device, cfg, spec=RESNET, n_images=FIT_IMAGES, ckpt=None):
@@ -4704,6 +4743,610 @@ def phase_p(device, cfg, work):
     return launches, per_launch
 
 
+# ---------------------------------------------------------------------------
+# (q) the data plane on the card
+# ---------------------------------------------------------------------------
+
+# (q0): the record file train_imagenet's --data-train reads: 320 images of
+# 3 x 256 x 256 uint8 from RandomState(0), labels in [0, 1000), packed as
+# '.raw' (the card's machine has no Pillow, which JPEG records need)
+RECORD_IMAGES = 320
+RECORD_SIDE = 256
+# (q1): ImageRecordIter as train_imagenet sets it up, with the means of
+# MXNet's example/image-classification/common/data.py, std 1
+DATA_MEAN = (123.68, 116.779, 103.939)
+RECORD_THREADS = 4
+RECORD_SEED = 7         # random.seed() before each run: order, crops, flips
+# The device augment against the host augment with the randomness off: the
+# same pixels through the same f32 arithmetic, (x * scale - mean) / std
+# with one rounding an operation on both sides (the host's table holds the
+# same values): 1e-6 relative, bit for bit printed beside it
+AUG_RTOL = 1e-6
+# (q2): MNISTIter over idx files written from synthetic_mnist, into an MLP
+# through Module.fit; gluon.data.vision.MNIST through the DataLoader into a
+# Gluon MLP. Chance is 0.1: the fit's accuracy must pass MNIST_ACC
+MNIST_IMAGES = 6000
+MNIST_BATCH = 100
+MNIST_ACC = 0.5
+GLUON_MNIST_BATCH = 128
+# (q3): (l2)'s head inputs through ArrayDataset and the DataLoader, each
+# batch's loss held to the plain versions as (l2) holds it
+DATA_HEAD_BATCHES = 3
+DATA_HEAD_RTOL = EXEC_LOSS_RTOL
+
+
+def write_records(rec, idx, n=RECORD_IMAGES, side=RECORD_SIDE, classes=1000):
+    """(q0)'s file through the port's MXIndexedRecordIO; returns the packed
+    records and the write's seconds."""
+    from mxnet_tpu_torch.recordio import IRHeader, MXIndexedRecordIO, pack_img
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (n, 3, side, side)).astype(np.uint8)
+    labels = rng.randint(0, classes, n)
+    packed = [pack_img(IRHeader(0, float(labels[i]), i, 0), images[i],
+                       img_fmt='.raw') for i in range(n)]
+    t0 = time.perf_counter()
+    w = MXIndexedRecordIO(idx, rec, 'w')
+    for i, p in enumerate(packed):
+        w.write_idx(i, p)
+    w.close()
+    return packed, time.perf_counter() - t0
+
+
+def _read_all(rec):
+    from mxnet_tpu_torch.recordio import MXRecordIO
+    r = MXRecordIO(rec, 'r')
+    out = []
+    try:
+        while True:
+            item = r.read()
+            if item is None:
+                return out
+            out.append(item)
+    finally:
+        r.close()
+
+
+def records(work, n=RECORD_IMAGES, side=RECORD_SIDE, classes=1000):
+    """Phase (q0): the record file written by the native writer, read back
+    through the native and the Python readers byte for byte (sequentially
+    and by key through the .idx), and scanned; the MB/s of each. Returns
+    the file's path."""
+    from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.io.image_record import scan_record_offsets
+    from mxnet_tpu_torch.recordio import MXIndexedRecordIO
+    rec = os.path.join(work, 'train.rec')
+    idx = os.path.join(work, 'train.idx')
+    check(_native.backend() == 'native', 'the native record reader did not '
+          'load (backend %s)' % _native.backend())
+    packed, write_s = write_records(rec, idx, n, side, classes)
+    mb = os.path.getsize(rec) / 1e6
+    got, secs = {}, {}
+    for reader in ('native', 'python'):
+        with _flags_set(MXTPU_NO_NATIVE='1' if reader == 'python' else '0'):
+            check(_native.backend() == reader, 'the %s reader is not live'
+                  % reader)
+            t0 = time.perf_counter()
+            got[reader] = _read_all(rec)
+            secs[reader] = time.perf_counter() - t0
+            r = MXIndexedRecordIO(idx, rec, 'r')
+            keyed = [r.read_idx(k) for k in (n - 1, 0, n // 2)]
+            r.close()
+        check(got[reader] == packed and
+              keyed == [packed[n - 1], packed[0], packed[n // 2]],
+              'the %s reader does not give back the records written' % reader)
+    t0 = time.perf_counter()
+    offsets = scan_record_offsets(rec)
+    scan_s = time.perf_counter() - t0
+    check(len(offsets) == n, 'the scan found %d records' % len(offsets))
+    log('  %d records (%d x %d x %d uint8 .raw, labels in [0, %d)), %.1f MB: '
+        'written by the native writer at %.1f MB/s; read back byte for byte by '
+        'the native reader at %.1f MB/s and the Python reader at %.1f MB/s, '
+        'by key through the .idx on both; scanned (framing only) at %.1f '
+        'MB/s (warm file cache)'
+        % (n, 3, side, side, classes, mb, mb / write_s, mb / secs['native'],
+           mb / secs['python'], mb / scan_s))
+    return rec
+
+
+def _record_iter(rec, spec, device_augment, **kw):
+    import mxnet_tpu_torch as mt
+    _, batch, image, _ = spec
+    args = dict(data_shape=(3, image, image), batch_size=batch, shuffle=True,
+                rand_crop=1, rand_mirror=1, mean_r=DATA_MEAN[0],
+                mean_g=DATA_MEAN[1], mean_b=DATA_MEAN[2], std_r=1, std_g=1,
+                std_b=1, preprocess_threads=RECORD_THREADS,
+                device_augment=device_augment)
+    args.update(kw)
+    return mt.io.ImageRecordIter(rec, **args)
+
+
+def _goodput_timeline(path):
+    """(input_wait share of the wall, draw ms a step, put ms a step) from
+    one fit's telemetry log."""
+    recs = _jsonl(path)
+    good = [r for r in recs if r['type'] == 'goodput'][-1]
+    ph = [r for r in recs if r['type'] == 'timeline'][-1]['per_host'][0][
+        'phases']
+    return (good['buckets']['input_wait'] / good['wall_s'], ph['draw'],
+            ph['put'])
+
+
+def augment_vs_host(device, rec, spec):
+    """(q1): one batch of the device augment (cropping on the card, and
+    after the workers' host crop) against the host augment, with the
+    randomness off."""
+    import torch
+    ctx = _ctx_of(device)
+    plain = dict(shuffle=False, rand_crop=0, rand_mirror=0)
+    host = _record_iter(rec, spec, 0, **plain)
+    with ctx:
+        want = host.next().data[0].handle.to(device)
+        for hc in (0, 1):
+            dev = _record_iter(rec, spec, 1, host_crop=hc, **plain)
+            got = dev.next().data[0].handle
+            check(got.device.type == device.type and got.dtype ==
+                  torch.float32, 'the device augment gave %s %s'
+                  % (got.device, got.dtype))
+            rel = float(((got - want).abs() / want.abs().clamp_min(1e-30))
+                        .max())
+            log('  the device augment (%s) against the host augment, '
+                'randomness off, one batch %s: %s, max relative error %.3e '
+                '(held to %g)' % ('host crop, mirror and normalise on the '
+                                  'card' if hc else 'crop, mirror and '
+                                  'normalise on the card', tuple(got.shape),
+                                  'bit for bit' if torch.equal(got, want)
+                                  else 'NOT bit for bit', rel, AUG_RTOL))
+            check(got.shape == want.shape and rel <= AUG_RTOL,
+                  'the device augment disagrees with the host augment')
+
+
+def _ctx_of(device):
+    import mxnet_tpu_torch as mt
+    return mt.gpu(device.index or 0) if device.type == 'cuda' else mt.cpu()
+
+
+def record_fit(device, rec, work, spec=RESNET, n_images=RECORD_IMAGES,
+               nd_figures=None):
+    """Phase (q1): train_imagenet's --data-train recipe from (q0)'s file
+    through ImageRecordIter and Module.fit, three ways under cuDNN's
+    deterministic algorithms (the per-batch loop on the host augment, the
+    window on the host augment, the window on the deferred device
+    augment), each from the same masters after random.seed(RECORD_SEED):
+    batch 1 of run 1 against NDArrayIter, run 3's window 1 against 4
+    per-batch steps on the eager device augment, the losses finite; the
+    runs' speeds and input figures printed beside (l1)/(m1)'s."""
+    import contextlib
+    import logging
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.module.window_pipeline import window_size
+    name, batch, image, classes = spec
+    on_card = device.type == 'cuda'
+    ctx = _ctx_of(device)
+    n_batches = n_images // batch
+    W = window_size()
+    t0 = time.perf_counter()
+    probe = _record_iter(rec, spec, 0)
+    sym = _zoo_symbol(name, classes, (batch, 3, image, image))
+    mod = mt.mod.Module(sym) if on_card else mt.mod.Module(sym, context=ctx)
+    mod.bind(probe.provide_data, probe.provide_label)
+    mt.random.seed(0)
+    mod.init_params(_xavier())
+    args, aux = mod.get_params()
+    masters0 = {n: a.handle.detach().clone() for n, a in args.items()}
+    aux0 = {n: a.handle.detach().clone() for n, a in aux.items()}
+    names = sorted(masters0)
+    log('  Module(%s under SoftmaxOutput) on %s; ImageRecordIter(%s, '
+        'data_shape (3, %d, %d), batch %d, shuffle, rand_crop, rand_mirror, '
+        'means %s, std 1, preprocess_threads %d): %d batches an epoch; set up '
+        'in %.1f s' % (name, mod._context, os.path.basename(rec), image,
+                       image, batch, DATA_MEAN, RECORD_THREADS, n_batches,
+                       time.perf_counter() - t0))
+
+    def restore():
+        mod.set_params({n: mt.nd.from_torch(t.clone(), ctx)
+                        for n, t in masters0.items()},
+                       {n: mt.nd.from_torch(t.clone(), ctx)
+                        for n, t in aux0.items()})
+        mod.init_optimizer(kvstore='device', optimizer='sgd',
+                           optimizer_params=FIT_OPT, force_init=True)
+
+    def one_fit(label, it, fused, capture=False, tele=False):
+        """One epoch from the masters; returns what it saw."""
+        restore()
+        seen = {'loss': [], 'ev': [], 'wall': [], 'speed': [],
+                'windows': [], 'fused': fused}
+        prev = {'ce': (0.0, 0)}
+
+        def cb(param):
+            ce = param.eval_metric.get_metric(1)
+            cur = (ce.sum_metric, ce.num_inst)
+            if cur[1] < prev['ce'][1]:
+                prev['ce'] = (0.0, 0)
+            seen['loss'].append((cur[0] - prev['ce'][0]) /
+                                max(cur[1] - prev['ce'][1], 1))
+            prev['ce'] = cur
+            if capture and param.nbatch == 0:
+                b = param.locals['data_batch']
+                seen['batch1'] = (b.data[0].asnumpy(), b.label[0].asnumpy())
+                seen['out1'] = mod.get_outputs()[0].handle.detach().clone()
+                seen['after1'] = {n: v.handle.detach().clone()
+                                  for n, v in mod.get_params()[0].items()}
+                seen['bytes'] = b.data[0].handle.numel() * \
+                    b.data[0].handle.element_size()
+            if on_card and not fused:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                seen['ev'].append(ev)
+            seen['wall'].append(time.perf_counter())
+
+        class Speeds(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if 'Speed:' in msg:
+                    seen['speed'].append(
+                        float(msg.split('Speed: ')[1].split()[0]))
+        handler = Speeds()
+        root = logging.getLogger()
+        level = root.level
+        root.addHandler(handler)
+        root.setLevel(logging.INFO)
+        path = os.path.join(work, 'q1-%s.jsonl' % label) if tele else None
+        env = {'MXTPU_FUSED_FIT': '1' if fused else '0'}
+        if tele:
+            env.update(MXTPU_TELEMETRY='1', MXTPU_TELEMETRY_PATH=path,
+                       MXTPU_TIMELINE='1')
+        timed = _timed_windows(device, seen['windows']) if fused \
+            else contextlib.nullcontext()
+        try:
+            with _flags_set(**env):
+                telemetry._reset_for_tests()
+                mt.random.seed(RECORD_SEED)
+                it.reset()
+                _sync(device)
+                t = time.perf_counter()
+                with ctx, timed:
+                    mod.fit(it, num_epoch=1, optimizer='sgd',
+                            optimizer_params=FIT_OPT,
+                            eval_metric=['acc', 'ce'], kvstore='device',
+                            batch_end_callback=[cb, mt.callback.Speedometer(
+                                batch, FIT_SPEEDOMETER)])
+                _sync(device)
+                seen['fit_s'] = time.perf_counter() - t
+                if tele:
+                    telemetry.write_summary(log=False)
+                    telemetry.shutdown()
+        finally:
+            telemetry._reset_for_tests()
+            root.removeHandler(handler)
+            root.setLevel(level)
+        if tele:
+            seen['input'] = _goodput_timeline(path)
+        check(('_fused_fit_cache' in mod.__dict__) == fused,
+              'run %s did not take the %s loop'
+              % (label, 'windowed' if fused else 'per-batch'))
+        if fused:
+            loop = mod.__dict__['_fused_fit_cache'][1]
+            seen['loop'] = (loop.windows, loop.tail_batches)
+        return seen
+
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        it_host = _record_iter(rec, spec, 0)
+        it_dev = _record_iter(rec, spec, 1)
+        runs = {'1 per-batch, host augment':
+                one_fit('per-batch', it_host, False, capture=True, tele=True),
+                '2 window, host augment':
+                one_fit('window', it_host, True, tele=True),
+                '3 window, deferred device augment':
+                one_fit('deferred', it_dev, True, tele=True)}
+        # a deferred batch's bytes: the raw uint8 batch the window uploads
+        check(it_dev.defer_device_aug(True), 'the device augment did not '
+              'take the deferred switch')
+        try:
+            it_dev.reset()
+            raw = it_dev.next().data[0].handle
+        finally:
+            it_dev.defer_device_aug(False)
+        u8_bytes = raw.numel() * raw.element_size()
+        f32_bytes = runs['1 per-batch, host augment']['bytes']
+        for label, seen in runs.items():
+            check(len(seen['loss']) == n_batches and
+                  all(np.isfinite(seen['loss'])),
+                  'run %s: a loss is not finite or a batch is missing: %s'
+                  % (label, seen['loss']))
+            if seen['fused']:
+                check(seen['loop'] == (n_batches // W, n_batches % W),
+                      'run %s ran %s windows and tail batches'
+                      % (label, seen['loop']))
+                syncs = [s_ for _, _, ss, _ in seen['windows'] for s_ in ss]
+                log('  run %s: synchronising calls inside the windows (torch '
+                    'sync debug mode): %s' % (label, len(syncs) if on_card
+                                              else 'not measured off the '
+                                              'card'))
+                check(not syncs, 'run %s\'s window synchronised with the '
+                      'device: %s' % (label, syncs[:3]))
+            if seen['ev']:
+                evs = seen['ev']
+                ev_ms = statistics.median(evs[i].elapsed_time(evs[i + 1])
+                                          for i in range(len(evs) - 1))
+            elif seen['windows'] and seen['windows'][-1][0]:
+                ev = seen['windows'][-1][0]
+                ev_ms = ev[0].elapsed_time(ev[1]) / W
+            else:
+                ev_ms = None
+            wait, draw, put = seen['input']
+            log('  run %s: losses %s; %.1f images/s over the epoch (%.3f ms '
+                'of host wall a batch, synchronised at the end); a batch %s '
+                'by CUDA events (%s); input_wait %.1f%% of the wall '
+                '(goodput); draw %s ms and put %s ms a step (timeline); '
+                'bytes uploaded a batch %d (%s); Speedometer %s samples/s'
+                % (label, ['%.4f' % v for v in seen['loss']],
+                   n_images / seen['fit_s'], seen['fit_s'] * 1e3 / n_batches,
+                   '%.3f ms' % ev_ms if ev_ms else 'not measured',
+                   'the second window over its %d steps' % W
+                   if seen['fused'] else
+                   'median over batches 2-%d' % n_batches,
+                   100 * wait, draw, put,
+                   u8_bytes if label.startswith('3') else f32_bytes,
+                   'uint8' if label.startswith('3') else 'f32',
+                   seen['speed']))
+        nd = nd_figures or {}
+        pb, wn = nd.get('per_batch') or {}, nd.get('window') or {}
+        log('  beside NDArrayIter over host arrays, this run: (l1) per batch '
+            '%s by CUDA events, %s of host wall; (m1) a window batch %s by '
+            'CUDA events, %s of host wall; f32 bytes a batch %d against the '
+            'deferred augment\'s %d uint8 (%.2fx fewer)'
+            % ('%.3f ms' % pb['batch_ms'] if pb.get('batch_ms')
+               else 'not measured',
+               '%.3f ms' % pb['wall_ms'] if pb.get('wall_ms')
+               else 'not measured',
+               '%.3f ms' % wn['win_ms'] if wn.get('win_ms')
+               else 'not measured',
+               '%.3f ms' % wn['wall_ms'] if wn.get('wall_ms')
+               else 'not measured', f32_bytes, u8_bytes,
+               f32_bytes / u8_bytes))
+
+        # batch 1 of run 1 against the same decoded batch through
+        # NDArrayIter from the same masters
+        first = runs['1 per-batch, host augment']
+        X1, y1 = first['batch1']
+        restore()
+        ref = {}
+
+        def ref_cb(param):
+            ref['out1'] = mod.get_outputs()[0].handle.detach().clone()
+            ref['after1'] = {n: v.handle.detach().clone()
+                             for n, v in mod.get_params()[0].items()}
+        with _per_batch(), ctx:
+            mod.fit(mt.io.NDArrayIter(X1, y1, batch_size=batch), num_epoch=1,
+                    optimizer='sgd', optimizer_params=FIT_OPT,
+                    eval_metric=['acc', 'ce'], kvstore='device',
+                    batch_end_callback=ref_cb)
+        same_out = bool(torch.equal(first['out1'], ref['out1']))
+        same_par = all(torch.equal(first['after1'][n], ref['after1'][n])
+                       for n in names)
+        log('  run 1\'s batch 1 against the same decoded batch through '
+            'NDArrayIter from the same masters: outputs %s, parameters after '
+            'the update %s (held bit for bit; max abs difference %.3e)'
+            % ('bit for bit' if same_out else 'NOT bit for bit',
+               'bit for bit' if same_par else 'NOT bit for bit',
+               float((first['out1'] - ref['out1']).abs().max())))
+        check(same_out and same_par, 'run 1\'s batch 1 disagrees with '
+              'NDArrayIter')
+
+        # run 3's window 1 against 4 per-batch steps on the eager device
+        # augment, from the same masters and the same random state
+        restore()
+        with _per_batch(), ctx:
+            mt.random.seed(RECORD_SEED)
+            it_dev.reset()
+            mod.fit(mt.io.ResizeIter(it_dev, W), num_epoch=1,
+                    optimizer='sgd', optimizer_params=FIT_OPT,
+                    eval_metric=['acc', 'ce'], kvstore='device')
+        win1 = runs['3 window, deferred device augment']['windows'][0][3]
+        after = {n: v.handle.detach() for n, v in mod.get_params()[0].items()}
+        err = rel_rms(_concat_update(names, masters0, win1),
+                      _concat_update(names, masters0, after))
+        same = all(torch.equal(win1[n].to(after[n].device), after[n])
+                   for n in names)
+        log('  run 3\'s masters after window 1 against %d per-batch steps on '
+            'the eager device augment from the same masters and random '
+            'state: %s (update relative RMS error %.3e; held bit for bit)'
+            % (W, 'bit for bit' if same else 'NOT bit for bit', err))
+        check(same, 'the deferred window disagrees with the per-batch loop '
+              'on the eager device augment')
+        augment_vs_host(device, rec, spec)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    del mod
+
+
+def _write_idx(path_img, path_lab, images, labels):
+    """MNIST's idx files (gzipped where the name ends in .gz)."""
+    import gzip
+    for path, head, body in (
+            (path_img, struct.pack('>IIII', 2051, len(images), 28, 28),
+             images.astype(np.uint8).tobytes()),
+            (path_lab, struct.pack('>II', 2049, len(labels)),
+             labels.astype(np.uint8).tobytes())):
+        opener = gzip.open if path.endswith('.gz') else open
+        with opener(path, 'wb') as f:
+            f.write(head + body)
+
+
+def mnist_paths(device, work, n=MNIST_IMAGES):
+    """Phase (q2): MNISTIter over idx files written from synthetic_mnist
+    into an MLP through Module.fit (its accuracy above MNIST_ACC), and
+    gluon.data.vision.MNIST through transform_first and the DataLoader into
+    a Gluon MLP with split_and_load, autograd.record(), the loss and
+    Trainer (its loss falling)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon, nd
+    ctx = _ctx_of(device)
+    images, labels = mt.io.synthetic_mnist(n, seed=0)
+    pixels = (images * 255).astype(np.uint8)
+    img_path = os.path.join(work, 'train-images-idx3-ubyte')
+    lab_path = os.path.join(work, 'train-labels-idx1-ubyte')
+    _write_idx(img_path, lab_path, pixels, labels)
+    it = mt.io.MNISTIter(image=img_path, label=lab_path,
+                         batch_size=MNIST_BATCH, flat=True)
+    data = mt.sym.Variable('data')
+    net = mt.sym.Activation(mt.sym.FullyConnected(data, num_hidden=128,
+                                                  name='fc1'),
+                            act_type='relu')
+    net = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(net, num_hidden=10,
+                                                     name='fc2'),
+                               name='softmax')
+    mod = mt.mod.Module(net, context=ctx)
+    t0 = time.perf_counter()
+    mt.random.seed(0)
+    mod.fit(it, num_epoch=1, optimizer='sgd',
+            optimizer_params={'learning_rate': 0.1}, eval_metric='acc',
+            initializer=_xavier(), kvstore='device')
+    fit_s = time.perf_counter() - t0
+    acc = dict(mod.score(it, 'acc'))['accuracy']
+    log('  MNISTIter over idx files of %d synthetic images (batch %d, flat) '
+        '-> MLP 784-128-10 through Module.fit, one epoch in %.2f s: accuracy '
+        '%.4f after it (chance 0.1; held above %g)'
+        % (n, MNIST_BATCH, fit_s, acc, MNIST_ACC))
+    check(acc > MNIST_ACC, 'the MNIST fit did not learn')
+
+    root = os.path.join(work, 'mnist')
+    os.makedirs(root, exist_ok=True)
+    _write_idx(os.path.join(root, 'train-images-idx3-ubyte.gz'),
+               os.path.join(root, 'train-labels-idx1-ubyte.gz'), pixels,
+               labels)
+    dataset = gluon.data.vision.MNIST(root=root).transform_first(
+        lambda x: x.astype('float32') / 255)
+    loader = gluon.data.DataLoader(dataset, batch_size=GLUON_MNIST_BATCH,
+                                   shuffle=True)
+    with mt.name.NameManager():
+        mlp = gluon.nn.Sequential()
+        with mlp.name_scope():
+            mlp.add(gluon.nn.Dense(128, activation='relu'))
+            mlp.add(gluon.nn.Dense(10))
+    mlp.initialize(mt.init.Xavier(), ctx=ctx)
+    trainer = gluon.Trainer(mlp.collect_params(), 'sgd',
+                            {'learning_rate': 0.1})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    t0 = time.perf_counter()
+    for xb, yb in loader:
+        check(xb.context == mt.cpu() and yb.context == mt.cpu(),
+              'the DataLoader gave a batch off the host')
+        x = gluon.utils.split_and_load(xb, [ctx])[0]
+        y = gluon.utils.split_and_load(yb, [ctx])[0]
+        with autograd.record():
+            loss = loss_fn(mlp(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        losses.append(float(loss.mean().asscalar()))
+    loop_s = time.perf_counter() - t0
+    head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+    log('  gluon.data.vision.MNIST(root) -> transform_first -> '
+        'DataLoader(batch %d, shuffle) -> split_and_load -> Gluon MLP on %s: '
+        '%d batches in %.2f s, loss %.4f over the first 5, %.4f over the last '
+        '5 (held falling)' % (GLUON_MNIST_BATCH, x.context, len(losses),
+                              loop_s, head, tail))
+    check(all(np.isfinite(losses)) and tail < head,
+          'the Gluon MNIST loop\'s loss did not fall')
+
+
+def data_head(device, cfg, batches=DATA_HEAD_BATCHES):
+    """Phase (q3): (l2)'s head inputs through ArrayDataset, the DataLoader
+    and split_and_load into nd.LayerNorm (K4) -> nd.FullyConnected -> Cast
+    f32 -> nd.softmax_cross_entropy (K3) under autograd.record(), backward
+    and gluon.Trainer(sgd).step over its Parameters: the launches (3 and 3,
+    K5 and K6 0) and each batch's loss against the plain versions on the
+    parameters it ran with. Returns {wrapper: launches}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    ctx = _ctx_of(device)
+    N, D, V = MAX_BATCH * cfg.seq_len, cfg.d_model, cfg.vocab
+    rng = np.random.RandomState(22)
+    X = rng.standard_normal((batches * N, D)).astype(np.float32)
+    y = rng.randint(0, V, batches * N).astype(np.int32)
+    loader = gluon.data.DataLoader(gluon.data.ArrayDataset(X, y),
+                                   batch_size=N)
+    params = gluon.ParameterDict('head_')
+    gamma = params.get('gamma', shape=(D,), init=mt.init.One())
+    beta = params.get('beta', shape=(D,), init=mt.init.Zero())
+    weight = params.get('weight', shape=(V, D))
+    mt.random.seed(0)
+    params.initialize(_xavier(), ctx=ctx)
+    trainer = gluon.Trainer(params, 'sgd', dict(FIT_OPT))
+    counters = (ck.layernorm_fwd, ck.rmsnorm_fwd, ck.softmax_fwd,
+                ck.softmax_xent_fwd)
+    errs, losses = [], []
+    # the main path: counts are zeroed just before and read just after
+    for fwd in counters:
+        fwd.launches = 0
+    for xb, yb in loader:
+        x = gluon.utils.split_and_load(xb, [ctx])[0]
+        lab = gluon.utils.split_and_load(yb, [ctx])[0]
+        before = [p.data(ctx).handle.detach().clone()
+                  for p in (gamma, beta, weight)]
+        with autograd.record():
+            h = nd.LayerNorm(x, gamma.data(ctx), beta.data(ctx))
+            logits = nd.Cast(nd.FullyConnected(h, weight.data(ctx),
+                                               num_hidden=V, no_bias=True),
+                             dtype='float32')
+            loss = nd.softmax_cross_entropy(logits, lab)
+        loss.backward()
+        trainer.step(N)
+        got = float(loss.asnumpy().sum())
+        with torch.no_grad():
+            hr = ck.layernorm_ref(x.handle, before[0], before[1])
+            want = float(ck.softmax_xent_ref((hr @ before[2].t()).float(),
+                                             lab.handle).sum())
+        losses.append(got)
+        errs.append(abs(got - want) / abs(want))
+    launches = {fwd.__name__: fwd.launches for fwd in counters}
+    want = {'layernorm_fwd': batches, 'rmsnorm_fwd': 0, 'softmax_fwd': 0,
+            'softmax_xent_fwd': batches}
+    if device.type != 'cuda':
+        want = dict.fromkeys(want, 0)
+    log('  ArrayDataset(x [%d, %d] f32, labels) -> DataLoader(batch %d) -> '
+        'split_and_load -> LayerNorm -> FullyConnected to %d -> f32 -> '
+        'softmax_cross_entropy under autograd.record(), backward, '
+        'Trainer(sgd).step: %d batches, launches %s; losses %s, relative '
+        'errors against the plain versions %s (held to %g)'
+        % (batches * N, D, N, V, len(losses), launches,
+           ['%.2f' % v for v in losses], ['%.3e' % e for e in errs],
+           DATA_HEAD_RTOL))
+    check(launches == want, 'the data path\'s launches %s != %s'
+          % (launches, want))
+    check(len(errs) == batches and max(errs) <= DATA_HEAD_RTOL,
+          'a batch\'s loss through the DataLoader disagrees with the plain '
+          'versions')
+    return launches
+
+
+def phase_q(device, cfg, work, spec=RESNET, n_images=RECORD_IMAGES,
+            side=RECORD_SIDE, nd_figures=None):
+    """Phase (q): (q0) the record file on the native writer and both
+    readers, (q1) train_imagenet's --data-train recipe from it, (q2) the
+    MNIST paths, (q3) K3 and K4 fed by the Gluon data path. Returns (q3)'s
+    launches."""
+    t0 = time.perf_counter()
+    log('  (q0) the record file')
+    rec = records(work, n_images, side, spec[3])
+    log('  (q1) train_imagenet\'s --data-train recipe through ImageRecordIter '
+        'and Module.fit: %s, batch %d' % (spec[0], spec[1]))
+    record_fit(device, rec, work, spec, n_images, nd_figures)
+    log('  (q2) the MNIST paths')
+    mnist_paths(device, work)
+    log('  (q3) K3 and K4 fed by the Gluon data path')
+    launches = data_head(device, cfg)
+    log('  phase (q) took %.1f s' % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     # phase (l1)'s checkpoint, phase (n)'s head and its telemetry logs
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as work:
@@ -4781,7 +5424,7 @@ def run(work):
     module_launches, per_batch = phase_l(device, cfg, ckpt=ckpt)
 
     log('(m) the fused windows of Module.fit, score and predict')
-    window_launches = phase_m(device, cfg, per_batch=per_batch)
+    window_launches, windowed = phase_m(device, cfg, per_batch=per_batch)
 
     log('(n) the serving plane on the card')
     serve_flash, serve_rows = phase_n(device, cfg, model, ref, ckpt)
@@ -4791,6 +5434,10 @@ def run(work):
 
     log('(p) the training loop\'s telemetry and the profiler on the card')
     prof_launches, trace_ms = phase_p(device, cfg, work)
+
+    log('(q) the data plane on the card')
+    data_launches = phase_q(device, cfg, work, nd_figures={
+        'per_batch': per_batch, 'window': windowed})
 
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
@@ -4837,6 +5484,7 @@ def run(work):
             'serving_launches': serve_rows[row_fns(kernel)[0].__name__],
             'op_library_launches': op_launches[row_fns(kernel)[0].__name__],
             'profiler_launches': prof_launches[row_fns(kernel)[0].__name__],
+            'data_plane_launches': data_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):
         record['kernels'].append({

@@ -41,7 +41,12 @@ Ported so far:
 - the training loop's telemetry (the spans and counters of fit, score and
   the windows, goodput, the step timeline) and :mod:`.profiler`
   (``mx.profiler``: the host-span chrome trace with a ``torch.profiler``
-  device trace beside it).
+  device trace beside it);
+- the data plane: :mod:`.recordio` (on a native reader built from
+  ``src/recordio.cc``, :mod:`._native`), the record, MNIST, CSV and
+  detection iterators of :mod:`.io` with ``ImageRecordIter``'s augment on
+  the card (deferred into the fit window), :mod:`.image`, ``gluon.data``
+  and ``gluon.utils``.
 
 The kernels and their plain versions are in :mod:`.ops.cuda_kernels`.
 """
@@ -71,6 +76,8 @@ from . import symbol
 from . import symbol as sym
 from . import executor
 from . import io
+from . import recordio
+from . import image
 from . import metric
 from . import callback
 from . import kvstore
@@ -89,6 +96,6 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context', 'base',
            'telemetry',
            'serving',
            'random', 'autograd', 'attribute', 'name', 'initializer', 'init',
-           'symbol', 'sym', 'executor', 'io', 'metric', 'callback',
+           'symbol', 'sym', 'executor', 'io', 'recordio', 'image', 'metric', 'callback',
            'kvstore', 'kv', 'model', 'save_checkpoint', 'load_checkpoint',
            'module', 'mod', 'gluon', 'graph_train', 'AttrScope']

@@ -45,6 +45,11 @@ the JAX package's, so one environment drives both packages:
 - ``MXTPU_SERVE_BIND`` and ``MXTPU_SERVE_MAX_WAIT_MS``: the serving HTTP
   front end's bind address and the batcher's coalescing deadline
   (:mod:`.serving`);
+- ``MXTPU_NO_NATIVE``: the record files' pure-Python reader and writer
+  in place of the native ones (:mod:`._native`);
+- ``MXTPU_DEVICE_AUGMENT`` and ``MXTPU_HOST_CROP``: ImageRecordIter's
+  augment on the card, and whether its workers crop on the host first
+  (:mod:`.io`);
 - ``MXTPU_CKPT_DIR``, ``MXTPU_FAULT_INJECT``, ``MXTPU_HEALTH``,
   ``MXTPU_DYNAMICS``, ``MXTPU_SHARDED_UPDATE`` and ``MXTPU_GRAD_COMPRESS``:
   paths of the JAX package's ``Module.fit`` and eval that the port does
@@ -327,3 +332,16 @@ flags.declare('MXTPU_SERVE_MAX_WAIT_MS', float, 5.0,
               'dispatch; a dispatch fires as soon as the largest bucket is '
               'full or this deadline passes. 0 dispatches each poll at once',
               min_value=0.0)
+flags.declare('MXTPU_NO_NATIVE', bool, False,
+              'Read and write record files with the pure-Python RecordIO '
+              'in place of the native reader built from src/recordio.cc')
+flags.declare('MXTPU_DEVICE_AUGMENT', bool, False,
+              'ImageRecordIter ships fixed-size uint8 batches and runs the '
+              'crop, mirror and normalize on the batch\'s device (for hosts '
+              'whose cores cannot feed the card from the host augment)')
+flags.declare('MXTPU_HOST_CROP', bool, True,
+              'In ImageRecordIter\'s device-augment mode, the workers crop '
+              '(random or centre) to the target H x W before the handover, '
+              'so the upload carries H*W/S^2 of the source bytes; mirror '
+              'and normalize stay on the device. 0 ships the whole '
+              'fixed-size source and crops on the device')

@@ -33,7 +33,19 @@ call with no host synchronisation inside it, behind the unchanged
   the callbacks fire in a burst after each window;
 - the next window's batches are drawn and uploaded while this window runs
   (``window_pipeline.WindowPipeline``), and the tail batches (fewer than
-  W) run through the per-batch loop.
+  W) run through the per-batch loop;
+- the deferred device augment: an iterator that takes
+  ``defer_device_aug(True)`` (``ImageRecordIter`` in device-augment mode)
+  hands over its raw uint8 batches, which the window stacks and uploads
+  in one copy (a quarter of the f32 bytes), and each step applies the
+  iterator's ``device_aug_pure`` on the card before the graph. Each step
+  draws its augment's seed and then its run's seed from the per-run
+  stream, the order in which the per-batch loop draws them (the eager
+  augment at the draw, the executor at the forward), so the window sees
+  the per-batch loop's batches; the tail batches take the eager augment.
+  The switch is flipped back in a ``finally``, and the window's key
+  carries ``device_aug_signature()``: iterators with another mean, std,
+  scale, flags or shape never share a window.
 
 Eligibility (``build`` returns None and fit runs the per-batch loop, as in
 the JAX package): a plain Module, one executor, ``grad_req`` 'write' or
@@ -57,8 +69,7 @@ for it.
 Not ported: the sharded (ZeRO) update and the compressed gradients with
 their ``update.*`` and ``comm.*`` gauges (ROADMAP.md §1 item 11), faults
 and the checkpointer hook (item 12), the health and dynamics sentinels and
-the run ledger (item 13), and the record iterators' deferred device
-augmentation (item 10). Without a mesh the JAX loop's ``_prepare_tail``
+the run ledger (item 13). Without a mesh the JAX loop's ``_prepare_tail``
 has nothing to do, and it is left out.
 
 Flags: MXTPU_FUSED_FIT=0 turns the window off; MXTPU_FIT_STEPS_PER_CALL
@@ -68,6 +79,7 @@ turn; MXTPU_FUSED_FIT_TIMING=1 logs each epoch's host stages.
 import logging
 import math
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -79,6 +91,7 @@ from .. import random as _random
 from .. import telemetry as _tele
 from ..config import flags
 from ..executor import mirror_wrap
+from ..io import aug_generator
 from ..kvstore import _updater_key
 from ..ndarray.ndarray import NDArray
 from ..ops import registry as _reg
@@ -303,6 +316,10 @@ class FusedFitLoop:
         self._upd_keys = updater_keys(module, self._grad_names)
         ensure_opt_states(module, self._grad_names, self._upd_keys,
                           e.arg_dict)
+        # the deferred augment's function of each iterator, while it
+        # lives, and the one of the epoch that runs (None: no defer)
+        self._defer_fns = weakref.WeakKeyDictionary()
+        self._defer_fn = None
         self.windows = 0
         self.tail_batches = 0
         self.fetches = 0
@@ -448,9 +465,12 @@ class FusedFitLoop:
 
     def _build_program(self, static_attrs):
         """``window_fn(params, states, aux, gaccs, data_stack, label_stack,
-        seeds, lr, wd) -> (params, states, aux, gaccs, ys)``: the W steps
-        of the window, ``ys`` the (W, 2 * metrics) statistics or, in
-        host-metric mode, each output stacked over the steps."""
+        seeds, lr, wd, aug_seeds) -> (params, states, aux, gaccs, ys)``: the
+        W steps of the window, ``ys`` the (W, 2 * metrics) statistics or,
+        in host-metric mode, each output stacked over the steps. Under the
+        deferred device augment (``self._defer_fn``, set by run_epoch) each
+        step first turns its raw first input into the graph's with that
+        function and a generator seeded by its entry of ``aug_seeds``."""
         run = mirror_wrap(self._exec._run)
         arg_pos = {n: i for i, n in enumerate(self._arg_names)}
         data_names = list(self.module._data_names)
@@ -466,9 +486,14 @@ class FusedFitLoop:
         accum = self._accum
         n_args = len(arg_pos)
         W = self.window
+        defer_fn = self._defer_fn
 
         def step(params, states, aux, gaccs, datas, labels, seed, lr_row,
-                 wd_row):
+                 wd_row, aug_seed):
+            if defer_fn is not None:
+                datas = (defer_fn(datas[0], aug_generator(datas[0].device,
+                                                          aug_seed)),) \
+                    + tuple(datas[1:])
             full = [None] * n_args
             for n, v in zip(carry_names, params):
                 full[arg_pos[n]] = v
@@ -535,13 +560,14 @@ class FusedFitLoop:
                 gaccs, ys
 
         def window_fn(params, states, aux, gaccs, data_stack, label_stack,
-                      seeds, lr, wd):
+                      seeds, lr, wd, aug_seeds=None):
             ys = []
             for j in range(W):
                 params, states, aux, gaccs, y = step(
                     params, states, aux, gaccs,
                     tuple(d[j] for d in data_stack),
-                    tuple(l[j] for l in label_stack), seeds[j], lr[j], wd[j])
+                    tuple(l[j] for l in label_stack), seeds[j], lr[j], wd[j],
+                    aug_seeds[j] if aug_seeds is not None else None)
                 ys.append(y)
             if stat_fns is not None:
                 ys = torch.stack(ys)
@@ -621,16 +647,39 @@ class FusedFitLoop:
                 nbatch += 1
             return nbatch
 
+        # the deferred device augment: raw uint8 batches, augmented inside
+        # the steps (one function an iterator, kept while it lives)
+        defer_switch = getattr(train_data, 'defer_device_aug', None)
+        self._defer_fn = None
+        defer_sig = False
+        if callable(defer_switch) and defer_switch(True):
+            fn = self._defer_fns.get(train_data)
+            if fn is None:
+                fn = self._defer_fns[train_data] = \
+                    train_data.device_aug_pure()
+            self._defer_fn = fn
+            sig_fn = getattr(train_data, 'device_aug_signature', None)
+            # the augment's arithmetic is part of the window: its key
+            # carries the configuration (an unsigned iterator keys by the
+            # live function, held by the key itself)
+            defer_sig = sig_fn() if callable(sig_fn) \
+                else ('defer-unsigned', fn)
+        else:
+            defer_switch = None
         try:
             return self._run_epoch_inner(train_data, eval_metric, epoch,
-                                         batch_end_callback, apply_stats)
+                                         batch_end_callback, apply_stats,
+                                         defer_sig)
         finally:
+            if defer_switch is not None:
+                defer_switch(False)
+                self._defer_fn = None
             # the loop outlives fit() (build_cached): drop the last
             # window's device stacks and the strong references of its key
             self._pipe.drop_cache()
 
     def _run_epoch_inner(self, train_data, eval_metric, epoch,
-                         batch_end_callback, apply_stats):
+                         batch_end_callback, apply_stats, defer_sig):
         from ..io import DataBatch
         from ..model import BatchEndParam
         from .base_module import _as_list
@@ -674,7 +723,7 @@ class FusedFitLoop:
                 attrs_key = tuple(sorted(static_attrs.items()))
                 shapes_key = tuple((tuple(d.shape), str(d.dtype))
                                    for d in snaps[0][0])
-                prog_key = (attrs_key, shapes_key)
+                prog_key = (attrs_key, shapes_key, defer_sig)
                 if prog_key not in self._programs:
                     with _tele.span('fused_fit.build', 'fused_fit'):
                         self._programs[prog_key] = self._build_program(
@@ -690,7 +739,17 @@ class FusedFitLoop:
                 # the optimizer's host work runs before the wait for the
                 # upload, which it hides under
                 lr_arr, wd_arr = self._sample_window_lr()
-                seeds = [_random.next_seed() for _ in range(self.window)]
+                # with the deferred augment, each step's augment seed and
+                # then its run seed: the per-batch loop's order
+                aug_seeds = None
+                if self._defer_fn is not None:
+                    pairs = [(_random.next_seed(), _random.next_seed())
+                             for _ in range(self.window)]
+                    aug_seeds = [a for a, _ in pairs]
+                    seeds = [r for _, r in pairs]
+                else:
+                    seeds = [_random.next_seed()
+                             for _ in range(self.window)]
                 t = clk()
                 with _tele.span('fused_fit.put', 'fused_fit'):
                     data_stack, label_stack = fut()
@@ -703,7 +762,7 @@ class FusedFitLoop:
                     lr, wd = self._lr_tensors(lr_arr, wd_arr)
                     params, states, aux, gaccs, pieces = window_fn(
                         params, states, aux, gaccs, data_stack, label_stack,
-                        seeds, lr, wd)
+                        seeds, lr, wd, aug_seeds)
                     self._writeback(params, states, aux, gaccs)
                 self.windows += 1
                 _tele.counter('fit.steps').inc(self.window)
@@ -740,7 +799,14 @@ class FusedFitLoop:
         tm['fetch'] += clk() - t
         for ds, ls, pad, idx in snaps:
             # the tail (< W): the per-batch path, on batches rebuilt from
-            # the draw-time snapshots
+            # the draw-time snapshots; a deferred batch takes the eager
+            # augment on the executor's device
+            if self._defer_fn is not None:
+                dev = self._exec._ctx.torch_device()
+                ds = (self._defer_fn(ds[0].to(dev, non_blocking=True),
+                                     aug_generator(dev,
+                                                   _random.next_seed())),) \
+                    + tuple(ds[1:])
             sb = DataBatch(data=[NDArray(d) for d in ds],
                            label=[NDArray(l) for l in ls], pad=pad,
                            index=idx)

@@ -5,12 +5,17 @@ Each alias is the same OpDef as its modern target (the capitalized
 NDArray-function forms, ``broadcast_plus``/``broadcast_minus``, the
 ``_sample_*`` and dense ``_sparse_*`` names, ``CuDNNBatchNorm``,
 ``_broadcast_backward``). ``Convolution_v1``, ``_CrossDeviceCopy`` and
-``_NoGradient`` are ops of their own. Not here yet: ``_sparse_cast_storage``
-and ``_contrib_ctc_loss`` (their targets ``cast_storage`` and ``ctc_loss``
-come with sparse storage and the RNN stack), the image codecs ``_cv*``
-(with ``image/``) and the Python-callback bridges ``_Native``, ``_NDArray``
-and ``_CustomFunction`` (with ``operator.py``).
+``_NoGradient`` are ops of their own, and so are the image codecs
+``_cvimdecode``, ``_cvimread``, ``_cvimresize`` and ``_cvcopyMakeBorder``:
+host ops in numpy (and PIL) on CPU arrays, through :mod:`..image`. Not
+here yet: ``_sparse_cast_storage`` and ``_contrib_ctc_loss`` (their targets
+``cast_storage`` and ``ctc_loss`` come with sparse storage and the RNN
+stack) and the Python-callback bridges ``_Native``, ``_NDArray`` and
+``_CustomFunction`` (with ``operator.py``).
 """
+import numpy as np
+import torch
+
 from . import registry as _reg
 
 _ALIASES = {
@@ -76,3 +81,78 @@ def _cross_device_copy(attrs, x):
 def _no_gradient(attrs, x):
     """The gradient blocker: ``x`` without a gradient."""
     return x.detach()
+
+
+# -- the image codecs (MXNet's src/io/image_io.cc): host ops -----------------
+
+def _host(t):
+    return t.detach().cpu().numpy()
+
+
+@_reg.register('_cvimdecode', host=True, differentiable=False,
+               param_defaults={'flag': 1, 'to_rgb': True})
+def _cvimdecode(attrs, buf):
+    """Decode JPEG or PNG bytes to a uint8 HWC image (PIL in place of
+    OpenCV)."""
+    from ..image.image import imdecode
+    raw = _host(buf).astype(np.uint8).tobytes()
+    img = imdecode(raw, to_rgb=bool(attrs.get('to_rgb', True)),
+                   flag=int(attrs.get('flag', 1)))
+    return torch.from_numpy(np.asarray(img, np.uint8).copy())
+
+
+@_reg.register('_cvimread', host=True, differentiable=False, input_names=[],
+               param_defaults={'filename': '', 'flag': 1, 'to_rgb': True})
+def _cvimread(attrs, *_):
+    """Read and decode an image file."""
+    from ..image.image import imdecode
+    with open(attrs.get('filename', ''), 'rb') as f:
+        raw = f.read()
+    img = imdecode(raw, to_rgb=bool(attrs.get('to_rgb', True)),
+                   flag=int(attrs.get('flag', 1)))
+    return torch.from_numpy(np.asarray(img, np.uint8).copy())
+
+
+def _cvimresize_shape(attrs, in_shapes):
+    s = in_shapes[0]
+    return [(int(attrs['h']), int(attrs['w'])) + tuple(s[2:])], [None]
+
+
+@_reg.register('_cvimresize', host=True, differentiable=False,
+               shape_fn=_cvimresize_shape,
+               param_defaults={'w': 0, 'h': 0, 'interp': 1})
+def _cvimresize(attrs, src):
+    """Resize an HWC image, bilinear in numpy; integer images are rounded
+    and clipped back to their type."""
+    from ..image.image import imresize
+    img = _host(src)
+    out = imresize(img.astype(np.float32), int(attrs['w']), int(attrs['h']),
+                   interp=int(attrs.get('interp', 1)))
+    if np.issubdtype(img.dtype, np.integer):
+        info = np.iinfo(img.dtype)
+        out = np.clip(np.rint(out), info.min, info.max)
+    return torch.from_numpy(np.ascontiguousarray(out.astype(img.dtype)))
+
+
+def _cvborder_shape(attrs, in_shapes):
+    s = in_shapes[0]
+    out = (s[0] + int(attrs.get('top', 0)) + int(attrs.get('bot', 0)),
+           s[1] + int(attrs.get('left', 0)) + int(attrs.get('right', 0)))
+    return [out + tuple(s[2:])], [None]
+
+
+@_reg.register('_cvcopyMakeBorder', host=True, differentiable=False,
+               shape_fn=_cvborder_shape,
+               param_defaults={'top': 0, 'bot': 0, 'left': 0, 'right': 0,
+                               'type': 0, 'value': 0.0})
+def _cvcopy_make_border(attrs, src):
+    """Pad an HWC image with a constant border (cv2.BORDER_CONSTANT, the
+    only type MXNet's io path uses)."""
+    img = _host(src)
+    pad = ((int(attrs['top']), int(attrs['bot'])),
+           (int(attrs['left']), int(attrs['right'])))
+    if img.ndim == 3:
+        pad = pad + ((0, 0),)
+    out = np.pad(img, pad, mode='constant',
+                 constant_values=float(attrs.get('value', 0.0)))
+    return torch.from_numpy(out)

@@ -21,8 +21,9 @@ Conventions kept from the JAX registry:
   attr that gates it; ``arg_names_fn(attrs)`` gives the inputs a Symbol
   creates for the op (FullyConnected without a bias has two).
 - ``host`` and ``shape_fn`` describe host ops (Python on concrete arrays,
-  with their output shapes from ``shape_fn``). No ported op is one; the
-  executor raises NotImplementedError for a graph that holds one.
+  with their output shapes from ``shape_fn``): the image codecs ``_cv*``
+  of ``legacy_ops.py``. The executor raises NotImplementedError for a
+  graph that holds one.
 
 What the JAX registry has and this one does not: PyTorch runs eagerly, so
 ``jitted`` (a cached ``jax.jit`` closure per op and attrs) has no

@@ -36,9 +36,6 @@ WAITING = {
     # the RNN stack and CTC
     'RNN': 'rnn', 'ctc_loss': 'rnn', '_contrib_ctc_loss': 'rnn',
     '_contrib_CTCLoss': 'rnn',
-    # image/ (the host codecs)
-    '_cvimdecode': 'image', '_cvimread': 'image', '_cvimresize': 'image',
-    '_cvcopyMakeBorder': 'image',
     # operator.py (the Python-callback ops)
     'Custom': 'operator', '_Native': 'operator', '_NDArray': 'operator',
     '_CustomFunction': 'operator',

@@ -133,7 +133,14 @@ def test_import_leaves_jax_and_the_jax_package_out():
             'mxnet_tpu_torch.rtc, mxnet_tpu_torch.ndarray, chip_smoke, '
             'mxnet_tpu_torch.telemetry, mxnet_tpu_torch.telemetry.export, '
             'mxnet_tpu_torch.serving.batcher, mxnet_tpu_torch.serving.http, '
-            'mxnet_tpu_torch.serving.serve_model\n'
+            'mxnet_tpu_torch.serving.serve_model, mxnet_tpu_torch.recordio, '
+            'mxnet_tpu_torch._native, mxnet_tpu_torch.io.image_record, '
+            'mxnet_tpu_torch.image, mxnet_tpu_torch.image.detection, '
+            'mxnet_tpu_torch.gluon.data, mxnet_tpu_torch.gluon.data.vision, '
+            'mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.module.fused_fit\n'
+            'from mxnet_tpu_torch.io import (ImageRecordIter, MNISTIter, '
+            'CSVIter, ImageDetRecordIter, MXDataIter)\n'
+            'from mxnet_tpu_torch.gluon.data import DataLoader, ArrayDataset\n'
             'from mxnet_tpu_torch.telemetry import (registry, export, flight, '
             'trace, slo, watchdog, serve, cluster)\n'
             'from mxnet_tpu_torch.serving import (ServingEngine, '
