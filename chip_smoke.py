@@ -255,7 +255,38 @@ order they run:
     -> Cast f32 -> nd.softmax_cross_entropy (K3) under autograd.record(),
     backward and gluon.Trainer(sgd).step: K4's and K3's launches 3 and 3
     (K5 and K6 0; the kernel record's data_plane_launches), each batch's
-    loss against the plain versions on the parameters it ran with.
+    loss against the plain versions on the parameters it ran with;
+(r) the RNN stack (run after (q), before (e); TF32 stays off, so cuDNN's
+    LSTM runs in f32): (r1) lstm_bucketing at MXNet's example widths and
+    Penn Treebank's vocabulary (10,000 words, embed 200, two LSTMCells of
+    200 in a SequentialRNNCell, batch 32, buckets 10-60, sgd lr 0.01, wd
+    1e-5, Xavier(in, 2.34)) through mx.mod.BucketingModule.fit on
+    BucketSentenceIter over seeded Zipf sentences, two passes of two
+    batches a bucket: the first batch's softmax outputs and gradients
+    against the same module on the CPU, the perplexity falling, no fused
+    window built, a batch's synced host wall ms by bucket; (r2) the same
+    model on mx.rnn.FusedRNNCell (the RNN op on cuDNN): its outputs against
+    unfuse()'s cells on (r1)'s weights, the op's fused body against
+    _rnn_plain (outputs, final states, gradients) at T 60, and its ms a
+    batch beside (r1)'s; (r3) Gluon's word language model (Embedding ->
+    gluon.rnn.LSTM(200, 2 layers, dropout 0.2) -> a tied Dense, bptt 35,
+    the hidden state carried and detached, clip_global_norm,
+    Trainer('sgd')) for 8 steps with the loss falling, and the held-out
+    loss through nd.softmax_cross_entropy (K3, one launch) against the sum
+    of SoftmaxCrossEntropyLoss, K3's per-row losses at that [1120, 10000]
+    against the plain -log_softmax pick row by row; (r4) serving.DecodeEngine over (r1)'s
+    trained model's step (Embedding -> two LSTMCell steps, their four
+    states as data inputs -> FullyConnected(10000) -> softmax, K5 on its
+    block body, one launch a dispatch): 20 sessions over 16 slots, 16
+    tokens each, with LRU evictions and re-admissions, every token's
+    probabilities against a per-step reference (a batch-1 Module on the
+    CPU fed its states), the ms a token by bucket, and K5 at [16, 10000]
+    f32 held against its plain version and timed beside it, torch.softmax
+    and its bound; (r5)
+    examples/ctc/lstm_ocr.py's recipe through gluon.loss.CTCLoss(layout=
+    'TNC') for 8 batches with the loss falling, the CTC loss and its
+    gradient on the card against the CPU. K3's and K5's launches there are
+    the kernel record's rnn_launches.
 
 The second-to-last line of its output is the kernel record
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -5347,6 +5378,660 @@ def phase_q(device, cfg, work, spec=RESNET, n_images=RECORD_IMAGES,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# (r) the RNN stack on the card
+# ---------------------------------------------------------------------------
+
+# lstm_bucketing at MXNet's own example widths (example/rnn/
+# lstm_bucketing.py: num_embed 200, num_hidden 200, two layers, batch 32,
+# buckets 10-60, sgd lr 0.01, wd 1e-5, Xavier(in, 2.34)) at Penn Treebank's
+# vocabulary of 10,000 words, on sentences from a seeded stream (the PTB
+# files are not in the repository): lengths 5-60, tokens Zipf-distributed
+# over the vocabulary (p ~ 1/rank), LM_BATCHES batches a bucket, two passes.
+LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS = 10000, 200, 200, 2
+LM_BATCH = 32
+LM_BUCKETS = [10, 20, 30, 40, 50, 60]
+LM_BATCHES = 2
+LM_OPT = {'learning_rate': 0.01, 'momentum': 0.0, 'wd': 1e-5}
+# Tolerances on the card (chip_smoke turns TF32 off for cuBLAS and cuDNN,
+# torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 =
+# False, so every f32 matmul and cuDNN's LSTM run in full f32), each a
+# relative RMS error:
+# - (r1) the first batch on the card against the same module on the CPU:
+#   softmax outputs 1e-5, gradients 1e-4 (the same f32 graph, the matmuls
+#   summed in another order by cuBLAS and the CPU's BLAS; the gradients
+#   through up to 60 steps of two LSTM layers);
+# - (r2) the fused LSTM (cuDNN) against its unfuse() cells on the same
+#   weights on the card: outputs 1e-5; the RNN op's fused body against
+#   _rnn_plain at the model's shape: outputs and final states 1e-5,
+#   gradients 1e-4 (cuDNN sums its gates in another order);
+# - (r3) the held-out loss through nd.softmax_cross_entropy (K3) against
+#   the sum of gluon's SoftmaxCrossEntropyLoss: 1e-4 relative (per-row
+#   losses of ~9 summed over 1,120 rows in another order); K3's per-row
+#   losses at that [1120, 10000] against the plain -log_softmax pick, row
+#   by row: |got - want| <= 1e-5 + 1e-5 |want| (ROW_TOL's f32 pair);
+# - (r4) each decoded token's probabilities against the per-step reference
+#   (the same step at batch 1, on the CPU, so that K5 is on one side only):
+#   |got - want| <= 1e-8 + 1e-4 |want| (cuBLAS and the CPU's BLAS sum in
+#   another order: the logits move by a few f32 ulps, the probabilities by
+#   as many parts in 1e5); K5 alone at [16, 10000] f32 (unit normal rows,
+#   probabilities of about 1e-4) against its plain version:
+#   |got - want| <= 1e-7 + 1e-5 |want|;
+# - (r5) the CTC loss and its gradient on the card against the CPU: 1e-5
+#   relative, the gradient's excess over 1e-5 |cpu| at most 1e-6 (the same
+#   f32 recursion, log-sum-exps in another order).
+LM_OUT_RTOL = 1e-5
+LM_GRAD_RTOL = 1e-4
+LM_XENT_RTOL = 1e-4
+DECODE_RTOL, DECODE_ATOL = 1e-4, 1e-8
+# K5 alone at the decode's rows: a probability here is about 1e-4, so the
+# absolute slack is kept far below it
+K5_RTOL, K5_ATOL = 1e-5, 1e-7
+CTC_RTOL = 1e-5
+# (r3) Gluon's word language model (examples/gluon/word_language_model.py's
+# loop: the mean loss of a window, its gradient clipped to a global norm,
+# Trainer.step(1); with its tied weights, at bptt 35 and batch 32, on sgd at
+# lr 20 and a clip of 0.25, the settings of the reference's word LM)
+WLM_BPTT, WLM_STEPS, WLM_LR, WLM_CLIP = 35, 8, 20.0, 0.25
+# (r4) 20 sessions over 16 slots, 16 tokens each
+DECODE_SESSIONS, DECODE_CAPACITY, DECODE_TOKENS = 20, 16, 16
+# (r5) examples/ctc/lstm_ocr.py's recipe
+OCR_BATCH, OCR_BATCHES = 64, 8
+
+
+def lm_sentences(seed=0, buckets=LM_BUCKETS, per_bucket=LM_BATCHES * LM_BATCH,
+                 vocab=LM_VOCAB):
+    """LM_BATCHES batches a bucket of sentences whose lengths fill the
+    bucket's range (the first from 5), tokens 1..V-1 by Zipf's law (0 is
+    the padding label)."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, vocab)
+    p /= p.sum()
+    out, lo = [], 5
+    for b in buckets:
+        for n in rng.randint(lo, b + 1, per_bucket):
+            out.append(list(rng.choice(vocab - 1, n, p=p) + 1))
+        lo = b + 1
+    return out
+
+
+def lm_sym_gen(fused=False, vocab=LM_VOCAB):
+    """lstm_bucketing's sym_gen: Embedding -> two LSTM layers (LSTMCells in
+    a SequentialRNNCell, or one FusedRNNCell) -> FullyConnected to the
+    vocabulary -> SoftmaxOutput."""
+    import mxnet_tpu_torch as mt
+    if fused:
+        stack = mt.rnn.FusedRNNCell(LM_HIDDEN, num_layers=LM_LAYERS,
+                                    mode='lstm', prefix='lstm_')
+    else:
+        stack = mt.rnn.SequentialRNNCell()
+        for i in range(LM_LAYERS):
+            stack.add(mt.rnn.LSTMCell(num_hidden=LM_HIDDEN,
+                                      prefix='lstm_l%d_' % i))
+
+    def sym_gen(seq_len):
+        data = mt.sym.Variable('data')
+        label = mt.sym.Variable('softmax_label')
+        embed = mt.sym.Embedding(data=data, input_dim=vocab,
+                                 output_dim=LM_EMBED, name='embed')
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mt.sym.Reshape(outputs, shape=(-1, LM_HIDDEN))
+        pred = mt.sym.FullyConnected(data=pred, num_hidden=vocab, name='pred')
+        label = mt.sym.Reshape(label, shape=(-1,))
+        pred = mt.sym.SoftmaxOutput(data=pred, label=label, name='softmax')
+        return pred, ('data',), ('softmax_label',)
+    return sym_gen, stack
+
+
+def _lm_iter(sentences):
+    import mxnet_tpu_torch as mt
+    mt.random.seed(3)
+    return mt.rnn.BucketSentenceIter(sentences, LM_BATCH, buckets=LM_BUCKETS,
+                                     invalid_label=0)
+
+
+def _bucketing(device, fused=False, vocab=LM_VOCAB):
+    import mxnet_tpu_torch as mt
+    gen, stack = lm_sym_gen(fused, vocab)
+    return mt.mod.BucketingModule(gen, default_bucket_key=max(LM_BUCKETS),
+                                  context=_ctx_of(device)), stack
+
+
+def _params_np(mod):
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def _set_params(mod, weights):
+    """A bound, initialised Module's or BucketingModule's parameters from a
+    dict of numpy arrays by name (every bucket's, through set_params)."""
+    import mxnet_tpu_torch as mt
+    mod.set_params({k: mt.nd.array(v, ctx=mt.cpu())
+                    for k, v in weights.items()}, {})
+
+
+def _fwd_bwd(mod, batch):
+    """The first batch's softmax outputs and every parameter's gradient."""
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    cur = mod._curr_module._exec_group
+    grads = {n: g[0].handle.detach().clone()
+             for n, g in zip(cur.param_names, cur.grad_arrays)}
+    return mod.get_outputs()[0].handle.detach().clone(), grads
+
+
+def _timed_fit(mod, it, epochs, opt, device, metric):
+    """fit with a batch_end_callback that syncs the card and records (epoch,
+    bucket, host wall ms since the last batch, the metric's value)."""
+    rows = []
+    state = {'t': None}
+
+    def on_batch(param):
+        _sync(device)
+        now = time.perf_counter()
+        if state['t'] is not None and param.nbatch > 0:
+            rows.append((param.epoch, mod._curr_bucket_key,
+                         (now - state['t']) * 1e3,
+                         param.eval_metric.get()[1]))
+        state['t'] = now
+
+    def on_epoch(*args):
+        state['t'] = None
+    mod.fit(it, num_epoch=epochs, eval_metric=metric, optimizer='sgd',
+            optimizer_params=opt, batch_end_callback=on_batch,
+            epoch_end_callback=on_epoch)
+    return rows
+
+
+def _per_bucket(rows, epoch):
+    out = {}
+    for e, key, ms, _ in rows:
+        if e == epoch:
+            out.setdefault(key, []).append(ms)
+    return {k: statistics.median(v) for k, v in sorted(out.items())}
+
+
+def lm_bucketing(device, sentences=None, vocab=LM_VOCAB):
+    """Phase (r1): lstm_bucketing through BucketingModule.fit. Returns
+    (the initial weights, {bucket: ms a batch} of the second pass)."""
+    import torch
+    import mxnet_tpu_torch as mt
+    sentences = sentences if sentences is not None else lm_sentences()
+    it = _lm_iter(sentences)
+    first = next(iter(it))
+    it.reset()
+    mod, _ = _bucketing(device, vocab=vocab)
+    mod.bind(it.provide_data, it.provide_label)
+    mt.random.seed(0)
+    mod.init_params(mt.init.Xavier(factor_type='in', magnitude=2.34))
+    init = _params_np(mod)
+    out, grads = _fwd_bwd(mod, first)
+    cpu, _ = _bucketing(torch.device('cpu'), vocab=vocab)
+    cpu.bind(it.provide_data, it.provide_label)
+    cpu.init_params()
+    _set_params(cpu, init)
+    c_out, c_grads = _fwd_bwd(cpu, first)
+    out_err = rel_rms(out.cpu(), c_out)
+    grad_err = max(rel_rms(grads[n].cpu(), c_grads[n]) for n in c_grads)
+    log('  (r1) first batch (bucket %d) on %s against the CPU: softmax '
+        'outputs relative RMS %.3e (held to %g), the worst of %d gradients '
+        '%.3e (held to %g)' % (first.bucket_key, device, out_err,
+                               LM_OUT_RTOL, len(c_grads), grad_err,
+                               LM_GRAD_RTOL))
+    check(out_err <= LM_OUT_RTOL, '(r1) outputs disagree with the CPU')
+    check(grad_err <= LM_GRAD_RTOL, '(r1) gradients disagree with the CPU')
+    rows = _timed_fit(mod, it, 2, LM_OPT, device,
+                      mt.metric.Perplexity(ignore_label=None))
+    final = _params_np(mod)
+    ppl = [[r[3] for r in rows if r[0] == e][-1] for e in (0, 1)]
+    finite = all(np.isfinite(v).all() for v in final.values()) \
+        and all(np.isfinite(r[3]) for r in rows)
+    times = _per_bucket(rows, 1)
+    log('  (r1) BucketingModule.fit: vocabulary %d, embed %d, 2 x LSTMCell '
+        '%d, batch %d, buckets %s, %d batches a pass, 2 passes: perplexity '
+        '%.1f after pass 1, %.1f after pass 2 (held falling); host wall ms '
+        'a batch (synced) in pass 2 by bucket: %s'
+        % (vocab, LM_EMBED, LM_HIDDEN, LM_BATCH, LM_BUCKETS,
+           len(rows) // 2 + 1, ppl[0], ppl[1],
+           ', '.join('%d: %.2f' % kv for kv in times.items())))
+    check(finite, '(r1) a parameter or the perplexity is not finite')
+    check(ppl[1] < ppl[0], '(r1) the perplexity did not fall')
+    check(all('_fused_fit_cache' not in m.__dict__
+              for m in mod._buckets.values()),
+          '(r1) BucketingModule.fit built a fused window')
+    return init, final, times
+
+
+def fused_lm(device, init, unrolled_ms, sentences=None, vocab=LM_VOCAB):
+    """Phase (r2): the same model on mx.rnn.FusedRNNCell (the RNN op on
+    cuDNN): its outputs against unfuse()'s cells on the same weights, the
+    op's fused body against _rnn_plain at the model's shape, and a timed
+    fit beside (r1)'s."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import registry as reg
+    from mxnet_tpu_torch.ops import rnn_ops
+    sentences = sentences if sentences is not None else lm_sentences()
+    it = _lm_iter(sentences)
+    first = next(iter(it))
+    it.reset()
+    mod, cell = _bucketing(device, fused=True, vocab=vocab)
+    mod.bind(it.provide_data, it.provide_label)
+    # the embedding and the head as (r1)'s; the LSTM weights as (r1)'s,
+    # packed into the fused vector
+    weights = {k: v for k, v in init.items() if not k.startswith('lstm_')}
+    lstm = {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in init.items()
+            if k.startswith('lstm_')}
+    weights.update({k: v.asnumpy() for k, v in cell.pack_weights(
+        cell.unfuse().unpack_weights(lstm)).items()})
+    mod.init_params()
+    _set_params(mod, weights)
+    unfused, _ = _bucketing(device, vocab=vocab)
+    unfused.bind(it.provide_data, it.provide_label)
+    unfused.init_params()
+    _set_params(unfused, init)
+    outs = []
+    for m in (mod, unfused):
+        m.forward(first, is_train=False)
+        outs.append(m.get_outputs()[0].handle.detach().clone())
+    err = rel_rms(outs[0], outs[1])
+    log('  (r2) FusedRNNCell(%d, num_layers=%d, mode=lstm) on cuDNN against '
+        'its unfuse() cells on the same weights, bucket %d: relative RMS '
+        '%.3e (held to %g)' % (LM_HIDDEN, LM_LAYERS, first.bucket_key, err,
+                               LM_OUT_RTOL))
+    check(err <= LM_OUT_RTOL, '(r2) the fused LSTM disagrees with unfuse()')
+    # the op's fused body against its plain version at the model's shape
+    T, N = max(LM_BUCKETS), LM_BATCH
+    size = rnn_ops.rnn_param_size(LM_LAYERS, LM_HIDDEN, LM_EMBED, False,
+                                  'lstm')
+    gen = torch.Generator(device=device).manual_seed(8)
+    xs = [torch.randn(T, N, LM_EMBED, generator=gen, device=device),
+          torch.rand(size, generator=gen, device=device) * 0.14 - 0.07,
+          torch.randn(LM_LAYERS, N, LM_HIDDEN, generator=gen, device=device),
+          torch.randn(LM_LAYERS, N, LM_HIDDEN, generator=gen, device=device)]
+    attrs = {'state_size': LM_HIDDEN, 'num_layers': LM_LAYERS, 'mode': 'lstm',
+             'state_outputs': True, '__is_train__': False}
+    res = []
+    for fn in (reg.get('RNN').fn, rnn_ops._rnn_plain):
+        ins = [x.clone().requires_grad_() for x in xs]
+        o = fn(attrs, *ins, None)
+        cot = torch.Generator(device=device).manual_seed(9)
+        torch.autograd.backward(o, [torch.randn(t.shape, generator=cot,
+                                                device=device) for t in o])
+        res.append(([t.detach() for t in o], [x.grad for x in ins]))
+    o_err = max(rel_rms(a, b) for a, b in zip(res[0][0], res[1][0]))
+    g_err = max(rel_rms(a, b) for a, b in zip(res[0][1], res[1][1]))
+    log('  (r2) the RNN op\'s fused body (torch.lstm on cuDNN) against '
+        '_rnn_plain at T %d, N %d, 2 x %d: outputs and final states %.3e '
+        '(held to %g), gradients %.3e (held to %g)'
+        % (T, N, LM_HIDDEN, o_err, LM_OUT_RTOL, g_err, LM_GRAD_RTOL))
+    check(o_err <= LM_OUT_RTOL, '(r2) the fused body disagrees with '
+          '_rnn_plain')
+    check(g_err <= LM_GRAD_RTOL, '(r2) the fused body\'s gradients disagree '
+          'with _rnn_plain')
+    rows = _timed_fit(mod, it, 2, LM_OPT, device,
+                      mt.metric.Perplexity(ignore_label=None))
+    times = _per_bucket(rows, 1)
+    check(all(np.isfinite(r[3]) for r in rows), '(r2) perplexity not finite')
+    log('  (r2) host wall ms a batch (synced) in pass 2 by bucket, fused '
+        'against (r1)\'s unrolled cells: %s'
+        % ', '.join('%d: %.2f / %.2f' % (k, v, unrolled_ms.get(k, float('nan')))
+                    for k, v in times.items()))
+    return times
+
+
+def word_lm(device, vocab=LM_VOCAB, steps=WLM_STEPS):
+    """Phase (r3): Gluon's word language model, Embedding -> gluon.rnn.LSTM
+    (two layers, dropout 0.2) -> a Dense tied to the embedding, trained
+    with truncated BPTT (the hidden state carried and detached),
+    clip_global_norm and Trainer('sgd'); the held-out loss through
+    nd.softmax_cross_entropy (K3) against SoftmaxCrossEntropyLoss. Returns
+    {wrapper: launches}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.gluon import nn, rnn
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    ctx = _ctx_of(device)
+    rng = np.random.RandomState(4)
+    p = 1.0 / np.arange(1, vocab + 1)
+    tokens = rng.choice(vocab, (steps + 1) * WLM_BPTT * LM_BATCH + LM_BATCH,
+                        p=p / p.sum())
+    data = tokens[:len(tokens) // LM_BATCH * LM_BATCH].reshape(
+        LM_BATCH, -1).T.astype(np.float32)             # (T, batch)
+
+    class Model(gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embedding = nn.Embedding(vocab, LM_EMBED)
+                self.lstm = rnn.LSTM(LM_HIDDEN, num_layers=LM_LAYERS,
+                                     dropout=0.2, input_size=LM_EMBED)
+                self.decoder = nn.Dense(vocab, flatten=False,
+                                        in_units=LM_HIDDEN,
+                                        params=self.embedding.params)
+
+        def forward(self, x, state):
+            out, state = self.lstm(self.embedding(x), state)
+            return self.decoder(out), state
+    mt.random.seed(1)
+    with mt.name.NameManager(), ctx:
+        model = Model()
+        model.initialize(mt.init.Xavier(), ctx=ctx)
+        params = model.collect_params()
+        trainer = gluon.Trainer(params, 'sgd', {'learning_rate': WLM_LR})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        counters = (ck.layernorm_fwd, ck.rmsnorm_fwd, ck.softmax_fwd,
+                    ck.softmax_xent_fwd)
+        # the main path: counts are zeroed just before and read just after
+        for fwd in counters:
+            fwd.launches = 0
+        hidden = model.lstm.begin_state(batch_size=LM_BATCH, ctx=ctx)
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            x = nd.array(data[i * WLM_BPTT:(i + 1) * WLM_BPTT], ctx=ctx)
+            y = nd.array(data[i * WLM_BPTT + 1:(i + 1) * WLM_BPTT + 1],
+                         ctx=ctx)
+            hidden = [h.detach() for h in hidden]
+            with autograd.record():
+                out, hidden = model(x, hidden)
+                loss = loss_fn(out.reshape((-1, vocab)),
+                               y.reshape((-1,))).mean()
+            loss.backward()
+            gluon.utils.clip_global_norm(
+                [q.grad(ctx) for q in params.values()], WLM_CLIP)
+            trainer.step(1)
+            losses.append(float(loss.asscalar()))
+        _sync(device)
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        # the held-out chunk, after the training tokens
+        x = nd.array(data[steps * WLM_BPTT:(steps + 1) * WLM_BPTT], ctx=ctx)
+        y = nd.array(data[steps * WLM_BPTT + 1:(steps + 1) * WLM_BPTT + 1],
+                     ctx=ctx)
+        out, _ = model(x, hidden)
+        logits = out.reshape((-1, vocab))
+        total = float(nd.softmax_cross_entropy(logits, y.reshape((-1,)))
+                      .asscalar())
+        launches = {fwd.__name__: fwd.launches for fwd in counters}
+        want = float(loss_fn(logits, y.reshape((-1,))).sum().asscalar())
+    # K3 row by row at this shape: the kernel's per-row losses against the
+    # plain -log_softmax pick on the same logits and labels
+    z = logits.handle.detach()
+    lab = y.reshape((-1,)).handle.long()
+    k_rows = ck.softmax_xent_fwd(z, lab)
+    p_rows = -torch.log_softmax(z.float(), -1).gather(1, lab[:, None])[:, 0]
+    atol, rtol = ROW_TOL['float32']
+    row_err = float((k_rows - p_rows).abs().max())
+    row_excess = excess(k_rows, p_rows, atol, rtol)
+    n = logits.shape[0]
+    err = abs(total - want) / abs(want)
+    head, tail = np.mean(losses[:2]), np.mean(losses[-2:])
+    log('  (r3) gluon word LM: Embedding(%d, %d) -> gluon.rnn.LSTM(%d, %d '
+        'layers, dropout 0.2) -> tied Dense, bptt %d, batch %d, sgd lr %g, '
+        'clip %g: %d steps, %.1f ms a step, loss %s (held falling); '
+        'held-out perplexity %.1f over %d tokens through '
+        'nd.softmax_cross_entropy, relative error against '
+        'SoftmaxCrossEntropyLoss %.3e (held to %g); launches %s; K3 row by '
+        'row at [%d, %d] f32 against the plain -log_softmax pick: max|err| '
+        '%.3e, excess %.3e over rtol %g (held to atol %g)'
+        % (vocab, LM_EMBED, LM_HIDDEN, LM_LAYERS, WLM_BPTT, LM_BATCH, WLM_LR,
+           WLM_CLIP, steps, step_ms, ['%.3f' % v for v in losses],
+           math.exp(total / n), n, err, LM_XENT_RTOL, launches, n, vocab,
+           row_err, row_excess, rtol, atol))
+    check(all(np.isfinite(losses)) and tail < head,
+          '(r3) the word LM\'s loss did not fall')
+    check(err <= LM_XENT_RTOL, '(r3) the held-out loss disagrees with '
+          'SoftmaxCrossEntropyLoss')
+    check(row_excess <= atol and tuple(k_rows.shape) == (n,),
+          '(r3) K3\'s per-row losses disagree with the plain pick')
+    want_l = {'layernorm_fwd': 0, 'rmsnorm_fwd': 0, 'softmax_fwd': 0,
+              'softmax_xent_fwd': 1}
+    if device.type != 'cuda':
+        want_l = dict.fromkeys(want_l, 0)
+    check(launches == want_l, '(r3) launches %s != %s' % (launches, want_l))
+    return launches
+
+
+def _decode_module(device, batch, vocab=LM_VOCAB):
+    """The language model's step: Embedding -> two LSTMCell steps (their
+    four states as data inputs) -> FullyConnected -> softmax (K5), the new
+    states as the graph's last outputs (docs/serving.md)."""
+    import mxnet_tpu_torch as mt
+    x = mt.sym.Variable('data')
+    h = mt.sym.Embedding(data=x, input_dim=vocab, output_dim=LM_EMBED,
+                         name='embed')
+    names, new = ['data'], []
+    for i in range(LM_LAYERS):
+        s = [mt.sym.Variable('l%d_h' % i), mt.sym.Variable('l%d_c' % i)]
+        names += ['l%d_h' % i, 'l%d_c' % i]
+        h, st = mt.rnn.LSTMCell(LM_HIDDEN, prefix='lstm_l%d_' % i)(h, s)
+        new += st
+    fc = mt.sym.FullyConnected(h, num_hidden=vocab, name='pred')
+    step = mt.sym.Group([mt.sym.softmax(fc, name='prob')] + new)
+    mod = mt.mod.Module(step, data_names=names, label_names=[],
+                        context=_ctx_of(device))
+    mod.bind(data_shapes=[('data', (batch,))]
+             + [(n, (batch, LM_HIDDEN)) for n in names[1:]],
+             for_training=False)
+    return mod, names[1:]
+
+
+def decode_lm(device, weights, vocab=LM_VOCAB):
+    """Phase (r4): DecodeEngine serving (r1)'s trained model one token at a
+    time: 20 sessions over 16 slots, 16 tokens each (12 sessions every
+    round, 8 in two alternating groups of 4 that LRU evicts and re-admits
+    while the 12 run, then run on alone), every token's probabilities
+    against a per-step reference (a batch-1 Module on the CPU fed its
+    states); K5 at [16, 10000] f32 against its plain version. Returns
+    ({wrapper: launches}, {bucket: ms a token})."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    mod, state_names = _decode_module(device, DECODE_CAPACITY, vocab)
+    mod.init_params()
+    _set_params(mod, weights)
+    eng = mt.serving.DecodeEngine(mod, state_names=state_names,
+                                  capacity=DECODE_CAPACITY,
+                                  max_batch=DECODE_CAPACITY)
+    eng.warmup()
+    hot = ['s%d' % i for i in range(12)]
+    cold = [['s%d' % i for i in range(12, 16)],
+            ['s%d' % i for i in range(16, 20)]]
+    rounds = []
+    for t in range(2 * DECODE_TOKENS):
+        if t < DECODE_TOKENS:
+            rounds.append(hot)
+        rounds.append(cold[t % 2])
+    rng = np.random.RandomState(6)
+    counters = (ck.layernorm_fwd, ck.rmsnorm_fwd, ck.softmax_fwd,
+                ck.softmax_xent_fwd)
+    table = mt.serving.StepCache(DECODE_CAPACITY)
+    served, ms = [], {}
+    # the main path: counts are zeroed just before and read just after
+    for fwd in counters:
+        fwd.launches = 0
+    before = ck.softmax_fwd.launches_by_body.copy()
+    for sids in rounds:
+        tok = rng.randint(1, vocab, len(sids)).astype(np.float32)
+        _, fresh = table.lookup(sids)
+        t0 = time.perf_counter()
+        probs = eng.decode(sids, [tok])[0]
+        b = next(k for k in eng.buckets if k >= len(sids))
+        ms.setdefault(b, []).append((time.perf_counter() - t0) * 1e3
+                                    / len(sids))
+        served.append((sids, tok, fresh, probs))
+    launches = {fwd.__name__: fwd.launches for fwd in counters}
+    bodies = {k: v - before.get(k, 0)
+              for k, v in ck.softmax_fwd.launches_by_body.items()}
+    evictions = eng.cache.evictions
+    # the per-step reference: a batch-1 module on the CPU (so no K5 launch
+    # is on both sides) fed each session's states
+    ref, _ = _decode_module(torch.device('cpu'), 1, vocab)
+    ref.init_params()
+    _set_params(ref, weights)
+    states, worst, max_err, n_tok, n_fresh = {}, -math.inf, 0.0, 0, 0
+    for sids, tok, fresh, probs in served:
+        for i, s in enumerate(sids):
+            if fresh[i]:
+                n_fresh += 1
+                states[s] = [np.zeros((1, LM_HIDDEN), np.float32)
+                             for _ in state_names]
+            ref.forward(mt.io.DataBatch(data=[
+                mt.nd.array(tok[i:i + 1], ctx=mt.cpu())]
+                + [mt.nd.array(v, ctx=mt.cpu()) for v in states[s]]),
+                is_train=False)
+            o = [a.asnumpy() for a in ref.get_outputs()]
+            states[s] = o[1:]
+            want = o[0][0]
+            diff = np.abs(probs[i] - want)
+            max_err = max(max_err, float(diff.max()))
+            worst = max(worst, float((diff - DECODE_RTOL * np.abs(want)).max()))
+            n_tok += 1
+    log('  (r4) DecodeEngine over (r1)\'s trained LM (Embedding -> 2 LSTMCell '
+        'steps -> FullyConnected(%d) -> softmax): %d sessions over %d '
+        'slots, %d tokens in %d dispatches, %d evictions, %d rows from zero '
+        'state; probabilities against the per-step reference on the CPU: '
+        'max|err| %.3e, worst excess %.3e over rtol %g (held to %g); '
+        'softmax launches %s (bodies %s); ms a token by bucket: %s'
+        % (vocab, DECODE_SESSIONS, DECODE_CAPACITY, n_tok, len(served),
+           evictions, n_fresh, max_err, worst, DECODE_RTOL, DECODE_ATOL,
+           launches,
+           bodies, ', '.join('%d: %.3f' % (k, statistics.median(v))
+                             for k, v in sorted(ms.items()))))
+    check(n_tok == DECODE_SESSIONS * DECODE_TOKENS, '(r4) token count')
+    check(evictions > 0 and n_fresh > DECODE_SESSIONS,
+          '(r4) no eviction and re-admission happened')
+    check(worst <= DECODE_ATOL, '(r4) decoded probabilities disagree with '
+          'the per-step reference')
+    want_l = {'layernorm_fwd': 0, 'rmsnorm_fwd': 0,
+              'softmax_fwd': len(served), 'softmax_xent_fwd': 0}
+    if device.type != 'cuda':
+        want_l = dict.fromkeys(want_l, 0)
+    check(launches == want_l, '(r4) launches %s != %s' % (launches, want_l))
+    if device.type == 'cuda':
+        check(bodies.get('block', 0) == len(served),
+              '(r4) the 40 KB rows did not take the block body: %s' % bodies)
+        # K5 at the decode's widest bucket: the kernel held against its
+        # plain version, then kernel, plain and torch.softmax timed
+        gen = torch.Generator(device=device).manual_seed(7)
+        x = torch.randn(DECODE_CAPACITY, vocab, device=device, generator=gen)
+        got, plain = ck.softmax_fwd(x), ck.softmax_ref(x)
+        k5_err = float((got - plain).abs().max())
+        k5_excess = excess(got, plain, K5_ATOL, K5_RTOL)
+        log('  (r4) K5 at [%d, %d] f32 against its plain version: max|err| '
+            '%.3e, excess %.3e over rtol %g (held to atol %g); the largest '
+            'probability %.3e, the median %.3e'
+            % (DECODE_CAPACITY, vocab, k5_err, k5_excess, K5_RTOL, K5_ATOL,
+               float(plain.max()), float(plain.median())))
+        check(got.shape == plain.shape and bool(torch.isfinite(got).all())
+              and k5_excess <= K5_ATOL,
+              '(r4) K5 disagrees with its plain version at the decode shape')
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+        k_ms = device_ms(lambda: ck.softmax_fwd(x), flush=flush)
+        p_ms = device_ms(lambda: ck.softmax_ref(x), flush=flush)
+        l_ms = device_ms(lambda: torch.softmax(x, -1), flush=flush)
+        bound, by, nbytes, ops = row_bound_ms('softmax', [x], x)
+        log('  (r4) K5 at [%d, %d] f32 (block body): kernel %.4f ms, plain '
+            '%.4f ms, torch.softmax %.4f ms, bound %.4f ms (%s: %.2f MB), '
+            'bound / kernel %.3f' % (DECODE_CAPACITY, vocab, k_ms, p_ms, l_ms,
+                                     bound, by, nbytes / 1e6, bound / k_ms))
+        del flush
+    return launches, {k: statistics.median(v) for k, v in sorted(ms.items())}
+
+
+def ctc_ocr(device, batches=OCR_BATCHES):
+    """Phase (r5): examples/ctc/lstm_ocr.py's recipe on the card (a
+    bidirectional gluon.rnn.LSTM(48) over glyph columns, Dense to the 10
+    digits and the blank, gluon.loss.CTCLoss(layout='TNC'), adam): the loss
+    falling over a few batches; the CTC loss and its gradient on the card
+    against the same call on the CPU."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.gluon import nn, rnn
+    ctx = _ctx_of(device)
+    ndigit, glyph_w, height, maxlen = 10, 3, 12, 5
+    T = maxlen * glyph_w + 2
+    rng = np.random.RandomState(2)
+    glyphs = rng.randn(ndigit, glyph_w, height).astype(np.float32)
+    n = batches * OCR_BATCH
+    xs = np.zeros((n, T, height), np.float32)
+    labels = np.full((n, maxlen), -1, np.float32)
+    for i in range(n):
+        digits = rng.randint(0, ndigit, rng.randint(3, maxlen + 1))
+        for j, d in enumerate(digits):
+            xs[i, 1 + j * glyph_w:1 + (j + 1) * glyph_w] = glyphs[d]
+            labels[i, j] = d + 1                  # 0 is the CTC blank
+        xs[i] += 0.1 * rng.randn(T, height)
+    mt.random.seed(1)
+    with mt.name.NameManager(), ctx:
+        net = nn.Sequential()
+        with net.name_scope():
+            net.add(rnn.LSTM(48, num_layers=1, bidirectional=True))
+            net.add(nn.Dense(ndigit + 1, flatten=False))
+        net.initialize(mt.init.Xavier(), ctx=ctx)
+        trainer = gluon.Trainer(net.collect_params(), 'adam',
+                                {'learning_rate': 1e-2})
+        ctc = gluon.loss.CTCLoss(layout='TNC', label_layout='NT')
+        losses = []
+        for b in range(batches):
+            sl = slice(b * OCR_BATCH, (b + 1) * OCR_BATCH)
+            data = nd.array(xs[sl].transpose(1, 0, 2), ctx=ctx)
+            lab = nd.array(labels[sl], ctx=ctx)
+            with autograd.record():
+                loss = ctc(net(data), lab).mean()
+            loss.backward()
+            trainer.step(OCR_BATCH)
+            losses.append(float(loss.asscalar()))
+        logits = net(nd.array(xs[:OCR_BATCH].transpose(1, 0, 2), ctx=ctx))
+    got = []
+    for dev_ctx in (ctx, mt.cpu()):
+        with dev_ctx:
+            x = logits.as_in_context(dev_ctx).detach()
+            x.attach_grad()
+            with autograd.record():
+                loss = ctc(x, nd.array(labels[:OCR_BATCH], ctx=dev_ctx))
+            loss.backward()
+            got.append((loss.handle.detach().cpu(),
+                        x.grad.handle.detach().cpu()))
+    (l_dev, g_dev), (l_cpu, g_cpu) = got
+    l_err = float(((l_dev - l_cpu).abs() / l_cpu.abs()).max())
+    g_exc = excess(g_dev, g_cpu, 0, CTC_RTOL)
+    head, tail = np.mean(losses[:2]), np.mean(losses[-2:])
+    log('  (r5) lstm_ocr\'s recipe (T %d, batch %d, bidirectional LSTM(48), '
+        'CTCLoss(layout=TNC), adam): %d batches, loss %s (held falling); '
+        'the CTC loss on %s against the CPU %.3e relative (held to %g), its '
+        'gradient\'s excess %.3e (held to 1e-6)'
+        % (T, OCR_BATCH, batches, ['%.3f' % v for v in losses], device,
+           l_err, CTC_RTOL, g_exc))
+    check(all(np.isfinite(losses)) and tail < head,
+          '(r5) the CTC loss did not fall')
+    check(l_err <= CTC_RTOL and g_exc <= 1e-6,
+          '(r5) the CTC loss or its gradient disagrees with the CPU')
+
+
+def phase_r(device, vocab=LM_VOCAB, sentences=None):
+    """Phase (r): (r1) lstm_bucketing through BucketingModule.fit, (r2) the
+    same on FusedRNNCell, (r3) Gluon's word LM with K3's held-out loss,
+    (r4) DecodeEngine serving the LM's step through K5, (r5) lstm_ocr's CTC
+    recipe. Returns {wrapper: launches} of (r3) and (r4) together."""
+    t0 = time.perf_counter()
+    log('  (r1) lstm_bucketing through BucketingModule.fit')
+    init, trained, unrolled_ms = lm_bucketing(device, sentences, vocab)
+    log('  (r2) the same on FusedRNNCell (the RNN op on cuDNN)')
+    fused_lm(device, init, unrolled_ms, sentences, vocab)
+    log('  (r3) Gluon\'s word language model')
+    launches = word_lm(device, vocab)
+    log('  (r4) DecodeEngine serving the language model\'s step')
+    decode_launches, _ = decode_lm(device, trained, vocab)
+    for k, v in decode_launches.items():
+        launches[k] += v
+    log('  (r5) lstm_ocr\'s CTC recipe')
+    ctc_ocr(device)
+    log('  phase (r) took %.1f s' % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     # phase (l1)'s checkpoint, phase (n)'s head and its telemetry logs
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as work:
@@ -5439,6 +6124,9 @@ def run(work):
     data_launches = phase_q(device, cfg, work, nd_figures={
         'per_batch': per_batch, 'window': windowed})
 
+    log('(r) the RNN stack on the card')
+    rnn_launches = phase_r(device)
+
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
     tt = train_times(device, cfg, *step_args)
@@ -5485,6 +6173,7 @@ def run(work):
             'op_library_launches': op_launches[row_fns(kernel)[0].__name__],
             'profiler_launches': prof_launches[row_fns(kernel)[0].__name__],
             'data_plane_launches': data_launches[row_fns(kernel)[0].__name__],
+            'rnn_launches': rnn_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):
         record['kernels'].append({

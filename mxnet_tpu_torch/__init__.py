@@ -46,7 +46,13 @@ Ported so far:
   ``src/recordio.cc``, :mod:`._native`), the record, MNIST, CSV and
   detection iterators of :mod:`.io` with ``ImageRecordIter``'s augment on
   the card (deferred into the fit window), :mod:`.image`, ``gluon.data``
-  and ``gluon.utils``.
+  and ``gluon.utils``;
+- the RNN stack: the ``RNN`` op (:mod:`.ops.rnn_ops`, cuDNN on the card)
+  and the CTC loss (:mod:`.ops.contrib_ops`), :mod:`.rnn` (the symbolic
+  cells, ``BucketSentenceIter``), ``mod.BucketingModule``,
+  ``SequentialModule``, ``PythonModule``, ``gluon.rnn``,
+  ``gluon.loss.CTCLoss`` and the decode step cache
+  (``serving.DecodeEngine``).
 
 The kernels and their plain versions are in :mod:`.ops.cuda_kernels`.
 """
@@ -87,6 +93,7 @@ from .model import save_checkpoint, load_checkpoint
 from . import module
 from . import module as mod
 from . import gluon
+from . import rnn
 from . import graph_train
 from .attribute import AttrScope
 
@@ -98,4 +105,4 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context', 'base',
            'random', 'autograd', 'attribute', 'name', 'initializer', 'init',
            'symbol', 'sym', 'executor', 'io', 'recordio', 'image', 'metric', 'callback',
            'kvstore', 'kv', 'model', 'save_checkpoint', 'load_checkpoint',
-           'module', 'mod', 'gluon', 'graph_train', 'AttrScope']
+           'module', 'mod', 'gluon', 'rnn', 'graph_train', 'AttrScope']

@@ -44,7 +44,8 @@ the JAX package's, so one environment drives both packages:
   and ``auto`` attaches it);
 - ``MXTPU_SERVE_BIND`` and ``MXTPU_SERVE_MAX_WAIT_MS``: the serving HTTP
   front end's bind address and the batcher's coalescing deadline
-  (:mod:`.serving`);
+  (:mod:`.serving`); ``MXTPU_SERVE_SESSIONS``: the decode step cache's
+  session slots;
 - ``MXTPU_NO_NATIVE``: the record files' pure-Python reader and writer
   in place of the native ones (:mod:`._native`);
 - ``MXTPU_DEVICE_AUGMENT`` and ``MXTPU_HOST_CROP``: ImageRecordIter's
@@ -326,6 +327,11 @@ flags.declare('MXTPU_SERVE_BIND', str, '127.0.0.1',
               'Bind address of the serving HTTP front end '
               '(mxnet_tpu_torch/serving/http.py, serving.serve_model); '
               "loopback by default, '0.0.0.0' (or empty) for all interfaces")
+flags.declare('MXTPU_SERVE_SESSIONS', int, 64,
+              'Session capacity of the decode step cache '
+              '(mxnet_tpu_torch/serving/step_cache.py): each session\'s '
+              'carried state lives in a ring of this many slots on the '
+              'device, evicted least recently used', min_value=1)
 flags.declare('MXTPU_SERVE_MAX_WAIT_MS', float, 5.0,
               'Longest time (ms) the serving batcher holds the oldest queued '
               'request while more arrivals coalesce into one padded '

@@ -2,9 +2,9 @@
 ``mxnet_tpu/gluon/`` for Parameter, ParameterDict, Block, HybridBlock,
 SymbolBlock, ``nn`` (the basic and convolution layers), ``model_zoo``
 (every vision family), the Trainer, the losses, ``data`` (datasets,
-samplers, the DataLoader, the vision datasets) and ``utils``
-(``split_and_load`` and the rest). The rnn package is not ported yet
-(ROADMAP.md §1 item 10)."""
+samplers, the DataLoader, the vision datasets), ``utils``
+(``split_and_load`` and the rest) and ``rnn`` (the recurrent cells and
+the fused RNN, LSTM and GRU layers)."""
 from .parameter import (Parameter, ParameterDict, DeferredInitializationError,
                         params_from_numpy)
 from .block import Block, HybridBlock, SymbolBlock
@@ -14,4 +14,5 @@ from . import loss
 from . import data
 from . import utils
 from . import model_zoo
+from . import rnn
 from .utils import split_and_load, split_data  # noqa: F401

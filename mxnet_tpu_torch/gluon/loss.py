@@ -2,10 +2,8 @@
 base, L2Loss, L1Loss, SigmoidBinaryCrossEntropyLoss,
 SoftmaxCrossEntropyLoss, KLDivLoss and CTCLoss), HybridBlocks over the
 registry's ops. Each returns the loss of each sample: the mean over every
-axis but the batch axis.
-
-CTCLoss needs the ``ctc_loss`` op (``mxnet_tpu/ops/contrib_ops.py``), which
-is not ported: it raises NotImplementedError (ROADMAP.md §1 item 9).
+axis but the batch axis; CTCLoss the loss of each sequence, through
+``F.contrib.CTCLoss`` (:mod:`..ops.contrib_ops`).
 """
 from .block import HybridBlock
 
@@ -136,12 +134,38 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Connectionist Temporal Classification loss. Not ported: it needs the
-    ``ctc_loss`` op, which waits for the rest of the op library
-    (ROADMAP.md §1 item 9)."""
+    """Connectionist Temporal Classification loss (reference loss.py:302).
+
+    ``data`` is an unsoftmaxed activation tensor (``layout`` 'NTC' or
+    'TNC'); ``label`` an index matrix ('NT' or 'TN'). With
+    ``blank_label='first'`` (the contrib op default) index 0 is the
+    blank, so label values are 1..alphabet_size-1. Label lengths come
+    from ``label_lengths`` or the first occurrence of ``padding_mask``.
+    Output shape (batch_size,).
+    """
 
     def __init__(self, layout='NTC', label_layout='NT', padding_mask=-1,
                  weight=None, **kwargs):
-        raise NotImplementedError(
-            'CTCLoss needs the ctc_loss op, which is not ported yet '
-            '(ROADMAP.md §1 item 9)')
+        assert layout in ('NTC', 'TNC'), layout
+        assert label_layout in ('NT', 'TN'), label_layout
+        self._layout = layout
+        self._label_layout = label_layout
+        self._padding_mask = padding_mask
+        batch_axis = label_layout.find('N')
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, data, label,
+                       data_lengths=None, label_lengths=None,
+                       sample_weight=None):
+        if self._layout == 'NTC':
+            data = F.swapaxes(data, 0, 1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, 0, 1)
+        kwargs = {'use_data_lengths': data_lengths is not None,
+                  'use_label_lengths': label_lengths is not None}
+        if self._padding_mask is not None:
+            kwargs['padding_mask'] = self._padding_mask
+        inputs = [data, label] + \
+            [x for x in (data_lengths, label_lengths) if x is not None]
+        loss = F.contrib.CTCLoss(*inputs, **kwargs)
+        return _apply_weighting(F, loss, self._weight, sample_weight)

@@ -7,7 +7,8 @@ keys, in ``nd.save``'s npz container), and ``load_checkpoint`` reads them
 back, from either package. ``_create_kvstore`` decides the store and
 whether updates run on it; ``_initialize_kvstore``,
 ``_update_params_on_kvstore`` and ``_update_params`` are the per-batch
-update paths. ``FeedForward`` is the legacy API over ``Module``.
+update paths. ``FeedForward`` is the legacy API over ``Module`` (over
+``BucketingModule`` for a ``sym_gen``).
 """
 import logging
 from collections import namedtuple
@@ -124,20 +125,22 @@ def _num_samples(X):
 
 
 class FeedForward:
-    """The legacy training API, over :class:`..module.Module`. A callable
-    symbol (a bucketing ``sym_gen``) needs BucketingModule, which is not
-    ported."""
+    """The legacy training API, over :class:`..module.Module`; a callable
+    symbol is a ``sym_gen(bucket_key)`` for bucketing iterators, trained
+    through :class:`..module.BucketingModule`."""
 
     def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
                  optimizer='sgd', initializer=None, numpy_batch_size=128,
                  arg_params=None, aux_params=None, allow_extra_params=False,
                  begin_epoch=0, **kwargs):
         from .initializer import Uniform
-        if not isinstance(symbol, sym.Symbol) and callable(symbol):
-            raise NotImplementedError(
-                'FeedForward over a sym_gen needs BucketingModule, which is '
-                'not ported yet (ROADMAP.md §1 item 10)')
-        self.symbol = symbol
+        if isinstance(symbol, sym.Symbol) or not callable(symbol):
+            self.symbol = symbol
+            self._sym_gen = None
+        else:
+            # resolved at fit(), where the iterator names the default bucket
+            self.symbol = None
+            self._sym_gen = symbol
         self.ctx = ctx
         self.num_epoch = num_epoch
         self.optimizer = optimizer
@@ -153,15 +156,30 @@ class FeedForward:
             batch_end_callback=None, epoch_end_callback=None, logger=None,
             work_load_list=None, monitor=None, eval_end_callback=None,
             eval_batch_end_callback=None):
-        from .module import Module
+        from .module import Module, BucketingModule
         if not isinstance(X, io.DataIter):
             X = io.NDArrayIter(X, y, batch_size=min(self.numpy_batch_size,
                                                     _num_samples(X)),
                                shuffle=True)
         data_names = [d[0] for d in X.provide_data]
         label_names = [l[0] for l in X.provide_label]
-        self._module = Module(self.symbol, data_names=data_names,
-                              label_names=label_names, context=self.ctx)
+        if self._sym_gen is not None:
+            # the default bucket's symbol is kept for save(); the cache
+            # resolves each bucket's symbol once
+            gen, cache = self._sym_gen, {}
+
+            def _gen(key):
+                if key not in cache:
+                    cache[key] = gen(key)
+                return cache[key], data_names, label_names
+
+            self._module = BucketingModule(
+                _gen, default_bucket_key=X.default_bucket_key,
+                context=self.ctx)
+            self.symbol = _gen(X.default_bucket_key)[0]
+        else:
+            self._module = Module(self.symbol, data_names=data_names,
+                                  label_names=label_names, context=self.ctx)
         self._module.fit(X, eval_data=eval_data, eval_metric=eval_metric,
                          kvstore=kvstore, initializer=self.initializer,
                          arg_params=self.arg_params, aux_params=self.aux_params,

@@ -6,7 +6,7 @@ NDArray and its constructors, ``waitall``, ``concatenate``, ``moveaxis``,
 one generated function per registered op (``nd.LayerNorm``,
 ``nd.softmax``, ``nd.broadcast_add``, ``nd.sum``, ``nd.add_n``,
 ``nd.stack``, ``nd.sgd_mom_update``, ``nd.Convolution``, ...), called
-as in the JAX package, and ``nd.random``.
+as in the JAX package, ``nd.random`` and ``nd.contrib``.
 """
 from .ndarray import (NDArray, array, zeros, ones, empty, full, arange,
                       invoke, waitall, concatenate, stack, moveaxis, from_torch)
@@ -14,6 +14,7 @@ from . import register as _register
 from .utils import save, load
 from . import op  # noqa: F401  (generated-op module path)
 from . import random  # noqa: F401  (nd.random samplers)
+from . import contrib  # noqa: F401  (nd.contrib: the _contrib_* ops)
 
 _register.install_ops(globals())
 

@@ -8,10 +8,9 @@ NDArray-function forms, ``broadcast_plus``/``broadcast_minus``, the
 ``_NoGradient`` are ops of their own, and so are the image codecs
 ``_cvimdecode``, ``_cvimread``, ``_cvimresize`` and ``_cvcopyMakeBorder``:
 host ops in numpy (and PIL) on CPU arrays, through :mod:`..image`. Not
-here yet: ``_sparse_cast_storage`` and ``_contrib_ctc_loss`` (their targets
-``cast_storage`` and ``ctc_loss`` come with sparse storage and the RNN
-stack) and the Python-callback bridges ``_Native``, ``_NDArray`` and
-``_CustomFunction`` (with ``operator.py``).
+here yet: ``_sparse_cast_storage`` (its target ``cast_storage`` comes with
+sparse storage) and the Python-callback bridges ``_Native``, ``_NDArray``
+and ``_CustomFunction`` (with ``operator.py``).
 """
 import numpy as np
 import torch
@@ -51,6 +50,8 @@ _ALIASES = {
     'CuDNNBatchNorm': 'BatchNorm',
     # the backward of broadcast_to: a sum over the broadcast axes
     '_broadcast_backward': 'sum',
+    # the contrib CTC loss's other name (contrib/ctc_loss.cc)
+    '_contrib_ctc_loss': 'ctc_loss',
 }
 
 for _alias, _target in _ALIASES.items():

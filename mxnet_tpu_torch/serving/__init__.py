@@ -12,14 +12,17 @@ request/response loop.
   splits the answers per request, with the fetch on a side thread;
 - :mod:`.http` — ``/predict``, ``/models``, ``/metrics`` and ``/healthz``
   on a ThreadingHTTPServer, fronted by :mod:`.serve_model`
-  (``python -m mxnet_tpu_torch.serving.serve_model``).
+  (``python -m mxnet_tpu_torch.serving.serve_model``);
+- :mod:`.step_cache` — :class:`DecodeEngine`: recurrent decode steps
+  with each session's state kept on the device in a ring
+  (:class:`StepCache`, LRU), one step program a batch bucket.
 
 The serving metrics (``serve.*``) report through
-:mod:`mxnet_tpu_torch.telemetry`. The decode step cache
-(``mxnet_tpu/serving/step_cache.py``) waits for the port of the RNN
-stack (ROADMAP.md §1 item 8).
+:mod:`mxnet_tpu_torch.telemetry`.
 """
 from .engine import ServingEngine, bucket_ladder
 from .batcher import DynamicBatcher
+from .step_cache import StepCache, DecodeEngine
 
-__all__ = ['ServingEngine', 'DynamicBatcher', 'bucket_ladder']
+__all__ = ['ServingEngine', 'DynamicBatcher', 'bucket_ladder', 'StepCache',
+           'DecodeEngine']

@@ -27,6 +27,10 @@ span: after :meth:`~ServingEngine.warmup` no request builds one.
 example :class:`~mxnet_tpu_torch.transformer.TransformerLM`) under the
 same contract, given the data descriptors a bound Module would carry.
 
+``_SingleExecutorEngine`` holds what the engine shares with
+:class:`~.step_cache.DecodeEngine` (the module's eligibility, the program
+a bucket, the parameter snapshot), as the JAX package's does.
+
 The dispatch runs under ``torch.inference_mode`` with the engine's device
 named in the calling thread (both are per thread in torch, and the
 batcher dispatches from a thread of its own). On the card each dispatch
@@ -85,16 +89,17 @@ class _Outputs(tuple):
     ready = None
 
 
-class ServingEngine:
-    """Bucketed inference over one bound Module.
+class _SingleExecutorEngine:
+    """What :class:`ServingEngine` and :class:`~.step_cache.DecodeEngine`
+    share: the module's eligibility (a plain single-executor Module with
+    no host ops, bound with its parameters; an engine raises where the
+    module does not fit, it never falls back), the program built once per
+    bucket, the cached parameter snapshot, and the engine's card named in
+    the calling thread."""
 
-    The module must be plain (single executor, no host ops) and bound at
-    the largest bucket's batch size with parameters loaded, for inference
-    (``for_training=False``; the JAX engine, like this one, does not check
-    that flag: the forward runs with ``is_train=False`` either way).
-    """
+    _default_name = 'model'
 
-    def __init__(self, module, max_batch=None, logger=logging, name=None):
+    def __init__(self, module, logger=logging, name=None):
         from ..module.module import Module
         cls = type(self).__name__
         if type(module) is not Module:
@@ -114,30 +119,89 @@ class ServingEngine:
         self._exec = e
         self._arg_names = list(e._prog.arg_names)
         self._aux_names = list(e._prog.aux_names)
+        self._snap = None          # cached (fixed, aux) parameter snapshot
+        self._snap_lock = threading.Lock()
+        self._base(e._ctx.torch_device(),
+                   name or _scope_name(getattr(module._symbol, 'name', None)
+                                       or self._default_name), logger)
+
+    def _base(self, device, name, logger):
+        self.device = device
+        self.name = name
+        self.logger = logger
+        self._programs = {}        # bucket -> program
+        self._build_lock = threading.Lock()
+
+    def _program(self, bucket):
+        with self._build_lock:
+            prog = self._programs.get(bucket)
+            if prog is None:
+                with _tele.span('serve.build', 'serve'):
+                    prog = self._build_program(bucket)
+                self._programs[bucket] = prog
+        return prog
+
+    def _snapshot(self, fixed_names):
+        """Parameter and aux tensors in program order, cached — serving
+        parameters are immutable between :meth:`refresh_params` calls."""
+        with self._snap_lock:
+            if self._snap is None:
+                e = self._exec
+                self._snap = (
+                    tuple(e.arg_dict[n]._data for n in fixed_names),
+                    tuple(e.aux_dict[n]._data for n in self._aux_names))
+            return self._snap
+
+    def refresh_params(self):
+        """Drop the cached parameter snapshot (after set_params or a hot
+        reload); the next dispatch re-reads the executor's arrays. The
+        bucket programs stay built."""
+        if self.module is not None:
+            with self._snap_lock:
+                self._snap = None
+
+    def _on_device(self):
+        """Name the engine's card in the calling thread (torch's current
+        device is per thread)."""
+        if self.device.type == 'cuda':
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+
+def _to_host(o):
+    """A device tensor as a numpy array in its own dtype (bfloat16 as
+    ``ml_dtypes.bfloat16``, bit for bit)."""
+    o = o.cpu()
+    if o.dtype == torch.bfloat16:
+        return o.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return o.numpy()
+
+
+class ServingEngine(_SingleExecutorEngine):
+    """Bucketed inference over one bound Module.
+
+    The module must be plain (single executor, no host ops) and bound at
+    the largest bucket's batch size with parameters loaded, for inference
+    (``for_training=False``; the JAX engine, like this one, does not check
+    that flag: the forward runs with ``is_train=False`` either way).
+    """
+
+    def __init__(self, module, max_batch=None, logger=logging, name=None):
+        super().__init__(module, logger=logger, name=name)
         descs = [(d.name, tuple(d.shape[1:]),
                   np.dtype(getattr(d, 'dtype', None) or np.float32))
                  for d in module.data_shapes]
-        self._setup(descs, module.output_names, max_batch,
-                    e._ctx.torch_device(),
-                    name or _scope_name(getattr(module._symbol, 'name', None)
-                                        or 'model'), logger)
-        self._snap = None          # cached (fixed, aux) parameter snapshot
-        self._snap_lock = threading.Lock()
+        self._setup(descs, module.output_names, max_batch)
 
-    def _setup(self, descs, output_names, max_batch, device, name, logger):
+    def _setup(self, descs, output_names, max_batch):
         self._descs = descs
         if not descs:
             raise ValueError('ServingEngine needs at least one data input')
         self._data_names = [n for n, _, _ in descs]
         self.output_names = list(output_names)
-        self.device = device
         self.max_batch = int(max_batch) if max_batch else _serve_max_batch()
         self.buckets = bucket_ladder(self.max_batch)
-        self.name = name
-        self.logger = logger
         self.warmed = False
-        self._programs = {}        # bucket -> program(*padded tensors)
-        self._build_lock = threading.Lock()
 
     # -- the two ways in ---------------------------------------------------
     @classmethod
@@ -175,21 +239,13 @@ class ServingEngine:
         self = cls.__new__(cls)
         self.module = None
         self.forward = forward
+        self._base(as_torch_device(device), name, logger)
         self._setup([(str(n), tuple(int(d) for d in shape), np.dtype(dt))
                      for n, shape, dt in data_descs], output_names,
-                    max_batch, as_torch_device(device), name, logger)
+                    max_batch)
         return self
 
     # -- programs ----------------------------------------------------------
-    def _program(self, bucket):
-        with self._build_lock:
-            prog = self._programs.get(bucket)
-            if prog is None:
-                with _tele.span('serve.build', 'serve'):
-                    prog = self._build_program(bucket)
-                self._programs[bucket] = prog
-        return prog
-
     def _build_program(self, bucket):
         if self.module is None:
             return self.forward
@@ -211,25 +267,6 @@ class ServingEngine:
             return outs
         return program
 
-    def _snapshot(self, fixed_names):
-        """Parameter and aux tensors in program order, cached — serving
-        parameters are immutable between :meth:`refresh_params` calls."""
-        with self._snap_lock:
-            if self._snap is None:
-                e = self._exec
-                self._snap = (
-                    tuple(e.arg_dict[n]._data for n in fixed_names),
-                    tuple(e.aux_dict[n]._data for n in self._aux_names))
-            return self._snap
-
-    def refresh_params(self):
-        """Drop the cached parameter snapshot (after set_params or a hot
-        reload); the next dispatch re-reads the executor's arrays. The
-        bucket programs stay built."""
-        if self.module is not None:
-            with self._snap_lock:
-                self._snap = None
-
     def bucket_for(self, rows):
         """Smallest bucket covering ``rows`` (chunk first when rows exceed
         the largest bucket)."""
@@ -241,13 +278,6 @@ class ServingEngine:
                                                         self.buckets[-1]))
 
     # -- dispatch ----------------------------------------------------------
-    def _on_device(self):
-        """Name the engine's card in the calling thread (torch's current
-        device is per thread)."""
-        if self.device.type == 'cuda':
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
-
     def _check_and_cast(self, arrays):
         if not isinstance(arrays, (list, tuple)):
             arrays = [arrays]
@@ -326,14 +356,7 @@ class ServingEngine:
             for outs, rows, _bucket in chunks:
                 if getattr(outs, 'ready', None) is not None:
                     outs.ready.synchronize()
-                host = []
-                for o in outs:
-                    o = o[:rows].cpu()
-                    if o.dtype == torch.bfloat16:
-                        host.append(o.view(torch.int16).numpy()
-                                    .view(ml_dtypes.bfloat16))
-                    else:
-                        host.append(o.numpy())
+                host = [_to_host(o[:rows]) for o in outs]
                 if per_out is None:
                     per_out = [[h] for h in host]
                 else:

@@ -2,7 +2,8 @@
 ``mxnet_tpu/symbol/__init__.py``: Symbol, Variable, Group, load_json, one
 composer per registered op (``sym.Convolution``, ``sym.BatchNorm``, ...),
 generated from the registry as ``nd.<op>`` is, ``zeros``/``ones``/
-``arange``/``full``, ``maximum``/``minimum``/``hypot``, and ``sym.random``.
+``arange``/``full``, ``maximum``/``minimum``/``hypot``, ``sym.random``
+and ``sym.contrib``.
 """
 from .symbol import Symbol, Variable, var, Group, load, load_json, create
 from . import register as _register
@@ -61,6 +62,7 @@ def hypot(lhs, rhs):
 
 
 from . import random    # noqa: E402,F401  (mx.sym.random.*)
+from . import contrib   # noqa: E402,F401  (mx.sym.contrib.*)
 from . import op        # noqa: E402,F401  (generated-op module path)
 
 

@@ -98,6 +98,24 @@ def _lrelu_params(attrs, in_shapes):
     return {}
 
 
+@param_shape_hook('RNN')
+def _rnn_params(attrs, in_shapes):
+    from ..ops.rnn_ops import rnn_param_size
+    data = in_shapes[0]
+    if data is None:
+        return {}
+    H = int(attrs['state_size'])
+    L = int(attrs.get('num_layers', 1))
+    bi = bool(attrs.get('bidirectional', False))
+    dirs = 2 if bi else 1
+    mode = attrs.get('mode', 'lstm')
+    n = rnn_param_size(L, H, data[2], bi, mode)
+    out = {'parameters': (n,), 'state': (L * dirs, data[1], H)}
+    if mode == 'lstm':
+        out['state_cell'] = (L * dirs, data[1], H)
+    return out
+
+
 @param_shape_hook('SoftmaxOutput')
 def _softmax_out_params(attrs, in_shapes):
     """The label's shape from the data's: (N,) by default, (N, d2, ...)

@@ -81,8 +81,14 @@ def test_loss_matches_jax(case, hybridize):
 
 
 def test_ctc_loss_raises():
-    with pytest.raises(NotImplementedError, match='item 9'):
-        mt.gluon.loss.CTCLoss()
+    """CTCLoss is ported (tests/test_torch_ctc.py holds its values): it
+    raises, as the JAX package's does, only on a layout it does not take."""
+    for pkg in (mx, mt):
+        with pytest.raises(AssertionError):
+            pkg.gluon.loss.CTCLoss(layout='NCT')
+        with pytest.raises(AssertionError):
+            pkg.gluon.loss.CTCLoss(label_layout='NTC')
+    assert mt.gluon.loss.CTCLoss()._batch_axis == 0
 
 
 def _net(pkg):

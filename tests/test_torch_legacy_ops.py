@@ -33,9 +33,6 @@ WAITING = {
     'cast_storage': 'sparse', '_sparse_cast_storage': 'sparse',
     '_sparse_retain': 'sparse', 'sparse_retain': 'sparse',
     '_square_sum': 'sparse',
-    # the RNN stack and CTC
-    'RNN': 'rnn', 'ctc_loss': 'rnn', '_contrib_ctc_loss': 'rnn',
-    '_contrib_CTCLoss': 'rnn',
     # operator.py (the Python-callback ops)
     'Custom': 'operator', '_Native': 'operator', '_NDArray': 'operator',
     '_CustomFunction': 'operator',

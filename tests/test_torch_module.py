@@ -396,11 +396,21 @@ def test_unported_paths_raise(monkeypatch, flag):
 
 
 def test_monitor_and_sym_gen_raise():
+    """The monitor is not ported: install_monitor raises on a Module, and
+    on a BucketingModule (FeedForward's module over a sym_gen, which is
+    ported: tests/test_torch_rnn.py) as well."""
     mod, _ = _module(mt, 'mlp_bn', _init_values('mlp_bn'))
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         mod.install_monitor(object())
-    with pytest.raises(NotImplementedError, match='BucketingModule'):
-        mt.model.FeedForward(lambda key: None)
+    sym = mod.symbol
+    ff = mt.model.FeedForward(lambda key: sym)
+    assert ff.symbol is None and ff._sym_gen is not None
+    bm = mt.mod.BucketingModule(lambda key: (sym, ('data',),
+                                             ('softmax_label',)),
+                                default_bucket_key=4, context=mt.cpu())
+    bm.bind([('data', (4, 5))], [('softmax_label', (4,))])
+    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        bm.install_monitor(object())
 
 
 def _logged_fit(pkg, tmp_path, caplog):

@@ -137,19 +137,33 @@ def test_import_leaves_jax_and_the_jax_package_out():
             'mxnet_tpu_torch._native, mxnet_tpu_torch.io.image_record, '
             'mxnet_tpu_torch.image, mxnet_tpu_torch.image.detection, '
             'mxnet_tpu_torch.gluon.data, mxnet_tpu_torch.gluon.data.vision, '
-            'mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.module.fused_fit\n'
+            'mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.module.fused_fit, '
+            'mxnet_tpu_torch.ops.rnn_ops, mxnet_tpu_torch.ops.contrib_ops, '
+            'mxnet_tpu_torch.rnn, mxnet_tpu_torch.rnn.rnn_cell, '
+            'mxnet_tpu_torch.rnn.rnn, mxnet_tpu_torch.rnn.io, '
+            'mxnet_tpu_torch.module.bucketing_module, '
+            'mxnet_tpu_torch.module.sequential_module, '
+            'mxnet_tpu_torch.module.python_module, '
+            'mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.rnn.rnn_cell, '
+            'mxnet_tpu_torch.gluon.rnn.rnn_layer, '
+            'mxnet_tpu_torch.gluon.rnn.basic_init, '
+            'mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.symbol.contrib, '
+            'mxnet_tpu_torch.serving.step_cache\n'
             'from mxnet_tpu_torch.io import (ImageRecordIter, MNISTIter, '
             'CSVIter, ImageDetRecordIter, MXDataIter)\n'
             'from mxnet_tpu_torch.gluon.data import DataLoader, ArrayDataset\n'
             'from mxnet_tpu_torch.telemetry import (registry, export, flight, '
             'trace, slo, watchdog, serve, cluster)\n'
             'from mxnet_tpu_torch.serving import (ServingEngine, '
-            'DynamicBatcher, bucket_ladder)\n'
+            'DynamicBatcher, bucket_ladder, StepCache, DecodeEngine)\n'
+            'from mxnet_tpu_torch.module import (BucketingModule, '
+            'SequentialModule, PythonModule, PythonLossModule)\n'
             'from mxnet_tpu_torch import nd\n'
             'from mxnet_tpu_torch.rtc import Rtc\n'
             'nd.LayerNorm, nd.softmax, nd.softmax_cross_entropy, nd.add_n, '
             'nd.broadcast_add, nd.sum, nd.arange, nd.waitall, nd.Reshape, '
-            'nd.take, nd.concatenate, nd.stack, nd.mp_sgd_mom_update\n'
+            'nd.take, nd.concatenate, nd.stack, nd.mp_sgd_mom_update, '
+            'nd.RNN, nd.ctc_loss, nd.contrib.CTCLoss\n'
             'from mxnet_tpu_torch.transformer import make_train_step\n'
             '# NVRTC and the driver are loaded at the first compile, not here\n'
             'assert not mxnet_tpu_torch.ops.nvrtc._libs\n'
