@@ -286,7 +286,36 @@ order they run:
     examples/ctc/lstm_ocr.py's recipe through gluon.loss.CTCLoss(layout=
     'TNC') for 8 batches with the loss falling, the CTC loss and its
     gradient on the card against the CPU. K3's and K5's launches there are
-    the kernel record's rnn_launches.
+    the kernel record's rnn_launches;
+(s) the staged executor path (run after (r), before (e); every kernel's
+    launches counted over (s2), the kernel record's staged_launches, and
+    over (s3)'s fit, its custom_launches): (s1) (l1)'s recipe over 4
+    batches through Module.fit with Monitor(2, pattern='.*') and without
+    one (the per-batch loop, cuDNN's deterministic algorithms): the final
+    parameters and aux states bit for bit, each monitored batch's rows one
+    per op output and argument with every RMS finite, a monitored and a
+    plain batch's host ms; (s5) one of its ResNet-50 convolution weights
+    set to NaN: first_nonfinite_node names it and Monitor.nan_watch's rows
+    flag it; (s2) the decoder head x [8192, 1024] f32 -> LayerNorm (K4) ->
+    FullyConnected to 16384 -> softmax (K5), softmax_cross_entropy (K3)
+    beside it, simple_bind'ed on gpu(0) with a monitor installed: one
+    launch each, the monitor's rows, outputs and gradients bit for bit the
+    same executor's without it, partial_forward stepped to 0 left bit for
+    bit forward, the probabilities (1e-5) and loss against the plain
+    versions; (s3) examples/numpy-ops/custom_softmax.py's op with its
+    forward over nd.softmax (K5) in the softmax's place: its gradients
+    against SoftmaxOutput(normalization='null')'s (relative RMS 1e-5),
+    Module.fit over 3 batches of 8192 (one K4 and one K5 launch a batch, no
+    fused window), a NumpyOp and an NDArrayOp at [16, 32]; (s4)
+    examples/rnn/model_parallel_lstm.py's symbol at lstm_bucketing's widths
+    (V 10,000, embed 200, hidden 200, batch 32, T 35, 4 layers) bound with
+    layer 0 on cpu(0) and layers 1-3 on the card, against the same graph on
+    the card alone (outputs 1e-5, gradients 1e-4 relative RMS), every op's
+    output on its group's device, the loss falling over 4 SGD steps; (s6)
+    the native engine (src/engine.cc built by g++): writers in order with
+    their readers between them, wait_for_all after queued matmuls leaving
+    the card idle, the engine's op spans in a profiler dump; (s7)
+    print_summary of resnet50_v1 at 224 and its total.
 
 The second-to-last line of its output is the kernel record
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -6032,6 +6061,677 @@ def phase_r(device, vocab=LM_VOCAB, sentences=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# (s) the staged executor path: monitor, Custom ops, group2ctx, the NaN
+#     bisect, the engine, print_summary
+# ---------------------------------------------------------------------------
+
+STAGED_BATCHES = 4      # (s1): train_imagenet's recipe, 4 batches of 32
+STAGED_INTERVAL = 2     # Monitor(2): batches 1 and 3 are monitored
+# (s2): the decoder head's probabilities and loss against the plain
+# versions on the same tensors (as (n3) and (k2) hold them): f32, one
+# kernel a row against torch's composite, max |error| 1e-5 and the
+# loss's relative error EXEC_LOSS_RTOL
+STAGED_PROB_ATOL = 1e-5
+# (s3): the Custom op's gradients (softmax by K5, minus the one-hot, from
+# its backward) against SoftmaxOutput(normalization='null')'s on the same
+# parameters and batch: relative RMS 1e-5 (K5 and torch's softmax, one f32
+# rounding apart an element)
+CUSTOM_GRAD_REL_RMS = 1e-5
+CUSTOM_BATCHES = 3
+CUSTOM_LR = 1e-4        # the op's gradient is summed over 8192 rows
+# (s4) model_parallel_lstm.py's symbol at lstm_bucketing's widths
+MP_VOCAB, MP_EMBED, MP_HIDDEN, MP_BATCH, MP_SEQ, MP_LAYERS = \
+    10000, 200, 200, 32, 35, 4
+MP_STEPS = 4
+MP_LR = 1.0
+# layer 0 on the CPU, layers 1-3 on the card, against all on the card
+# (TF32 off): the same f32 ops on two devices whose sums run in other
+# orders; the outputs within relative RMS 1e-5, the gradients 1e-4
+MP_OUT_REL_RMS = 1e-5
+MP_GRAD_REL_RMS = 1e-4
+
+
+def _recording_monitor(*args, **kwargs):
+    """A Monitor of the port whose toc_print keeps its rows."""
+    import mxnet_tpu_torch as mt
+
+    class Recording(mt.mon.Monitor):
+        def toc_print(self):
+            self.rows.append(self.toc())
+    mon = Recording(*args, **kwargs)
+    mon.rows = []
+    return mon
+
+
+def _staged_counters():
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.ops import nvrtc
+    return (ck.flash_fwd, ck.layernorm_fwd, ck.rmsnorm_fwd, ck.softmax_fwd,
+            ck.softmax_xent_fwd, nvrtc.launch)
+
+
+def _counts(counters):
+    return {fwd.__name__: fwd.launches for fwd in counters}
+
+
+def monitored_fit(device, spec=RESNET, n_batches=STAGED_BATCHES):
+    """Phase (s1): (l1)'s recipe through Module.fit with
+    Monitor(2, pattern='.*') and without one, from the same masters under
+    cuDNN's deterministic algorithms. Returns the module (for (s5))."""
+    import torch
+    import mxnet_tpu_torch as mt
+    name, batch, image, classes = spec
+    ctx = mt.gpu(device.index or 0) if device.type == 'cuda' else mt.cpu()
+    rng = np.random.RandomState(0)
+    X = rng.standard_normal((n_batches * batch, 3, image, image)).astype(
+        np.float32)
+    y = rng.randint(0, classes, n_batches * batch).astype(np.int32)
+    train = mt.io.NDArrayIter(X, y, batch_size=batch)
+    mod = mt.mod.Module(_zoo_symbol(name, classes, (batch, 3, image, image)),
+                        context=ctx)
+    mod.bind(train.provide_data, train.provide_label)
+    mt.random.seed(0)
+    mod.init_params(_xavier())
+    args, aux = mod.get_params()
+    masters0 = {n: a.handle.detach().clone() for n, a in args.items()}
+    aux0 = {n: a.handle.detach().clone() for n, a in aux.items()}
+    exe = mod._exec_group.execs[0]
+    n_rows = sum(n.opdef().n_visible_outputs(n.attrs)
+                 for n in exe._prog.op_nodes) + len(exe._prog.arg_names)
+
+    def one_fit(monitor):
+        mod.set_params({n: mt.nd.from_torch(t.clone(), ctx)
+                        for n, t in masters0.items()},
+                       {n: mt.nd.from_torch(t.clone(), ctx)
+                        for n, t in aux0.items()})
+        mod.init_optimizer(kvstore='device', optimizer='sgd',
+                           optimizer_params=FIT_OPT, force_init=True)
+        train.reset()
+        marks = []
+
+        def mark(_):
+            _sync(device)
+            marks.append(time.perf_counter())
+        with _flags_set(MXTPU_FUSED_FIT='0'):
+            mt.random.seed(0)
+            _sync(device)
+            marks.append(time.perf_counter())
+            mod.fit(train, num_epoch=1, optimizer='sgd',
+                    optimizer_params=FIT_OPT, eval_metric=['acc'],
+                    kvstore='device', batch_end_callback=mark,
+                    monitor=monitor)
+        a, x = mod.get_params()
+        got = {n: v.handle.detach().clone()
+               for n, v in list(a.items()) + list(x.items())}
+        return got, list(np.diff(marks) * 1e3)
+
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        one_fit(None)                                   # warm-up
+        plain, plain_ms = one_fit(None)
+        mon = _recording_monitor(STAGED_INTERVAL, pattern='.*')
+        watched, mon_ms = one_fit(mon)
+        again, again_ms = one_fit(None)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    same = all(torch.equal(watched[n], plain[n]) for n in plain)
+    same_again = all(torch.equal(again[n], plain[n]) for n in plain)
+    log('  Module.fit of %s, %d batches of %d, with Monitor(%d, '
+        "pattern='.*') and without: final parameters and aux states %s "
+        '(a second plain fit: %s)'
+        % (name, n_batches, batch, STAGED_INTERVAL,
+           'bit for bit' if same else 'NOT bit for bit',
+           'bit for bit' if same_again else 'NOT bit for bit'))
+    check(same and same_again, 'the monitored fit\'s parameters differ')
+    rows = [r for r in mon.rows if r]
+    steps = sorted({s for batch_rows in rows for s, _, _ in batch_rows})
+    stats = [float(stat.split('\t')[0]) for batch_rows in rows
+             for _, _, stat in batch_rows]
+    log('  monitored batches %s: %s rows each (%d op outputs and arguments '
+        'in the graph), RMS from %.4g to %.4g, all finite: %s'
+        % (steps, [len(r) for r in rows], n_rows, min(stats), max(stats),
+           all(math.isfinite(v) for v in stats)))
+    check(steps == list(range(1, n_batches + 1, STAGED_INTERVAL)),
+          'the monitor\'s windows are %s' % steps)
+    check(all(len(r) == n_rows for r in rows), 'a monitored batch has %s '
+          'rows, not %d' % ([len(r) for r in rows], n_rows))
+    check(all(math.isfinite(v) for v in stats), 'a monitored RMS is not '
+          'finite')
+    log('  a batch\'s host ms (synchronised): monitored %s (batches 1, 3), '
+        'unmonitored in the same fit %s; plain fits %s and %s'
+        % (['%.3f' % mon_ms[i] for i in (0, 2)],
+           ['%.3f' % mon_ms[i] for i in (1, 3)],
+           ['%.3f' % v for v in plain_ms], ['%.3f' % v for v in again_ms]))
+    # (s5) bisects from the initial parameters
+    mod.set_params({n: mt.nd.from_torch(t.clone(), ctx)
+                    for n, t in masters0.items()},
+                   {n: mt.nd.from_torch(t.clone(), ctx)
+                    for n, t in aux0.items()})
+    return mod, {'monitored_ms': [mon_ms[0], mon_ms[2]],
+                 'plain_ms': [statistics.median(plain_ms[1:]),
+                              statistics.median(again_ms[1:])]}
+
+
+def _head_symbol(mt, V, custom=None):
+    """LayerNorm -> FullyConnected(V, no bias) -> softmax beside
+    softmax_cross_entropy (``custom``: the op_type of a Custom op in the
+    softmax's place, under the name softmax, with its label)."""
+    S = mt.sym
+    logits = S.FullyConnected(S.LayerNorm(S.var('x'), name='ln'),
+                              num_hidden=V, no_bias=True, name='head')
+    if custom == 'null':
+        return S.SoftmaxOutput(logits, normalization='null', name='softmax')
+    if custom is not None:
+        return S.Custom(data=logits, name='softmax', op_type=custom)
+    return S.Group([S.softmax(logits, name='prob'),
+                    S.softmax_cross_entropy(logits, S.var('label'),
+                                            name='xent')])
+
+
+def _head_values(device, N, D, V, seed):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    vals = {'x': torch.randn(N, D, generator=g, device=device),
+            'ln_gamma': 1 + 0.1 * torch.randn(D, generator=g, device=device),
+            'ln_beta': 0.1 * torch.randn(D, generator=g, device=device),
+            'head_weight': torch.randn(V, D, generator=g, device=device)
+            / math.sqrt(D)}
+    label = torch.randint(0, V, (N,), generator=g, device=device,
+                          dtype=torch.int32)
+    return vals, label
+
+
+def staged_head(device, cfg):
+    """Phase (s2): the decoder head through the staged path, a monitor
+    installed. Returns {wrapper: launches}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    N, D, V = MAX_BATCH * cfg.seq_len, cfg.d_model, cfg.vocab
+    ctx = mt.gpu(device.index or 0) if device.type == 'cuda' else mt.cpu()
+    sym = _head_symbol(mt, V)
+    reqs = {'x': 'write', 'ln_gamma': 'write', 'ln_beta': 'write',
+            'head_weight': 'write', 'label': 'null'}
+    ex = sym.simple_bind(ctx, grad_req=reqs, type_dict={'label': 'int32'},
+                         x=(N, D), label=(N,))
+    vals, label = _head_values(device, N, D, V, 31)
+    for n, v in vals.items():
+        ex.arg_dict[n]._data = v
+    ex.arg_dict['label']._data = label
+    mon = _recording_monitor(1, pattern='.*')
+    mon.install(ex)
+
+    def run():
+        out = ex.forward(is_train=True)
+        ex.backward()
+        outs = [o.handle.clone() for o in out]
+        return outs, {n: ex.grad_dict[n].handle.clone() for n in vals}
+
+    counters = _staged_counters()
+    _zero_counts(counters)          # the main path: the monitored run
+    mon.tic()
+    outs, grads = run()
+    mon.toc_print()
+    _sync(device)
+    launches = _counts(counters)
+    want = {'flash_fwd': 0, 'layernorm_fwd': 1, 'rmsnorm_fwd': 0,
+            'softmax_fwd': 1, 'softmax_xent_fwd': 1, 'launch': 0}
+    if device.type != 'cuda':
+        want = dict.fromkeys(want, 0)
+    names = [n for _, n, _ in mon.rows[0]]
+    log('  simple_bind(x [%d, %d] f32 -> LayerNorm -> FullyConnected to %d '
+        '-> softmax, softmax_cross_entropy beside it) on %s, Monitor(1) '
+        'installed: forward(is_train=True) and backward, launches %s; the '
+        'monitor\'s rows %s' % (N, D, V, ctx, launches, names))
+    check(launches == want, 'staged launches %s != %s' % (launches, want))
+    check(names == ['ln_output', 'head_output', 'prob_output', 'xent_output',
+                    'x', 'ln_gamma', 'ln_beta', 'head_weight', 'label'],
+          'the monitor\'s rows are %s' % names)
+    ex.set_monitor_callback(None)
+    plain_outs, plain_grads = run()
+    same = all(torch.equal(a, b) for a, b in zip(outs, plain_outs)) and \
+        all(torch.equal(grads[n], plain_grads[n]) for n in grads)
+    log('  the same executor without the monitor: outputs and gradients %s'
+        % ('bit for bit' if same else 'NOT bit for bit'))
+    check(same, 'the monitored head differs from the plain one')
+    step, left = 0, ex.partial_forward(False, 0)
+    while left:
+        step += 1
+        left = ex.partial_forward(False, step)
+    stepped = [o.handle.clone() for o in ex.outputs]
+    full = [o.handle for o in ex.forward(is_train=False)]
+    same = all(torch.equal(a, b) for a, b in zip(stepped, full))
+    log('  partial_forward stepped %d times to 0 left: outputs %s forward\'s'
+        % (step + 1, 'bit for bit' if same else 'NOT bit for bit'))
+    check(same and step + 1 == len(ex._prog.op_nodes),
+          'partial_forward disagrees with forward')
+    with torch.no_grad():
+        z = ck.layernorm_ref(vals['x'], vals['ln_gamma'], vals['ln_beta']) \
+            @ vals['head_weight'].t()
+        p_err = float((outs[0] - ck.softmax_ref(z)).abs().max())
+        ref_loss = float(ck.softmax_xent_ref(z, label).sum())
+    loss_err = abs(float(outs[1].sum()) - ref_loss) / abs(ref_loss)
+    log('  probabilities max |error| %.3e against the plain versions (atol '
+        '%.0e); loss %.4f against %.4f (relative error %.3e)'
+        % (p_err, STAGED_PROB_ATOL, float(outs[1].sum()), ref_loss, loss_err))
+    check(p_err <= STAGED_PROB_ATOL, 'the staged probabilities disagree')
+    check(loss_err <= EXEC_LOSS_RTOL, 'the staged loss disagrees')
+    return launches
+
+
+def _card_softmax_op(mt):
+    """custom_softmax.py's Softmax with its forward over nd.softmax (K5 on
+    the card) and its backward on the card: softmax minus the one-hot."""
+    class Softmax(mt.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], mt.nd.softmax(in_data[0]))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            onehot = mt.nd.one_hot(in_data[1], depth=in_data[0].shape[1])
+            self.assign(in_grad[0], req[0], out_data[0] - onehot)
+
+    @mt.operator.register('card_softmax')
+    class SoftmaxProp(mt.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ['data', 'label']
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+
+def _card_ce():
+    """A metric of the mean -log p at the label, computed on the card (the
+    host reads one number a batch, not the [8192, 16384] probabilities)."""
+    import torch
+    import mxnet_tpu_torch as mt
+
+    class CardCE(mt.metric.EvalMetric):
+        def update(self, labels, preds):
+            p = preds[0].handle
+            lab = labels[0].handle.to(p.device).long()
+            self.sum_metric += float(
+                -torch.log(p.gather(1, lab[:, None])).mean())
+            self.num_inst += 1
+    return CardCE('card-ce')
+
+
+def custom_head(device, cfg, batches=CUSTOM_BATCHES):
+    """Phase (s3): (s2)'s head under a Custom softmax through Module.fit,
+    its gradient against SoftmaxOutput(normalization='null')'s, and a
+    NumpyOp and an NDArrayOp at a small width. Returns {wrapper:
+    launches} of the fit."""
+    import torch
+    import mxnet_tpu_torch as mt
+    N, D, V = MAX_BATCH * cfg.seq_len, cfg.d_model, cfg.vocab
+    ctx = mt.gpu(device.index or 0) if device.type == 'cuda' else mt.cpu()
+    _card_softmax_op(mt)
+    vals, label = _head_values(device, N, D, V, 41)
+    grads = {}
+    for kind in ('card_softmax', 'null'):
+        sym = _head_symbol(mt, V, custom=kind)
+        ex = sym.simple_bind(ctx, grad_req={'x': 'null', 'ln_gamma': 'write',
+                                            'ln_beta': 'write',
+                                            'head_weight': 'write',
+                                            'softmax_label': 'null'},
+                             x=(N, D), softmax_label=(N,))
+        for n, v in vals.items():
+            ex.arg_dict[n]._data = v
+        ex.arg_dict['softmax_label']._data = label.float()
+        ex.forward(is_train=True)
+        ex.backward()
+        grads[kind] = {n: ex.grad_dict[n].handle.clone()
+                       for n in ('ln_gamma', 'ln_beta', 'head_weight')}
+        del ex
+    errs = {n: rel_rms(grads['card_softmax'][n], grads['null'][n])
+            for n in grads['null']}
+    log('  Custom(op_type=card_softmax: nd.softmax forward, softmax minus '
+        'one-hot backward) against SoftmaxOutput(normalization=\'null\') on '
+        '[%d, %d] f32 logits: gradients relative RMS %s (bound %.0e)'
+        % (N, V, ', '.join('%s %.3e' % kv for kv in errs.items()),
+           CUSTOM_GRAD_REL_RMS))
+    check(max(errs.values()) <= CUSTOM_GRAD_REL_RMS,
+          'the Custom op\'s gradients disagree')
+
+    g = torch.Generator().manual_seed(43)
+    X = torch.randn(batches * N, D, generator=g).numpy()
+    Y = torch.randint(0, V, (batches * N,), generator=g).float().numpy()
+    train = mt.io.NDArrayIter(X, Y, batch_size=N, data_name='x',
+                              label_name='softmax_label')
+    mod = mt.mod.Module(_head_symbol(mt, V, custom='card_softmax'),
+                        data_names=['x'], context=ctx)
+    losses = []
+
+    def per_batch(param):
+        losses.append(param.eval_metric.get()[1])
+        param.eval_metric.reset()
+    counters = _staged_counters()
+    _zero_counts(counters)          # the main path: the fit
+    mod.fit(train, num_epoch=1, optimizer='sgd',
+            optimizer_params={'learning_rate': CUSTOM_LR},
+            eval_metric=_card_ce(), batch_end_callback=per_batch,
+            arg_params={n: mt.nd.from_torch(v.clone(), ctx)
+                        for n, v in vals.items() if n != 'x'})
+    _sync(device)
+    launches = _counts(counters)
+    want = {'flash_fwd': 0, 'layernorm_fwd': batches, 'rmsnorm_fwd': 0,
+            'softmax_fwd': batches, 'softmax_xent_fwd': 0, 'launch': 0}
+    if device.type != 'cuda':
+        want = dict.fromkeys(want, 0)
+    log('  Module.fit(LayerNorm -> FullyConnected to %d -> Custom '
+        'card_softmax) on %s, %d batches of %d, the per-batch loop: mean '
+        '-log p %s, launches %s'
+        % (V, ctx, batches, N, ['%.4f' % v for v in losses], launches))
+    check(launches == want, 'custom launches %s != %s' % (launches, want))
+    check(all(math.isfinite(v) for v in losses), 'a Custom loss is not '
+          'finite')
+    check(mod.__dict__.get('_fused_fit_cache') is None,
+          'a fused window was built for a graph with a host op')
+    del mod
+
+    class Scale3(mt.operator.NumpyOp):
+        def forward(self, in_data, out_data):
+            out_data[0][:] = in_data[0] * 3
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            in_grad[0][:] = out_grad[0] * 3
+
+    class Sq(mt.operator.NDArrayOp):
+        def forward(self, in_data, out_data):
+            out_data[0][:] = in_data[0] * in_data[0]
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            in_grad[0][:] = 2 * in_data[0] * out_grad[0]
+    x = torch.randn(16, 32, generator=torch.Generator().manual_seed(5))
+    for op, f, df in ((Scale3(), lambda t: 3 * t, lambda t: 3 + 0 * t),
+                      (Sq(), lambda t: t * t, lambda t: 2 * t)):
+        ex = op(mt.sym.var('data')).simple_bind(ctx, data=(16, 32))
+        ex.arg_dict['data']._data = x.to(device)
+        out = ex.forward(is_train=True)[0]
+        ex.backward(mt.nd.ones((16, 32), ctx))
+        o_err = float((out.handle.cpu() - f(x)).abs().max())
+        g_err = float((ex.grad_dict['data'].handle.cpu() - df(x)).abs().max())
+        log('  %s on [16, 32] f32 through simple_bind on %s: output on %s, '
+            'max |error| %.3e, gradient %.3e'
+            % (type(op).__bases__[0].__name__, ctx, out.handle.device, o_err,
+               g_err))
+        check(out.handle.device.type == device.type and o_err <= 1e-6
+              and g_err <= 1e-6, '%s disagrees' % type(op).__name__)
+    return launches
+
+
+def _mp_lstm(mt, group2ctx):
+    """examples/rnn/model_parallel_lstm.py's build_symbol, with the layers'
+    ctx_group attrs when ``group2ctx`` is given."""
+    import contextlib
+    S = mt.sym
+
+    def scope(i):
+        return mt.AttrScope(ctx_group='layer%d' % i) if group2ctx \
+            else contextlib.nullcontext()
+    data = S.Variable('data')
+    label = S.Variable('softmax_label')
+    with scope(0):
+        hidden = S.Embedding(data=data, input_dim=MP_VOCAB,
+                             output_dim=MP_EMBED, name='embed')
+    for i in range(MP_LAYERS):
+        with scope(i):
+            cell = mt.rnn.LSTMCell(num_hidden=MP_HIDDEN,
+                                   prefix='lstm_l%d_' % i)
+            hidden, _ = cell.unroll(MP_SEQ, inputs=hidden,
+                                    merge_outputs=True, layout='NTC')
+    with scope(MP_LAYERS - 1):
+        pred = S.Reshape(hidden, shape=(-1, MP_HIDDEN))
+        pred = S.FullyConnected(data=pred, num_hidden=MP_VOCAB, name='pred')
+        out = S.SoftmaxOutput(data=pred, label=S.Reshape(label, shape=(-1,)),
+                              normalization='batch', name='softmax')
+    return out
+
+
+def model_parallel(device):
+    """Phase (s4): model_parallel_lstm.py's symbol with layer 0 on cpu(0)
+    and layers 1-3 on the card, against the same graph on the card alone,
+    then a few SGD steps."""
+    import torch
+    import mxnet_tpu_torch as mt
+    on_card = device.type == 'cuda'
+    card = mt.gpu(device.index or 0) if on_card else mt.cpu(1)
+    group2ctx = {'layer0': mt.cpu(0)}
+    group2ctx.update({'layer%d' % i: card for i in range(1, MP_LAYERS)})
+    rng = np.random.RandomState(0)
+    trans = np.random.RandomState(42).dirichlet(np.ones(MP_VOCAB) * 0.02,
+                                                size=MP_VOCAB)
+    x = np.zeros((MP_BATCH, MP_SEQ), np.float32)
+    x[:, 0] = rng.randint(1, MP_VOCAB, MP_BATCH)
+    cum = trans.cumsum(1)
+    for t in range(1, MP_SEQ):
+        u = rng.random_sample(MP_BATCH)
+        x[:, t] = (cum[x[:, t - 1].astype(int)] < u[:, None]).sum(1)
+    y = np.roll(x, -1, axis=1)
+    y[:, -1] = 0
+    runs = {}
+    values = None
+    for kind, g2c in (('split', group2ctx), ('card', None)):
+        sym = _mp_lstm(mt, g2c)
+        shapes = dict(data=(MP_BATCH, MP_SEQ),
+                      softmax_label=(MP_BATCH, MP_SEQ))
+        arg_shapes, _, _ = sym.infer_shape(**shapes)
+        names = sym.list_arguments()
+        if values is None:
+            mt.random.seed(0)
+            init = mt.init.Xavier()
+            values = {}
+            for n, s in zip(names, arg_shapes):
+                if n in ('data', 'softmax_label'):
+                    continue
+                a = mt.nd.zeros(s, ctx=mt.cpu())
+                init(mt.init.InitDesc(n), a)
+                values[n] = a.handle
+        args = {n: mt.nd.from_torch(values[n].to(card.torch_device()), card)
+                for n in values}
+        args['data'] = mt.nd.array(x, card)
+        args['softmax_label'] = mt.nd.array(y, card)
+        grads = {n: mt.nd.zeros(args[n].shape, card) for n in values}
+        ex = sym.bind(card, args, args_grad=grads, group2ctx=g2c)
+        where = {}
+        ex.set_monitor_callback(
+            lambda n, a: where.setdefault(n, a.handle.device.type))
+        out = ex.forward(is_train=True)[0]
+        ex.backward()
+        runs[kind] = (ex, out.handle.detach().clone(),
+                      {n: g.handle.clone() for n, g in grads.items()}, where)
+        log('  %s: %d graph nodes%s' % (
+            kind, len(ex._prog.topo), ', groups %s' % {
+                k: str(v) for k, v in g2c.items()} if g2c else ''))
+    ex, out, grads, where = runs['split']
+    _, out_c, grads_c, _ = runs['card']
+    o_err = rel_rms(out.to(out_c.device), out_c)
+    g_errs = {n: rel_rms(grads[n].to(grads_c[n].device), grads_c[n])
+              for n in grads}
+    worst = max(g_errs, key=g_errs.get)
+    log('  layer 0 on cpu(0), layers 1-3 on %s, against all on %s: outputs '
+        'relative RMS %.3e (bound %.0e), gradients up to %.3e (%s; bound '
+        '%.0e)' % (card, card, o_err, MP_OUT_REL_RMS, g_errs[worst], worst,
+                   MP_GRAD_REL_RMS))
+    check(o_err <= MP_OUT_REL_RMS, 'the split LSTM\'s outputs disagree')
+    check(g_errs[worst] <= MP_GRAD_REL_RMS, 'the split LSTM\'s gradients '
+          'disagree')
+    group = {n.name: n.attr_dict.get('ctx_group')
+             for n in ex._prog.op_nodes}
+    want = {n: group2ctx[group[n.rsplit('_output', 1)[0]]].torch_device(
+        ).type for n in where}
+    bad = [n for n in where if where[n] != want[n]]
+    log('  each group\'s outputs on its device: %d op outputs, layer 0\'s on '
+        'cpu, the others on %s; misplaced %s'
+        % (len(where), card.torch_device().type, bad))
+    check(not bad and out.device.type == card.torch_device().type,
+          'outputs misplaced: %s' % bad[:5])
+    ex.set_monitor_callback(None)
+    losses = []
+    yi = torch.from_numpy(y.reshape(-1).astype(np.int64))
+    for _ in range(MP_STEPS):
+        p = ex.forward(is_train=True)[0].handle
+        losses.append(float(-torch.log(
+            p.gather(1, yi.to(p.device)[:, None])).mean()))
+        ex.backward()
+        for n in values:
+            w = ex.arg_dict[n]
+            w._data = w.handle - MP_LR * ex.grad_dict[n].handle
+    log('  SGD (lr %g) on one batch: loss %s'
+        % (MP_LR, ['%.4f' % v for v in losses]))
+    check(losses[-1] < losses[0], 'the split LSTM\'s loss does not fall')
+
+
+def nan_bisect(device, mod):
+    """Phase (s5): one of (s1)'s ResNet-50 convolution weights set to NaN:
+    first_nonfinite_node names it, and Monitor.nan_watch's rows flag it."""
+    import mxnet_tpu_torch as mt
+    ex = mod._exec_group.execs[0]
+    convs = [n for n in ex._prog.op_nodes if n.op == 'Convolution']
+    conv = convs[len(convs) // 2]
+    wname = conv.inputs[1][0].name
+    w = ex.arg_dict[wname]
+    keep = w.handle.clone()
+    bad = keep.clone()
+    bad.view(-1)[7] = float('nan')
+    w._data = bad
+    try:
+        t0 = time.perf_counter()
+        found = ex.first_nonfinite_node(is_train=False)
+        bisect_s = time.perf_counter() - t0
+        mon = mt.mon.Monitor.nan_watch(1, pattern='%s|%s_output'
+                                       % (wname, conv.name))
+        mon.install(ex)
+        mon.tic()
+        ex.forward(is_train=False)
+        rows = mon.toc()
+        ex.set_monitor_callback(None)
+    finally:
+        w._data = keep
+    flagged = {n: s.strip() for _, n, s in rows}
+    log('  NaN in %s (element 7 of %s): first_nonfinite_node -> %s in %.2f '
+        's; nan_watch rows %s' % (wname, tuple(keep.shape), found, bisect_s,
+                                   flagged))
+    check(found == (wname, 0), 'the bisect named %s' % (found,))
+    check(flagged.get(wname) == 'nan=1 inf=0 of %d' % keep.numel()
+          and flagged.get(conv.name + '_output', 'ok') != 'ok',
+          'nan_watch did not flag %s' % wname)
+
+
+def engine_checks(device, work):
+    """Phase (s6): the native engine's order, wait_for_all over the card,
+    and its op spans in a profiler dump."""
+    import threading
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import engine
+    eng = engine.Engine(num_workers=4)
+    a, b = eng.new_var(), eng.new_var()
+    log_ = []
+    lock = threading.Lock()
+
+    def ev(tag, pause=0.0):
+        def fn():
+            if pause:
+                time.sleep(pause)
+            with lock:
+                log_.append(tag)
+        return fn
+    for i in range(4):
+        eng.push(ev('w%d' % i, 0.004 * (4 - i)), mutable_vars=[a])
+        eng.push(ev('r%d' % i), const_vars=[a])
+        eng.push(ev('r%d' % i), const_vars=[a])
+    eng.push(ev('both'), mutable_vars=[a, b])
+    eng.push(ev('last'), const_vars=[b])
+    eng.wait_for_var(b)
+    want = [t for i in range(4) for t in ('w%d' % i, 'r%d' % i, 'r%d' % i)]
+    log('  native engine (src/engine.cc, 4 workers): %s' % log_)
+    check(log_ == want + ['both', 'last'], 'the engine\'s order is %s' % log_)
+    x = torch.randn(4096, 4096, device=device)
+    for _ in range(20):
+        x = x @ x.t() * 1e-4
+    engine.wait_for_all()
+    idle = device.type != 'cuda' or torch.cuda.current_stream(device).query()
+    log('  engine.wait_for_all after 20 queued 4096^2 matmuls: the card\'s '
+        'stream idle: %s' % idle)
+    check(idle, 'wait_for_all returned before the card finished')
+    path = os.path.join(work, 'engine_profile.json')
+    with mt.profiler.Profiler(mode='all', filename=path):
+        v = eng.new_var()
+        for i in range(3):
+            eng.push(lambda: time.sleep(0.001), mutable_vars=[v],
+                     name='engine_op_%d' % i)
+        eng.wait_for_all()
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    spans = sorted(e['name'] for e in events
+                   if e['name'].startswith('engine_op_'))
+    log('  profiler dump %s: %d events, engine op spans %s'
+        % (os.path.basename(path), len(events), spans))
+    check(spans == ['engine_op_0', 'engine_op_1', 'engine_op_2'],
+          'the profiler dump lacks the engine\'s spans')
+    eng.close()
+
+
+def summary_resnet50():
+    """Phase (s7): print_summary of resnet50_v1 at 224."""
+    import contextlib
+    import io
+    import mxnet_tpu_torch as mt
+    sym = _zoo_symbol('resnet50_v1', 1000, (1, 3, 224, 224))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mt.viz.print_summary(sym, shape={'data': (1, 3, 224, 224)})
+    text = buf.getvalue()
+    total = int(text.split('Total params: ')[1].split()[0])
+    # the Param # column (characters 76-88 of a 120-wide row)
+    column = sum(int(line[76:88]) for line in text.splitlines()
+                 if line[76:88].strip().isdigit())
+    args, _, _ = sym.infer_shape(data=(1, 3, 224, 224))
+    n_params = sum(int(np.prod(s)) for n, s in zip(sym.list_arguments(), args)
+                   if n not in ('data', 'softmax_label'))
+    log('  print_summary(resnet50_v1, data 1 x 3 x 224 x 224): %d lines, '
+        'Total params: %d, the sum of its Param # column; the symbol\'s '
+        'parameters hold %d (the summary adds each weight input\'s second '
+        'dimension to a layer\'s input channels, as the JAX package\'s '
+        'does)' % (len(text.splitlines()), total, n_params))
+    check(total == column and total > n_params,
+          'print_summary\'s total %d, its column %d' % (total, column))
+
+
+def phase_s(device, cfg, work):
+    """Phase (s): (s1) the monitored fit, (s2) the head on the staged path,
+    (s3) a Custom op on the card, (s4) group2ctx, (s5) the NaN bisect, (s6)
+    the engine, (s7) print_summary. Returns ({wrapper: staged launches},
+    {wrapper: custom launches}, (s1)'s batch times)."""
+    t0 = time.perf_counter()
+    log('  (s1) train_imagenet\'s recipe through Module.fit with a monitor')
+    mod, times_ = monitored_fit(device)
+    log('  (s5) the NaN bisect on (s1)\'s ResNet-50')
+    nan_bisect(device, mod)
+    del mod
+    log('  (s2) the decoder head through the staged path')
+    staged = staged_head(device, cfg)
+    log('  (s3) a Custom op on the card')
+    custom = custom_head(device, cfg)
+    log('  (s4) group2ctx: model_parallel_lstm.py at lstm_bucketing\'s '
+        'widths')
+    model_parallel(device)
+    log('  (s6) the native engine')
+    engine_checks(device, work)
+    log('  (s7) print_summary')
+    summary_resnet50()
+    log('  phase (s) took %.1f s' % (time.perf_counter() - t0))
+    return staged, custom, times_
+
+
 def main():
     # phase (l1)'s checkpoint, phase (n)'s head and its telemetry logs
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as work:
@@ -6127,6 +6827,9 @@ def run(work):
     log('(r) the RNN stack on the card')
     rnn_launches = phase_r(device)
 
+    log('(s) the staged executor path on the card')
+    staged_launches, custom_launches, _ = phase_s(device, cfg, work)
+
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
     tt = train_times(device, cfg, *step_args)
@@ -6155,6 +6858,7 @@ def run(work):
         'body': 'wgmma', 'launches': launches,
         'train_step_launches': step_launches,
         'serving_launches': serve_flash,
+        'staged_launches': staged_launches['flash_fwd'],
         'max_abs_err': errs[(SERVED_LAYOUT, True)],
         'ms': t['kernel_ms'], 'plain_ms': t['plain_ms'],
         'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'],
@@ -6174,11 +6878,14 @@ def run(work):
             'profiler_launches': prof_launches[row_fns(kernel)[0].__name__],
             'data_plane_launches': data_launches[row_fns(kernel)[0].__name__],
             'rnn_launches': rnn_launches[row_fns(kernel)[0].__name__],
+            'staged_launches': staged_launches[row_fns(kernel)[0].__name__],
+            'custom_launches': custom_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):
         record['kernels'].append({
             'name': name, 'route': 'cuda', 'source': 'chip_smoke.py',
             'replaces': RTC_REPLACES, 'launches': rtc_launches[name],
+            'staged_launches': staged_launches['launch'],
             'max_abs_err': rtc_errs[name], **rtc_t[name]})
     log(json.dumps(record))
     # the run uses one card, whatever the machine holds

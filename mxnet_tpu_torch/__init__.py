@@ -52,11 +52,21 @@ Ported so far:
   cells, ``BucketSentenceIter``), ``mod.BucketingModule``,
   ``SequentialModule``, ``PythonModule``, ``gluon.rnn``,
   ``gluon.loss.CTCLoss`` and the decode step cache
-  (``serving.DecodeEngine``).
+  (``serving.DecodeEngine``);
+- the staged executor path (``group2ctx``, host ops, ``partial_forward``,
+  ``first_nonfinite_node``, monitor callbacks) with :mod:`.operator` (the
+  ``Custom`` op and the legacy Python operators), :mod:`.monitor`
+  (``mx.mon``), :mod:`.engine` on the native dependency engine,
+  :mod:`.visualization` (``mx.viz``), :mod:`.executor_manager`,
+  :mod:`.log`, :mod:`.misc`, :mod:`.registry`, the docstring modules and
+  :mod:`.libinfo`.
 
 The kernels and their plain versions are in :mod:`.ops.cuda_kernels`.
 """
+from .libinfo import __version__  # noqa: F401  (the one version source)
 from . import base
+from . import libinfo
+from . import log
 from .base import MXNetError
 from . import config
 from . import context
@@ -96,6 +106,16 @@ from . import gluon
 from . import rnn
 from . import graph_train
 from .attribute import AttrScope
+from . import engine
+from . import monitor
+from . import monitor as mon
+from .monitor import Monitor
+from . import visualization
+from . import visualization as viz
+from . import registry
+from .executor_manager import DataParallelExecutorManager  # noqa: F401
+from . import operator
+from .operator import CustomOp, CustomOpProp
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context', 'base',
            'config', 'context', 'ops', 'fused_rmsnorm', 'ndarray', 'nd',
@@ -105,4 +125,7 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context', 'base',
            'random', 'autograd', 'attribute', 'name', 'initializer', 'init',
            'symbol', 'sym', 'executor', 'io', 'recordio', 'image', 'metric', 'callback',
            'kvstore', 'kv', 'model', 'save_checkpoint', 'load_checkpoint',
-           'module', 'mod', 'gluon', 'rnn', 'graph_train', 'AttrScope']
+           'module', 'mod', 'gluon', 'rnn', 'graph_train', 'AttrScope',
+           'libinfo', 'log', 'engine', 'monitor', 'mon', 'Monitor',
+           'visualization', 'viz', 'registry', 'DataParallelExecutorManager',
+           'operator', 'CustomOp', 'CustomOpProp']

@@ -1,19 +1,23 @@
-"""The native record reader: the counterpart of ``mxnet_tpu/_native.py``
-for its RecordIO half.
+"""The native runtime: the counterpart of ``mxnet_tpu/_native.py`` for its
+dependency engine, its profiler and its RecordIO stream.
 
-``src/recordio.cc`` (the dmlc RecordIO stream in C++, shared with the JAX
-package and never edited here) is compiled with ``g++`` together with
-``csrc/last_error.cc``, which defines the error channel that
-``recordio.cc`` declares, into ``ops/build/libmxtt_recordio-<hash>.so``
-at the first use, and loaded with ``ctypes``. The hash covers the sources
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded; nothing is built under ``src/`` or the JAX package.
+``src/engine.cc`` (the read/write-set dependency engine, which also holds
+the C API's error channel), ``src/profiler.cc`` (the engine's op spans as
+chrome trace events) and ``src/recordio.cc`` (the dmlc RecordIO stream),
+shared with the JAX package and never edited here, are compiled with
+``g++`` into ``ops/build/libmxtt_native-<hash>.so`` at the first use, and
+loaded with ``ctypes``. The hash covers the sources and the flags, so an
+edited source is rebuilt and a stale library is never loaded; nothing is
+built under ``src/`` or the JAX package. ``src/storage.cc`` (the pooled
+host allocator) is not built: nothing in the port calls it yet.
 
-:func:`backend` says which reader is live: ``'native'``, or ``'python'``
-when ``MXTPU_NO_NATIVE=1`` asks for the pure-Python reader or the host has
-no ``g++``, as the JAX package falls back on a host without a compiler. A
-build or load that fails where ``g++`` exists raises :class:`NativeError`
-with the compiler's output: it does not fall back without a word.
+:func:`backend` says which record reader is live: ``'native'``, or
+``'python'`` when ``MXTPU_NO_NATIVE=1`` asks for the pure-Python reader or
+the host has no ``g++``, as the JAX package falls back on a host without a
+compiler. A build or load that fails where ``g++`` exists raises
+:class:`NativeError` with the compiler's output: it does not fall back
+without a word. :func:`loaded` gives the library only if a caller already
+loaded it (the profiler asks, and builds nothing).
 """
 import ctypes
 import hashlib
@@ -25,12 +29,13 @@ from pathlib import Path
 
 from .config import flags
 
-__all__ = ['get_lib', 'backend', 'check_call', 'NativeError']
+__all__ = ['get_lib', 'loaded', 'backend', 'check_call', 'NativeError',
+           'SYNC_FN']
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG.parent / 'src'
 BUILD_DIR = _PKG / 'ops' / 'build'
-SOURCES = (_SRC / 'recordio.cc', _PKG / 'csrc' / 'last_error.cc')
+SOURCES = (_SRC / 'engine.cc', _SRC / 'profiler.cc', _SRC / 'recordio.cc')
 CXX_FLAGS = ('-std=c++17', '-O2', '-fPIC', '-Wall', '-shared',
              '-Wl,--no-undefined')
 
@@ -48,7 +53,7 @@ def library_path():
     h = hashlib.sha256(' '.join(CXX_FLAGS).encode())
     for p in SOURCES + (_SRC / 'mxtpu.h',):
         h.update(p.read_bytes())
-    return BUILD_DIR / ('libmxtt_recordio-%s.so' % h.hexdigest()[:16])
+    return BUILD_DIR / ('libmxtt_native-%s.so' % h.hexdigest()[:16])
 
 
 def _build(cxx, out):
@@ -58,16 +63,35 @@ def _build(cxx, out):
         [str(s) for s in SOURCES] + ['-pthread']
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise NativeError('g++ failed (%d) for the record reader:\n%s\n%s'
+        raise NativeError('g++ failed (%d) for the native runtime:\n%s\n%s'
                           % (res.returncode, res.stdout, res.stderr))
     os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+
+
+# the engine's callback type: void fn(void *param)
+SYNC_FN = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
 
 
 def _bind(lib):
     C = ctypes
     lib.MXTGetLastError.restype = C.c_char_p
     lib.MXTGetLastError.argtypes = []
+    lib.MXTNowUS.restype = C.c_int64
+    lib.MXTNowUS.argtypes = []
     protos = {
+        'MXTEngineCreate': [C.c_int, C.POINTER(C.c_void_p)],
+        'MXTEngineFree': [C.c_void_p],
+        'MXTEngineNewVar': [C.c_void_p, C.POINTER(C.c_void_p)],
+        'MXTEngineDeleteVar': [C.c_void_p, C.c_void_p],
+        'MXTEnginePushSync': [C.c_void_p, C.c_void_p, C.c_void_p,
+                              C.POINTER(C.c_void_p), C.c_int,
+                              C.POINTER(C.c_void_p), C.c_int,
+                              C.c_int, C.c_char_p],
+        'MXTEngineWaitForVar': [C.c_void_p, C.c_void_p],
+        'MXTEngineWaitForAll': [C.c_void_p],
+        'MXTEnginePendingOps': [C.c_void_p, C.POINTER(C.c_int64)],
+        'MXTProfilerSetState': [C.c_int],
+        'MXTProfilerDump': [C.c_char_p],
         'MXTRecordIOWriterCreate': [C.c_char_p, C.POINTER(C.c_void_p)],
         'MXTRecordIOWriterWrite': [C.c_void_p, C.c_char_p, C.c_size_t],
         'MXTRecordIOWriterTell': [C.c_void_p, C.POINTER(C.c_size_t)],
@@ -104,6 +128,11 @@ def get_lib():
                 _lib = _bind(ctypes.CDLL(str(out)))
             _tried = True
         return _lib
+
+
+def loaded():
+    """The library if it is already loaded, else None (builds nothing)."""
+    return _lib
 
 
 def backend():

@@ -1,6 +1,7 @@
 """Shared plumbing of the port: the error type, dtype tables and attr
 normalisation. The counterpart of ``mxnet_tpu/base.py``, holding only what
-the operator registry and NDArray use.
+the operator registry and NDArray use, and the reference's
+``string_types``, ``numeric_types`` and ``build_param_doc``.
 
 Dtypes are named as the JAX package names them: ``np_dtype`` gives a numpy
 dtype (bfloat16 as ``ml_dtypes.bfloat16``), and ``torch_dtype`` the torch
@@ -13,7 +14,11 @@ import numpy as np
 import torch
 
 __all__ = ['MXNetError', 'np_dtype', 'torch_dtype', 'dtype_of',
-           'normalize_attrs']
+           'normalize_attrs', 'string_types', 'numeric_types',
+           'build_param_doc']
+
+string_types = (str,)
+numeric_types = (float, int, np.generic)
 
 
 class MXNetError(Exception):
@@ -79,3 +84,21 @@ def normalize_value(v):
     if isinstance(v, (list, tuple)):
         return tuple(normalize_value(x) for x in v)
     return v
+
+
+def build_param_doc(arg_names, arg_types, arg_descs, remove_dup=True):
+    """An operator's 'Parameters' docstring block (the reference's
+    base.py)."""
+    param_keys = set()
+    param_str = []
+    for key, type_info, desc in zip(arg_names, arg_types, arg_descs):
+        if key in param_keys and remove_dup:
+            continue
+        if key == 'num_args':
+            continue
+        param_keys.add(key)
+        ret = '%s : %s' % (key, type_info)
+        if len(desc) != 0:
+            ret += '\n    ' + desc
+        param_str.append(ret)
+    return 'Parameters\n----------\n%s\n' % str.join('\n', param_str)

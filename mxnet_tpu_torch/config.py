@@ -339,8 +339,20 @@ flags.declare('MXTPU_SERVE_MAX_WAIT_MS', float, 5.0,
               'full or this deadline passes. 0 dispatches each poll at once',
               min_value=0.0)
 flags.declare('MXTPU_NO_NATIVE', bool, False,
-              'Read and write record files with the pure-Python RecordIO '
-              'in place of the native reader built from src/recordio.cc')
+              'Skip building and loading the native runtime (src/engine.cc, '
+              'profiler.cc, recordio.cc): the pure-Python RecordIO reads and '
+              'writes record files, and engine.push runs its tasks on one '
+              'Python thread')
+flags.declare('MXTPU_ENGINE_WORKERS', int, 4,
+              'Worker threads of the native dependency engine',
+              aliases=('MXNET_CPU_WORKER_NTHREADS',), min_value=1,
+              max_value=512)
+flags.declare('MXTPU_ENGINE_TYPE', str, 'ThreadedEngine',
+              'Engine scheduling mode; NaiveEngine runs each op at its push '
+              '(synchronous, for debugging). Read when engine.py is imported',
+              aliases=('MXNET_ENGINE_TYPE',),
+              choices={'NaiveEngine', 'ThreadedEngine',
+                       'ThreadedEnginePerDevice'})
 flags.declare('MXTPU_DEVICE_AUGMENT', bool, False,
               'ImageRecordIter ships fixed-size uint8 batches and runs the '
               'crop, mirror and normalize on the batch\'s device (for hosts '

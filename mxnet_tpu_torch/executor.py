@@ -12,6 +12,16 @@ states an op mutates (BatchNorm's moving statistics) returned as new
 values. Where the JAX package jits the runner and takes ``jax.vjp`` of it,
 the port runs it eagerly and differentiates it with torch autograd.
 
+The JAX package's staged mode (a second, per-node interpreter for
+``group2ctx``, monitor callbacks and host ops) is here the same runner
+with per-node hooks (:meth:`_GraphProgram.make_node_exec`): a node-device
+function moves each node's inputs onto its ``ctx_group``'s device, an
+observer sees each node's values (the monitor, the NaN bisect), and a host
+op (``Custom``, the legacy Python ops, the codecs) runs through
+``registry.host_bridge``. A run with hooks is the plain run's ops in the
+same order with the same draws, so its results are the plain run's bit
+for bit where the devices are the same.
+
 :func:`mirror_wrap` is ``MXTPU_BACKWARD_DO_MIRROR`` (or the reference's
 ``MXNET_BACKWARD_DO_MIRROR``): the forward recomputed in the backward by
 ``torch.utils.checkpoint``, all of it, or all but the convolution and
@@ -19,14 +29,15 @@ matmul results with ``dots``. The gradients are the same either way.
 
 :class:`Executor` binds a symbol to arrays: forward, backward with
 ``grad_req`` write/add/null, the outputs and the arg/grad/aux/output
-dicts, ``copy_params_from`` and ``reshape``. A training forward keeps its
-graph for the backward that follows it; a backward without one runs the
-forward first. Forward and backward are the ``executor.forward`` and
-``executor.backward`` telemetry spans (host time: the kernels they launch
-run on after they return), which the profiler's trace also takes. Not
-ported yet: the staged per-op path (``group2ctx``,
-host ops), ``partial_forward``, ``first_nonfinite_node`` and monitor
-callbacks, which raise NotImplementedError.
+dicts, ``copy_params_from``, ``reshape``, ``set_monitor_callback``,
+``partial_forward`` (one op node a call) and ``first_nonfinite_node`` (the
+first NaN/Inf value of a replay). A training forward keeps its graph for
+the backward that follows it (with a monitor too: the JAX package's staged
+backward runs the forward again under a fresh key, ROADMAP.md §3); a
+backward without one runs the forward first. Forward and backward are the
+``executor.forward`` and ``executor.backward`` telemetry spans (host time:
+the kernels they launch run on after they return), which the profiler's
+trace also takes.
 """
 import functools
 
@@ -36,6 +47,7 @@ from . import random as _random
 from . import telemetry as _tele
 from .base import MXNetError, np_dtype
 from .context import Context
+from .ops import registry as _reg
 from .ndarray.ndarray import NDArray, zeros as nd_zeros
 
 __all__ = ['Executor', 'simple_bind', 'mirror_wrap']
@@ -104,55 +116,96 @@ class _GraphProgram:
         # profiler ranges carry the symbol's layer names
         self.scope_names = [n.name for n in self.topo]
 
-    def make_runner(self):
-        """``run(arg_tensors, aux_tensors, seed, is_train) -> (outputs,
-        new_aux)``, both tuples of tensors."""
-        if self.has_host_ops:
-            raise NotImplementedError(
-                'the graph holds a host op; the executor\'s staged per-op '
-                'path, which runs them, is not ported yet')
+    def make_node_exec(self, node_device=None, observe=None):
+        """``exec_node(env, new_aux, ni, arg_tensors, aux_tensors, seed,
+        is_train)``: node ``ni`` of the topological order run into ``env``
+        (a variable takes its value), its mutated aux states into
+        ``new_aux``; returns the node's values.
+
+        The per-node hooks, each None on the plain path: ``node_device(node)``
+        is the device a node runs on (its inputs cross with ``.to``, which
+        the graph records, so gradients flow back across the copy);
+        ``observe(node, values)`` sees every node's values, variables
+        included, as they are made. A host op runs through
+        ``registry.host_bridge`` with one attrs dict per node for the
+        runner's life (a Custom op keeps its operator instance there).
+        """
         topo = self.topo
         arg_index = {n: i for i, n in enumerate(self.arg_names)}
         aux_index = {n: i for i, n in enumerate(self.aux_names)}
-        outputs = self.outputs
         scope_names = self.scope_names
-        n_aux = len(self.aux_names)
         record_function = torch.profiler.record_function
+        host_attrs = {ni: dict(n.attrs) for ni, n in enumerate(topo)
+                      if not n.is_variable() and n.opdef().host}
+        host_calls = {ni: _reg.host_bridge(topo[ni].opdef(), a)
+                      for ni, a in host_attrs.items()}
+
+        def exec_node(env, new_aux, ni, arg_arrays, aux_arrays, seed,
+                      is_train):
+            node = topo[ni]
+            dev = node_device(node) if node_device is not None else None
+            if node.is_variable():
+                if node.name in aux_index:
+                    t = aux_arrays[aux_index[node.name]]
+                else:
+                    t = arg_arrays[arg_index[node.name]]
+                if dev is not None:
+                    t = t.to(dev)
+                env[_entry_key(node, 0)] = t
+                if observe is not None:
+                    observe(node, (t,))
+                return (t,)
+            op = node.opdef()
+            call = host_calls.get(ni)
+            attrs = node.attrs if call is None else host_attrs[ni]
+            if op.train_aware:
+                if call is None:
+                    attrs = dict(attrs)
+                attrs['__is_train__'] = is_train
+            ins = [env[_entry_key(p, i)] for p, i in node.inputs]
+            if dev is not None:
+                ins = [x.to(dev) for x in ins]
+            if op.needs_rng:
+                ins.append(_random.node_generator(
+                    ins[0].device if ins else
+                    _first_device(arg_arrays, aux_arrays), seed, ni))
+            with record_function(scope_names[ni]):
+                if call is not None:
+                    outs = call(*ins)
+                else:
+                    outs = op.fn(attrs, *ins)
+            if not isinstance(outs, (tuple, list)):
+                outs = (outs,)
+            for i, o in enumerate(outs):
+                env[_entry_key(node, i)] = o
+            for in_idx, out_idx in op.mutate_inputs.items():
+                if in_idx < len(node.inputs):
+                    src, _ = node.inputs[in_idx]
+                    if src.is_variable() and src.name in aux_index:
+                        new_aux[aux_index[src.name]] = \
+                            outs[out_idx].detach()
+            if observe is not None:
+                observe(node, outs)
+            return outs
+
+        return exec_node
+
+    def make_runner(self, node_device=None, observe=None):
+        """``run(arg_tensors, aux_tensors, seed, is_train) -> (outputs,
+        new_aux)``, both tuples of tensors: every node of the topological
+        order through :meth:`make_node_exec` with the same hooks. A run
+        with hooks is the plain run's ops in the same order with the same
+        draws."""
+        exec_node = self.make_node_exec(node_device, observe)
+        outputs = self.outputs
+        n_nodes = len(self.topo)
+        n_aux = len(self.aux_names)
 
         def run(arg_arrays, aux_arrays, seed, is_train):
-            env = {}
-            new_aux = {}
-            device = None
-            for ni, node in enumerate(topo):
-                if node.is_variable():
-                    if node.name in aux_index:
-                        t = aux_arrays[aux_index[node.name]]
-                    else:
-                        t = arg_arrays[arg_index[node.name]]
-                    env[_entry_key(node, 0)] = t
-                    device = device or t.device
-                    continue
-                op = node.opdef()
-                attrs = node.attrs
-                if op.train_aware:
-                    attrs = dict(attrs)
-                    attrs['__is_train__'] = is_train
-                ins = [env[_entry_key(p, i)] for p, i in node.inputs]
-                if op.needs_rng:
-                    ins.append(_random.node_generator(
-                        ins[0].device if ins else device, seed, ni))
-                with record_function(scope_names[ni]):
-                    outs = op.fn(attrs, *ins)
-                if not isinstance(outs, (tuple, list)):
-                    outs = (outs,)
-                for i, o in enumerate(outs):
-                    env[_entry_key(node, i)] = o
-                for in_idx, out_idx in op.mutate_inputs.items():
-                    if in_idx < len(node.inputs):
-                        src, _ = node.inputs[in_idx]
-                        if src.is_variable() and src.name in aux_index:
-                            new_aux[aux_index[src.name]] = \
-                                outs[out_idx].detach()
+            env, new_aux = {}, {}
+            for ni in range(n_nodes):
+                exec_node(env, new_aux, ni, arg_arrays, aux_arrays, seed,
+                          is_train)
             out_arrays = tuple(env[_entry_key(n, i)] for n, i in outputs)
             aux_out = tuple(new_aux.get(i, aux_arrays[i]) for i in range(n_aux))
             return out_arrays, aux_out
@@ -160,10 +213,18 @@ class _GraphProgram:
         return run
 
 
-def _not_ported(what):
-    raise NotImplementedError(
-        '%s needs the executor\'s staged per-op path, which is not ported '
-        'yet' % what)
+def _first_device(arg_arrays, aux_arrays):
+    for t in tuple(arg_arrays) + tuple(aux_arrays):
+        return t.device
+    return None
+
+
+class _Found(Exception):
+    """Ends the bisect's replay at the first non-finite value."""
+
+    def __init__(self, name, index):
+        super().__init__(name, index)
+        self.where = (name, index)
 
 
 class Executor:
@@ -171,8 +232,6 @@ class Executor:
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req='write',
                  aux_states=None, group2ctx=None):
-        if group2ctx is not None:
-            _not_ported('group2ctx (manual model parallelism)')
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
         self._prog = _GraphProgram(symbol)
@@ -200,9 +259,13 @@ class Executor:
                             and self.grad_dict.get(n) is not None]
         self._grad_idx = [self._prog.arg_names.index(n)
                           for n in self._grad_names]
-        self._run = self._prog.make_runner()
+        self._group2ctx = dict(group2ctx) if group2ctx else None
+        self._monitor = None
+        self._observing = False     # a forward's monitor window is open
+        self._run = self._make_run()
         self.outputs_cached = None
         self._pending = None    # (outputs, wrt) of a training forward
+        self._partial = None    # partial_forward's stepping state
 
     def _canon_args(self, args, names, what, allow_missing=False):
         if isinstance(args, dict):
@@ -236,14 +299,33 @@ class Executor:
                     wrt.append(None)
         aux = tuple(a._data for a in self.aux_arrays)
         seed = _random.next_seed()
-        with torch.set_grad_enabled(record):
-            outs, new_aux = mirror_wrap(self._run)(tuple(args), aux, seed,
-                                                   bool(is_train))
+        # the monitor sees this forward only, not mirror's recompute of it
+        # in the backward
+        self._observing = True
+        try:
+            with torch.set_grad_enabled(record):
+                outs, new_aux = mirror_wrap(self._run)(tuple(args), aux, seed,
+                                                       bool(is_train))
+        finally:
+            self._observing = False
         if is_train:
-            for a, v in zip(self.aux_arrays, new_aux):
-                a._data = v
-        self.outputs_cached = [NDArray(o.detach(), self._ctx) for o in outs]
+            self._write_aux(new_aux)
+        self.outputs_cached = self._wrap_outputs(outs)
         return outs, wrt
+
+    def _write_aux(self, new_aux):
+        for a, v in zip(self.aux_arrays, new_aux):
+            a._data = v.to(a._data.device)
+
+    def _wrap_outputs(self, outs):
+        """The outputs as NDArrays, each in its node's context: its group's
+        under group2ctx, else the executor's."""
+        return [NDArray(o.detach(), self._node_ctx(n))
+                for o, (n, _) in zip(outs, self._prog.outputs)]
+
+    def _node_ctx(self, node):
+        grp = node.attr_dict.get('ctx_group') if self._group2ctx else None
+        return self._group2ctx.get(grp, self._ctx) if grp else self._ctx
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph; ``kwargs`` write argument values first. A training
@@ -260,6 +342,7 @@ class Executor:
                 else:
                     self.arg_dict[k]._data = torch.as_tensor(v).to(
                         self._ctx.torch_device())
+        self._partial = None    # a full forward ends a stepping pass
         record = bool(is_train) and bool(self._grad_names)
         outs, wrt = self._run_graph(is_train, record)
         self._pending = (outs, wrt) if record else None
@@ -310,25 +393,145 @@ class Executor:
             g = next(grads) if w is not None else None
             if g is None:
                 g = torch.zeros_like(dst._data)
-            g = g.to(dst._data.dtype)
+            g = g.to(dst._data.device, dst._data.dtype)
             if self._grad_req[name] == 'add':
                 dst._data = dst._data + g
             else:
                 dst._data = g
 
-    # -- not ported yet ---------------------------------------------------
-    def partial_forward(self, is_train, step):
-        _not_ported('partial_forward')
+    # -- the staged per-node path: group2ctx, monitor, stepping, bisect ---
+    def _use_staged(self):
+        """Whether a run of this executor goes beyond the plain graph: a
+        group2ctx placement, a monitor or a host op. The fused windows
+        decline such an executor, as in the JAX package."""
+        return (self._group2ctx is not None or self._monitor is not None
+                or self._prog.has_host_ops)
 
-    def first_nonfinite_node(self, overrides=None, is_train=True):
-        _not_ported('first_nonfinite_node')
+    def _node_device(self, node):
+        return self._node_ctx(node).torch_device()
+
+    def _observe(self, node, values):
+        """The monitor's hook: ``<node>_output`` (``<node>_output<i>`` for
+        a node of several visible outputs) and a detached NDArray of each
+        value, for op nodes of a forward."""
+        if not self._observing or node.is_variable():
+            return
+        nvis = node.opdef().n_visible_outputs(node.attrs)
+        for i in range(nvis):
+            v = values[i].detach()
+            self._monitor('%s_output' % node.name if nvis == 1 else
+                          '%s_output%d' % (node.name, i),
+                          NDArray(v, self._node_ctx(node)))
+
+    def _hooks(self):
+        node_device = self._node_device if self._group2ctx else None
+        observe = self._observe if self._monitor is not None else None
+        return node_device, observe
+
+    def _make_run(self):
+        return self._prog.make_runner(*self._hooks())
 
     def set_monitor_callback(self, callback, monitor_all=False):
-        _not_ported('a monitor callback')
+        """Call ``callback(name, NDArray)`` for each op output of every
+        forward (the reference's ExecuteMonCallback); None removes it.
+        ``monitor_all`` (inputs too, in later MXNet) is accepted and, as in
+        the JAX package, changes nothing."""
+        self._monitor = callback
+        self._run = self._make_run()
+
+    def partial_forward(self, is_train, step):
+        """Run one op node a call (the reference's PartialForward): call
+        from step 0 and count up until the return value, the steps left,
+        is 0. The values stay in an env between calls; variables are read
+        when a pass starts. A call at another step than the next restarts
+        the pass and replays up to it; a step out of range does nothing
+        and returns 0. The last step writes the outputs (and, in training,
+        the aux states)."""
+        prog = self._prog
+        n_steps = len(prog.op_nodes)
+        step = int(step)
+        if n_steps == 0:
+            self.outputs_cached = self._wrap_outputs(
+                [self.arg_dict[n.name]._data if n.name in self.arg_dict
+                 else self.aux_dict[n.name]._data for n, _ in prog.outputs])
+            return 0
+        if step < 0 or step >= n_steps:
+            return 0
+        st = self._partial
+        if st is None or st['next'] != step:
+            st = self._partial = {
+                'env': {}, 'new_aux': {}, 'next': 0, 'pos': 0,
+                'seed': _random.next_seed(),
+                'args': tuple(a._data.detach() for a in self.arg_arrays),
+                'aux': tuple(a._data for a in self.aux_arrays),
+                'exec': prog.make_node_exec(*self._hooks())}
+            lo = 0
+        else:
+            lo = step
+        self._observing = True
+        try:
+            with torch.no_grad():
+                for k in range(lo, step + 1):
+                    target = prog.topo_index[prog.op_nodes[k]]
+                    while st['pos'] <= target:
+                        st['exec'](st['env'], st['new_aux'], st['pos'],
+                                   st['args'], st['aux'], st['seed'],
+                                   bool(is_train))
+                        st['pos'] += 1
+        finally:
+            self._observing = False
+        st['next'] = step + 1
+        left = n_steps - step - 1
+        if left == 0:
+            self._pending = None
+            self.outputs_cached = self._wrap_outputs(
+                [st['env'][_entry_key(n, i)] for n, i in prog.outputs])
+            if is_train:
+                self._write_aux([st['new_aux'].get(i, a._data) for i, a
+                                 in enumerate(self.aux_arrays)])
+            self._partial = None
+        return left
+
+    def first_nonfinite_node(self, overrides=None, is_train=True):
+        """Replay the graph node by node and return the first symbol whose
+        value holds a NaN or an Inf, as ``(name, output_index)``, or None.
+        Variables are checked too, so a poisoned weight or input is named
+        itself. ``overrides`` maps variable names to values (NDArrays,
+        tensors or numpy) that replace the bound ones for the replay. The
+        monitor is not called; nothing is written back."""
+        from .monitor import has_nonfinite
+        prog = self._prog
+        overrides = overrides or {}
+
+        def value(name, arr):
+            if name not in overrides:
+                return arr._data.detach()
+            v = overrides[name]
+            v = v._data if isinstance(v, NDArray) else torch.as_tensor(v)
+            return v.to(arr._data.device)
+
+        def check(node, values):
+            for i, v in enumerate(values):
+                if has_nonfinite(v):
+                    raise _Found(node.name, i)
+
+        node_device = self._node_device if self._group2ctx else None
+        run = prog.make_runner(node_device, check)
+        args = tuple(value(n, a) for n, a in zip(prog.arg_names,
+                                                 self.arg_arrays))
+        aux = tuple(value(n, a) for n, a in zip(prog.aux_names,
+                                                self.aux_arrays))
+        try:
+            with torch.no_grad():
+                run(args, aux, _random.next_seed(), bool(is_train))
+        except _Found as found:
+            return found.where
+        return None
 
     # -- misc API ---------------------------------------------------------
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
+        self._partial = None    # a parameter write ends a stepping pass
         dev = self._ctx.torch_device()
         for name, arr in arg_params.items():
             if name in self.arg_dict:
@@ -365,7 +568,7 @@ class Executor:
                                  dtype=new_args[n].dtype)
                      for n in self._grad_names}
         return Executor(self._symbol, self._ctx, new_args, grads,
-                        self._grad_req, new_aux)
+                        self._grad_req, new_aux, group2ctx=self._group2ctx)
 
 
 def simple_bind(symbol, ctx, grad_req='write', type_dict=None, group2ctx=None,

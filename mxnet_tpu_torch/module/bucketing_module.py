@@ -17,9 +17,7 @@ nothing.
 ``Module`` only (``fused_fit.FusedFitLoop.build``), as in the JAX package.
 Without a ``context`` the buckets run on the current context, the card
 (the JAX package's default is the CPU). ``install_monitor`` keeps the JAX
-package's repair (buckets created later get the monitor too); it raises
-as the port's ``Module.install_monitor`` does, until the monitor is
-ported.
+package's repair: buckets created later get the monitor too.
 """
 import logging
 import warnings

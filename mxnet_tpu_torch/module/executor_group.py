@@ -318,6 +318,5 @@ class DataParallelExecutorGroup:
             eval_metric.update(labels_slice, texec.outputs)
 
     def install_monitor(self, mon):
-        raise NotImplementedError(
-            'a monitor needs the executor\'s monitor callbacks, which are '
-            'not ported yet (ROADMAP.md §1 item 10)')
+        for e in self.execs:
+            mon.install(e)

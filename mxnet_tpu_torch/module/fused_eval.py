@@ -104,7 +104,7 @@ class FusedEvalLoop:
         eg = getattr(module, '_exec_group', None)
         execs = getattr(eg, 'execs', None) or []
         sig = None
-        if len(execs) == 1:
+        if len(execs) == 1 and not execs[0]._use_staged():
             if eval_metric is None:
                 msig = '<predict>'
             else:
@@ -114,8 +114,8 @@ class FusedEvalLoop:
                 sig = (id(execs[0]), _eval_window(), msig)
         cache = module.__dict__.get('_fused_eval_cache')
         if sig is None:
-            # unsignable (several executors, or a metric whose get_config
-            # raises): the per-batch loop
+            # unsignable (several executors, a staged executor, or a metric
+            # whose get_config raises): the per-batch loop
             if cache is not None:
                 cache.pop(kind, None)
             return None
@@ -143,6 +143,8 @@ class FusedEvalLoop:
             return None
         eg = module._exec_group
         if len(getattr(eg, 'execs', ())) != 1:
+            return None
+        if eg.execs[0]._use_staged():   # group2ctx, a monitor or a host op
             return None
         shapes = {d.name: d.shape for d in
                   list(module.data_shapes) + list(module.label_shapes or [])}

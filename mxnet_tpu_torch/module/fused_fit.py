@@ -355,7 +355,10 @@ class FusedFitLoop:
         eg = getattr(module, '_exec_group', None)
         execs = getattr(eg, 'execs', None) or []
         sig = None
-        if len(execs) == 1:
+        if len(execs) == 1 and not execs[0]._use_staged():
+            # a monitor installed between fit() calls invalidates the
+            # cached loop, as build() declines it: the per-batch loop is
+            # the one that calls the monitor
             msig = cls._metric_sig(eval_metric)
             if msig is not None:
                 sig = (id(execs[0]), id(module._optimizer),
@@ -388,6 +391,8 @@ class FusedFitLoop:
         if len(getattr(eg, 'execs', ())) != 1:
             return None
         e = eg.execs[0]
+        if e._use_staged():     # group2ctx, a monitor or a host op
+            return None
         if module._grad_req not in ('write', 'add') \
                 or module.inputs_need_grad:
             return None

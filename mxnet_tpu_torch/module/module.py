@@ -11,8 +11,9 @@ package), ``forward`` (rebinding on a new batch shape), ``backward``,
 
 One deliberate difference from the JAX package: without a ``context`` a
 Module runs on :func:`..context.current_context`, the card (``gpu(0)``),
-where the JAX package's defaults to ``cpu()``. ``install_monitor`` raises:
-the executor's monitor callbacks are not ported.
+where the JAX package's defaults to ``cpu()``. ``install_monitor`` hooks a
+Monitor into every executor (``Executor.set_monitor_callback``); the fused
+windows then decline the module and ``fit`` takes the per-batch loop.
 """
 import logging
 import warnings

@@ -6,7 +6,8 @@ NDArray and its constructors, ``waitall``, ``concatenate``, ``moveaxis``,
 one generated function per registered op (``nd.LayerNorm``,
 ``nd.softmax``, ``nd.broadcast_add``, ``nd.sum``, ``nd.add_n``,
 ``nd.stack``, ``nd.sgd_mom_update``, ``nd.Convolution``, ...), called
-as in the JAX package, ``nd.random`` and ``nd.contrib``.
+as in the JAX package, ``nd.random``, ``nd.contrib``, ``nd.linalg``,
+``nd._internal`` and ``nd.Custom`` (:mod:`..operator`).
 """
 from .ndarray import (NDArray, array, zeros, ones, empty, full, arange,
                       invoke, waitall, concatenate, stack, moveaxis, from_torch)
@@ -15,6 +16,8 @@ from .utils import save, load
 from . import op  # noqa: F401  (generated-op module path)
 from . import random  # noqa: F401  (nd.random samplers)
 from . import contrib  # noqa: F401  (nd.contrib: the _contrib_* ops)
+from . import linalg  # noqa: F401  (nd.linalg: the linalg_* ops)
+from . import _internal  # noqa: F401  (nd._internal: the _* ops)
 
 _register.install_ops(globals())
 
@@ -31,6 +34,14 @@ def minimum(lhs, rhs):
     if isinstance(rhs, NDArray):
         return invoke('broadcast_minimum', [lhs, rhs], {})
     return invoke('_minimum_scalar', [lhs], {'scalar': float(rhs)})
+
+
+def Custom(*args, **kwargs):
+    """A custom Python operator run eagerly (``op_type`` names its
+    registered CustomOpProp); the registry's ``Custom`` is its graph
+    form."""
+    from ..operator import custom_eager
+    return custom_eager(*args, **kwargs)
 
 
 def __getattr__(name):

@@ -659,8 +659,14 @@ def invoke(op_name, inputs, attrs=None, out=None):
 
     recording = (_ag.is_recording() and op.differentiable
                  and any(t.requires_grad for t in args[:len(inputs)]))
+    # a host op (the codecs, the Python-callback ops) runs through the
+    # bridge: its outputs on its input's device, its callbacks in that
+    # context, its recorded backward the op's own
     with torch.set_grad_enabled(recording):
-        outs = op.fn(attrs, *args)
+        if op.host:
+            outs = _reg.host_bridge(op, attrs)(*args)
+        else:
+            outs = op.fn(attrs, *args)
     outs_t = tuple(outs) if isinstance(outs, (tuple, list)) else (outs,)
 
     # write mutated aux outputs back into their input NDArrays; aux states

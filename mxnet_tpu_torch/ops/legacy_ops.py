@@ -7,10 +7,13 @@ NDArray-function forms, ``broadcast_plus``/``broadcast_minus``, the
 ``_broadcast_backward``). ``Convolution_v1``, ``_CrossDeviceCopy`` and
 ``_NoGradient`` are ops of their own, and so are the image codecs
 ``_cvimdecode``, ``_cvimread``, ``_cvimresize`` and ``_cvcopyMakeBorder``:
-host ops in numpy (and PIL) on CPU arrays, through :mod:`..image`. Not
-here yet: ``_sparse_cast_storage`` (its target ``cast_storage`` comes with
-sparse storage) and the Python-callback bridges ``_Native``, ``_NDArray``
-and ``_CustomFunction`` (with ``operator.py``).
+host ops in numpy (and PIL) on CPU arrays, through :mod:`..image`, and
+so are the Python-callback bridges ``_Native`` (a NumpyOp: numpy buffers on
+the host), ``_NDArray`` (an NDArrayOp: NDArrays on the node's context) and
+``_CustomFunction`` (an ``autograd.Function``), each with its
+``legacy_backward``. A graph runs them through ``registry.host_bridge``.
+Not here yet: ``_sparse_cast_storage`` (its target ``cast_storage`` comes
+with sparse storage).
 """
 import numpy as np
 import torch
@@ -157,3 +160,111 @@ def _cvcopy_make_border(attrs, src):
     out = np.pad(img, pad, mode='constant',
                  constant_values=float(attrs.get('value', 0.0)))
     return torch.from_numpy(out)
+
+
+# -- the Python-callback bridges (MXNet's native_op.cc, ndarray_op.cc,
+#    custom_function.cc): host ops ---------------------------------------------
+# MXNet passes a C callback struct's pointer through the `info` attr; here
+# `info` keys a process-local table of live Python objects (operator.py's
+# PythonOp.get_symbol registers them).
+
+_LEGACY_CALLBACKS = {}
+
+
+def register_legacy_callback(obj):
+    """Keep ``obj`` alive and return the ``info`` attr that names it."""
+    key = str(id(obj))
+    _LEGACY_CALLBACKS[key] = obj
+    return key
+
+
+def _lookup_info(attrs, opname):
+    from ..base import MXNetError
+    key = str(attrs.get('info', ''))
+    obj = _LEGACY_CALLBACKS.get(key)
+    if obj is None:
+        raise MXNetError(
+            '%s: no live python operator for info=%r: construct the symbol '
+            'through mx.operator.PythonOp/NDArrayOp.get_symbol() in this '
+            'process' % (opname, key))
+    return obj
+
+
+def _np32(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _legacy_shape(attrs, in_shapes):
+    """shape_fn: the instance's infer_shape."""
+    inst = _lookup_info(attrs, 'legacy python op')
+    _, out_shapes = inst.infer_shape([list(s) for s in in_shapes])
+    return [tuple(s) for s in out_shapes], [np.float32] * len(out_shapes)
+
+
+def _tensors(outs):
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+@_reg.register('_Native', host=True, variadic=True, shape_fn=_legacy_shape,
+               train_aware=True, param_defaults={'info': ''})
+def _native(attrs, *tensors):
+    """A NumpyOp's forward on host float32 numpy buffers."""
+    inst = _lookup_info(attrs, '_Native')
+    np_in = [_np32(t) for t in tensors]
+    _, out_shapes = inst.infer_shape([list(a.shape) for a in np_in])
+    out = [np.zeros(tuple(s), np.float32) for s in out_shapes]
+    inst.forward(in_data=np_in, out_data=out)
+    return _tensors([torch.from_numpy(o) for o in out])
+
+
+def _native_backward(attrs, gouts, ins, outs):
+    """The NumpyOp's backward on host numpy buffers."""
+    inst = _lookup_info(attrs, '_Native')
+    np_in = [_np32(t) for t in ins]
+    in_grad = [np.zeros_like(a) for a in np_in]
+    inst.backward(out_grad=[_np32(g) for g in gouts], in_data=np_in,
+                  out_data=[_np32(o) for o in outs], in_grad=in_grad)
+    return [torch.from_numpy(g) for g in in_grad]
+
+
+_reg.get('_Native').legacy_backward = _native_backward
+
+
+@_reg.register('_NDArray', host=True, variadic=True, shape_fn=_legacy_shape,
+               train_aware=True, param_defaults={'info': ''})
+def _ndarray_op(attrs, *tensors):
+    """An NDArrayOp's forward on NDArrays (its outputs made in the current
+    context, the node's under the bridge)."""
+    from ..ndarray.ndarray import NDArray, zeros
+    inst = _lookup_info(attrs, '_NDArray')
+    nd_in = [NDArray(t) for t in tensors]
+    _, out_shapes = inst.infer_shape([list(a.shape) for a in nd_in])
+    out = [zeros(tuple(s)) for s in out_shapes]
+    inst.forward(in_data=nd_in, out_data=out)
+    return _tensors([o._data for o in out])
+
+
+def _ndarray_backward(attrs, gouts, ins, outs):
+    from ..ndarray.ndarray import NDArray, zeros
+    inst = _lookup_info(attrs, '_NDArray')
+    in_grad = [zeros(tuple(t.shape)) for t in ins]
+    inst.backward(out_grad=[NDArray(g) for g in gouts],
+                  in_data=[NDArray(t) for t in ins],
+                  out_data=[NDArray(o) for o in outs], in_grad=in_grad)
+    return [g._data.float() for g in in_grad]
+
+
+_reg.get('_NDArray').legacy_backward = _ndarray_backward
+
+
+@_reg.register('_CustomFunction', host=True, differentiable=False,
+               variadic=True, param_defaults={'info': ''})
+def _custom_function(attrs, *tensors):
+    """An autograd.Function's forward on NDArrays (the record of a
+    Function call in a graph built by autograd.get_symbol)."""
+    from ..ndarray.ndarray import NDArray
+    inst = _lookup_info(attrs, '_CustomFunction')
+    out = inst.forward(*[NDArray(t) for t in tensors])
+    if isinstance(out, (tuple, list)):
+        return tuple(o._data for o in out)
+    return out._data

@@ -22,17 +22,22 @@ Conventions kept from the JAX registry:
   creates for the op (FullyConnected without a bias has two).
 - ``host`` and ``shape_fn`` describe host ops (Python on concrete arrays,
   with their output shapes from ``shape_fn``): the image codecs ``_cv*``
-  of ``legacy_ops.py``. The executor raises NotImplementedError for a
-  graph that holds one.
+  of ``legacy_ops.py`` and the Python-callback ops (``Custom``,
+  ``_Native``, ``_NDArray``, ``_CustomFunction``). A graph runs them
+  through :func:`host_bridge`; an op may carry ``legacy_backward(attrs,
+  out_grads, inputs, outputs)``, the user's backward.
 
 What the JAX registry has and this one does not: PyTorch runs eagerly, so
 ``jitted`` (a cached ``jax.jit`` closure per op and attrs) has no
-counterpart and an op is a plain call; ``host_bridge`` (host ops inside
-traced programs) and the execution-coverage bookkeeping come with the rest
-of the op library.
+counterpart and an op is a plain call, and :func:`host_bridge` needs no
+callback into the host: it is a ``torch.autograd.Function`` around the
+op's call. The execution-coverage bookkeeping is not ported.
 """
+import torch
+
 __all__ = ['OpDef', 'register', 'register_alias', 'get', 'exists',
-           'list_ops', 'apply_op', 'lazy_op_module']
+           'list_ops', 'apply_op', 'lazy_op_module', 'host_bridge',
+           'bridge_apply']
 
 _OPS = {}
 
@@ -127,9 +132,10 @@ def apply_op(name, attrs, *tensors):
     return get(name).fn(attrs, *tensors)
 
 
-def lazy_op_module(module_globals, make_fn):
+def lazy_op_module(module_globals, make_fn, underscore_only=False):
     """Build (__getattr__, __dir__) for a generated-op module path
-    (``nd.op``). Resolved functions are cached into the module's globals."""
+    (``nd.op``, ``nd._internal``). Resolved functions are cached into the
+    module's globals."""
     def __getattr__(name):
         if exists(name):
             fn = make_fn(name)
@@ -138,5 +144,118 @@ def lazy_op_module(module_globals, make_fn):
         raise AttributeError('operator %r is not registered' % (name,))
 
     def __dir__():
-        return list_ops()
+        ops = list_ops()
+        return [n for n in ops if n.startswith('_')] \
+            if underscore_only else ops
     return __getattr__, __dir__
+
+
+class _HostBridge(torch.autograd.Function):
+    """One host call as a node of torch's graph: the forward runs
+    ``fwd(*tensors)``; the backward runs ``bwd(out_grads, inputs,
+    outputs)`` where there is one (missing output gradients are zeros),
+    else passes zero gradients. Floating inputs take their gradient in
+    their own device and dtype; other inputs take none."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *tensors):
+        outs = fwd(*tensors)
+        single = not isinstance(outs, (tuple, list))
+        outs = (outs,) if single else tuple(outs)
+        ctx.bwd = bwd
+        ctx.n_in = len(tensors)
+        ctx.save_for_backward(*tensors, *outs)
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.is_floating_point()])
+        return outs[0] if single else outs
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        saved = ctx.saved_tensors
+        ins, outs = saved[:ctx.n_in], saved[ctx.n_in:]
+        if ctx.bwd is None:
+            grads = [torch.zeros_like(t) for t in ins]
+        else:
+            gouts = [torch.zeros_like(o) if g is None else g
+                     for g, o in zip(gouts, outs)]
+            grads = ctx.bwd(gouts, ins, outs)
+        rets = []
+        for g, t in zip(grads, ins):
+            if not t.is_floating_point():
+                rets.append(None)
+            elif g is None:
+                rets.append(torch.zeros_like(t))
+            elif isinstance(g, torch.Tensor):
+                rets.append(g.detach().to(t.device, t.dtype))
+            else:
+                rets.append(torch.as_tensor(g).to(t.device, t.dtype))
+        rets += [None] * (len(ins) - len(rets))
+        return (None, None) + tuple(rets)
+
+
+def host_scope(tensors):
+    """The Context of the first tensor, for a ``with`` around a host call:
+    what the callback allocates lands on its node's device. Nothing for a
+    call without tensors, which takes the current context."""
+    import contextlib
+    from ..context import Context
+    if not tensors:
+        return contextlib.nullcontext()
+    d = tensors[0].device
+    return Context('gpu', d.index or 0) if d.type == 'cuda' else \
+        Context('cpu', 0)
+
+
+def bridge_apply(fwd, bwd, tensors):
+    """Run ``fwd`` on ``tensors`` as one recorded node whose backward is
+    ``bwd`` (None: zero gradients). Both run with autograd's recording
+    off, inside the first tensor's Context, on tensors outside any graph.
+    Errors propagate; nothing falls back."""
+    from .. import autograd as _ag
+
+    def run(fn, scope, *args):
+        prev = _ag.set_recording(False)
+        try:
+            with host_scope(scope):
+                return fn(*args)
+        finally:
+            _ag.set_recording(prev)
+
+    def fwd_(*ts):
+        ts = [t.detach() for t in ts]
+        return run(fwd, ts, *ts)
+
+    def bwd_(gouts, ins, outs):
+        ins = [t.detach() for t in ins]
+        return run(bwd, ins, [g.detach() for g in gouts], ins,
+                   [o.detach() for o in outs])
+    return _HostBridge.apply(fwd_, bwd_ if bwd is not None else None,
+                             *tensors)
+
+
+def host_bridge(op, attrs):
+    """A host op as a callable on tensors, for a graph's runner: the op's
+    ``fn`` with its outputs moved onto the first input's device (a host
+    callback returns to the graph's device), and the op's
+    ``legacy_backward`` as its gradient, zero gradients where it has none
+    (the codecs). ``attrs`` is passed to both, so an op may keep state on
+    it between its forward and its backward (Custom's operator
+    instance)."""
+    backward = getattr(op, 'legacy_backward', None)
+
+    def fwd(*ts):
+        outs = op.fn(attrs, *ts)
+        if not ts:
+            return outs
+        dev = ts[0].device
+        if isinstance(outs, (tuple, list)):
+            return tuple(o.to(dev) for o in outs)
+        return outs.to(dev)
+
+    def bwd(gouts, ins, outs):
+        return backward(attrs, gouts, ins, outs)
+
+    def call(*tensors):
+        return bridge_apply(fwd, bwd if backward is not None else None,
+                            tensors)
+    return call

@@ -24,8 +24,12 @@ training steps, written into ``MXTPU_XPROF_DIR``: the fit loops report
 their steps through :func:`note_step`, and the fused window a whole window
 at a time, so the boundaries fall on window multiples there.
 
-Not ported: the native engine's op spans (``_native.MXTProfilerSetState``
-and its dump), which wait for ``engine.py`` (ROADMAP.md §1 item 10).
+The native engine's op spans (``src/profiler.cc``): while the profiler
+runs, the engine of :mod:`.engine` records each op it runs, and
+``dump_profile`` merges those spans into the host-span trace, moved onto
+its clock. The profiler never builds the native library: it turns the
+native recording on only where the library is loaded, and an engine made
+later starts it itself.
 """
 import atexit
 import json
@@ -222,6 +226,10 @@ def profiler_set_config(mode='symbolic', filename='profile.json'):
 def profiler_set_state(state='stop'):
     """state: 'run' starts recording (and the device trace), 'stop' stops
     it (and exports the device trace)."""
+    from . import _native
+    lib = _native.loaded()
+    if lib is not None:     # the engine's op spans (src/profiler.cc)
+        lib.MXTProfilerSetState(1 if state == 'run' else 0)
     with _lock:
         if state == 'run' and not _state['running']:
             _state['running'] = True
@@ -306,13 +314,37 @@ class span:
                          self.cat)
 
 
+def _native_events(lib, path):
+    """Drain the native profiler's events (the engine's op spans) through
+    a file beside ``path``, onto this module's clock and process."""
+    tmp = '%s.native%d.tmp' % (path, os.getpid())
+    try:
+        offset = int(time.time() * 1e6) - lib.MXTNowUS()
+        if lib.MXTProfilerDump(tmp.encode()) != 0:
+            return []
+        with open(tmp) as f:
+            events = json.load(f).get('traceEvents', [])
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    for ev in events:
+        ev['ts'] += offset
+        ev['pid'] = os.getpid()
+    return events
+
+
 def dump_profile():
     """Write the host-span chrome trace (each recorded event once, merged
-    with what an earlier dump of this process wrote to the same path)."""
+    with what an earlier dump of this process wrote to the same path), with
+    the native engine's op spans."""
+    from . import _native
     with _lock:
         events = list(_state['events'])
         _state['events'] = []
     path = _state['filename']
+    lib = _native.loaded()
+    if lib is not None:
+        events.extend(_native_events(lib, path))
     if path in _written and os.path.exists(path):
         try:
             with open(path) as f:

@@ -112,7 +112,7 @@ class _SingleExecutorEngine:
             raise ValueError('%s needs a single-executor module (one '
                              'context)' % cls)
         e = execs[0]
-        if e._prog.has_host_ops:
+        if e._monitor is not None or e._group2ctx is not None:
             raise ValueError('%s cannot serve a staged/monitored module'
                              % cls)
         self.module = module

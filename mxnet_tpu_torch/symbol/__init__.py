@@ -2,8 +2,8 @@
 ``mxnet_tpu/symbol/__init__.py``: Symbol, Variable, Group, load_json, one
 composer per registered op (``sym.Convolution``, ``sym.BatchNorm``, ...),
 generated from the registry as ``nd.<op>`` is, ``zeros``/``ones``/
-``arange``/``full``, ``maximum``/``minimum``/``hypot``, ``sym.random``
-and ``sym.contrib``.
+``arange``/``full``, ``maximum``/``minimum``/``hypot``, ``sym.random``,
+``sym.contrib``, ``sym.linalg`` and ``sym._internal``.
 """
 from .symbol import Symbol, Variable, var, Group, load, load_json, create
 from . import register as _register
@@ -63,6 +63,8 @@ def hypot(lhs, rhs):
 
 from . import random    # noqa: E402,F401  (mx.sym.random.*)
 from . import contrib   # noqa: E402,F401  (mx.sym.contrib.*)
+from . import linalg    # noqa: E402,F401  (mx.sym.linalg.*)
+from . import _internal  # noqa: E402,F401  (mx.sym._internal.*)
 from . import op        # noqa: E402,F401  (generated-op module path)
 
 

@@ -4,9 +4,10 @@
 A forward walk in topological order runs each op on ``meta`` tensors (in
 the place of ``jax.eval_shape``): shapes and dtypes, no data and no
 device. Unknown parameter shapes are filled by per-op hooks from the data
-input's shape and the attrs. An op that cannot run on ``meta`` (one that
-reads its data) raises MXNetError naming the node; there is no fallback
-to running it on the CPU.
+input's shape and the attrs. A host op's shapes come from its
+``shape_fn``. Another op that cannot run on ``meta`` (one that reads its
+data) raises MXNetError naming the node; there is no fallback to running
+it on the CPU.
 """
 import ast
 
@@ -216,6 +217,15 @@ def _eval_node_shape(n, in_shapes, known_types):
     attrs = dict(n.attrs)
     if op.train_aware:
         attrs['__is_train__'] = False
+    if op.host:
+        # a host op reads its data: its shapes come from its shape_fn (the
+        # Python callbacks' infer_shape, the codecs' geometry)
+        if op.shape_fn is None:
+            raise MXNetError(
+                'host op %s(%s) has a data-dependent output shape; it can '
+                'only be used imperatively' % (n.name, n.op))
+        out_shapes, _ = op.shape_fn(attrs, [tuple(s) for s in in_shapes])
+        return [tuple(s) for s in out_shapes]
     dt = torch_dtype(known_types.get(None, 'float32'))
     args = [torch.empty(s, dtype=dt, device=_META) for s in in_shapes]
     if op.needs_rng:

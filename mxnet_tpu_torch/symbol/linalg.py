@@ -1,0 +1,10 @@
+"""sym.linalg: the ``linalg_*`` composers under their short names, as in
+``mxnet_tpu/symbol/linalg.py``."""
+from . import register as _register
+
+__all__ = ['gemm', 'gemm2', 'potrf', 'potri', 'trmm', 'trsm', 'syrk',
+           'gelqf', 'sumlogdiag']
+
+for _name in __all__:
+    globals()[_name] = _register.make_sym_function('linalg_' + _name)
+del _name

@@ -535,6 +535,8 @@ def _invoke_sym(op_name, input_syms, kwargs):
                 if nxt is not None:
                     merged.append(nxt)
         inputs = merged
+    elif op_name == 'Custom' and 'op_type' in kwargs:
+        return _compose_custom(inputs, named, kwargs, name)
     elif op.variadic and named:
         # mixing positional and keyword symbol inputs is ambiguous for
         # variable-length ops: rejected, as the reference does
@@ -558,6 +560,67 @@ def _invoke_sym(op_name, input_syms, kwargs):
             inputs.append(Variable('%s_%s' % (final_name, pname)))
         return create(op_name, inputs, kwargs, final_name)
     return create(op_name, inputs, kwargs, name)
+
+
+def _compose_custom(inputs, named, kwargs, name):
+    """A Custom node, its inputs in the order its prop declares (arguments,
+    then aux states): positional inputs fill the leading slots, keywords
+    their own, and each argument not passed becomes a ``<name>_<arg>``
+    Variable (``softmax_label``); aux states are all passed or none. A
+    prop that cannot be made composes the inputs as given (its error
+    surfaces at bind)."""
+    from ..operator import _CUSTOM_OPS, _CUSTOM_RESERVED
+    op_type = kwargs['op_type']
+    try:
+        prop = _CUSTOM_OPS[op_type](**{
+            k: v for k, v in kwargs.items()
+            if k not in _CUSTOM_RESERVED and k != 'num_args'})
+        args_order = list(prop.list_arguments())
+        order = args_order + list(prop.list_auxiliary_states())
+    except Exception:  # noqa: BLE001 -- the bind reports the prop's error
+        if inputs and named:
+            raise ValueError(
+                'operator Custom takes variable-length inputs: pass symbol '
+                'inputs either all positionally or all by keyword, not '
+                'mixed')
+        inputs = inputs + list(named.values())
+        kwargs.setdefault('num_args', len(inputs))
+        return create('Custom', inputs, kwargs, name)
+    n_args = len(args_order)
+    unknown = [k for k in named if k not in order]
+    if unknown:
+        raise ValueError('unknown keyword input(s) %s for Custom op %r; '
+                         'declared inputs are %s' % (unknown, op_type, order))
+    if len(inputs) > len(order):
+        raise ValueError('Custom op %r takes inputs %s; %d extra positional '
+                         'input(s) given' % (op_type, order,
+                                             len(inputs) - len(order)))
+    final_name = NameManager.current().get(name, 'custom')
+    merged = []
+    omitted_aux = None
+    for idx, n in enumerate(order):
+        if idx < len(inputs):
+            if n in named:
+                raise ValueError('Custom op %r input %r is bound both '
+                                 'positionally and by keyword' % (op_type, n))
+            merged.append(inputs[idx])
+        elif n in named:
+            if omitted_aux is not None:
+                raise ValueError('Custom op %r: aux input %r passed but '
+                                 'earlier aux %r omitted'
+                                 % (op_type, n, omitted_aux))
+            merged.append(named[n])
+        elif idx < n_args:
+            merged.append(Variable('%s_%s' % (final_name, n)))
+        else:
+            omitted_aux = n
+    n_aux_given = len(merged) - n_args
+    if n_aux_given not in (0, len(order) - n_args):
+        raise ValueError('Custom op %r: pass all %d aux states or none (%d '
+                         'given)' % (op_type, len(order) - n_args,
+                                     n_aux_given))
+    kwargs.setdefault('num_args', len(merged))
+    return create('Custom', merged, kwargs, final_name)
 
 
 class NotImplementedForSymbol(MXNetError):

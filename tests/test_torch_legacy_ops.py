@@ -33,9 +33,6 @@ WAITING = {
     'cast_storage': 'sparse', '_sparse_cast_storage': 'sparse',
     '_sparse_retain': 'sparse', 'sparse_retain': 'sparse',
     '_square_sum': 'sparse',
-    # operator.py (the Python-callback ops)
-    'Custom': 'operator', '_Native': 'operator', '_NDArray': 'operator',
-    '_CustomFunction': 'operator',
     # the contrib detection and signal ops
     'BilinearSampler': 'contrib', 'Correlation': 'contrib',
     'GridGenerator': 'contrib', 'IdentityAttachKLSparseReg': 'contrib',

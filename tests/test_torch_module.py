@@ -396,12 +396,13 @@ def test_unported_paths_raise(monkeypatch, flag):
 
 
 def test_monitor_and_sym_gen_raise():
-    """The monitor is not ported: install_monitor raises on a Module, and
-    on a BucketingModule (FeedForward's module over a sym_gen, which is
-    ported: tests/test_torch_rnn.py) as well."""
+    """install_monitor hooks a Monitor into a Module's executors, and a
+    BucketingModule's (FeedForward's module over a sym_gen, which is
+    ported: tests/test_torch_rnn.py); tests/test_torch_monitor.py holds
+    their rows to the JAX package's. Nothing raises any more."""
     mod, _ = _module(mt, 'mlp_bn', _init_values('mlp_bn'))
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        mod.install_monitor(object())
+    mod.install_monitor(mt.mon.Monitor(1))
+    assert all(e._monitor is not None for e in mod._exec_group.execs)
     sym = mod.symbol
     ff = mt.model.FeedForward(lambda key: sym)
     assert ff.symbol is None and ff._sym_gen is not None
@@ -409,8 +410,8 @@ def test_monitor_and_sym_gen_raise():
                                              ('softmax_label',)),
                                 default_bucket_key=4, context=mt.cpu())
     bm.bind([('data', (4, 5))], [('softmax_label', (4,))])
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        bm.install_monitor(object())
+    bm.install_monitor(mt.mon.Monitor(1))
+    assert bm._curr_module._exec_group.execs[0]._monitor is not None
 
 
 def _logged_fit(pkg, tmp_path, caplog):
