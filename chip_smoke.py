@@ -316,6 +316,38 @@ order they run:
     their readers between them, wait_for_all after queued matmuls leaving
     the card idle, the engine's op spans in a profiler dump; (s7)
     print_summary of resnet50_v1 at 224 and its total.
+(t) sparse storage and the contrib detection and vision ops (run after
+    (s), before (e); the kernel record's sparse_launches count (t3)'s
+    launches, its contrib_launches those of (t4)-(t6)); each sub-phase
+    holds the card against the port on the CPU for the same inputs (f32
+    values within 1e-5 of the largest |CPU| value, gradients 1e-4, integer
+    results, class ids and codes exactly): (t1)
+    examples/sparse/linear_classification.py's recipe at Avazu's width
+    (1,000,000 features, 10-30 a row, 32 batches of 256 from a generated
+    libsvm file through LibSVMIter; two passes, the log loss falling),
+    nd.sparse.dot against the dense lowering, and the reference script's
+    Module form (sym.sparse.dot of a csr Variable with a row_sparse
+    weight, kv.row_sparse_pull before each batch, the batch densified on
+    the card); (t2) csr [8192, 1,000,000] -> dense -> csr and row_sparse
+    [1,000,000, 128] -> dense -> row_sparse, retain, add, square_sum and
+    nd.save/nd.load bit for bit (the files byte for byte); (t3) a
+    multi-class head W [1,000,000, 128] over (t1)'s batches through
+    nd.softmax_cross_entropy (K3) and nd.softmax (K5), one launch each a
+    batch, held against xent_ref and softmax_ref; (t4) train_ssd.py's
+    recipe through Module.fit from its .rec, its MultiBoxDetection decode,
+    then MultiBoxPrior, MultiBoxTarget, MultiBoxDetection and box_iou at
+    SSD300's widths (8,732 anchors, 21 classes, batch 32, 1-16 objects);
+    (t5) train_rcnn_lite.py's two stages, then MultiProposal at the op's
+    defaults on [2, 18, 38, 63] and ROIPooling 7 x 7 over its 600 rois on
+    [2, 512, 38, 63], forward and backward; (t6) quantize_mlp.py, bench's
+    resnet50_v1 parameters to uint8 and back, DeformableConvolution on
+    res5 (3 x 3, 512 -> 512, dilate 2), PSROIPooling and
+    DeformablePSROIPooling (R-FCN's 21 x 7 x 7 over 600 rois),
+    Correlation (FlowNetC's [4, 256, 48, 64], displacement 20, stride 2),
+    SpatialTransformer, GridGenerator and BilinearSampler on [32, 3, 224,
+    224], fft/ifft on [256, 4096], count_sketch to 8,192 over [4096, 512]
+    and IdentityAttachKLSparseReg on [256, 1024] in training, each timed
+    with CUDA events.
 
 The second-to-last line of its output is the kernel record
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -6732,6 +6764,1368 @@ def phase_s(device, cfg, work):
     return staged, custom, times_
 
 
+# ---------------------------------------------------------------------------
+# (t) sparse storage and the contrib detection and vision ops
+# ---------------------------------------------------------------------------
+
+SVM_FEATURES = 1_000_000    # Avazu's width
+SVM_BATCH = 256
+SVM_BATCHES = 32            # 8,192 rows of the generated libsvm file
+SVM_EPOCHS = 2              # two passes: the second sees the same rows
+SVM_LR = 1.0                # examples/sparse/linear_classification.py's
+SVM_MODULE_BATCHES = 4      # the reference script's Module form
+SVM_MODULE_CPU = 2          # its batches held against the CPU
+SPARSE_CLASSES = 128        # (t3): W [1,000,000, 128] f32
+SPARSE_LR = 100.0           # on the batch mean: about 0.4 a sample
+# f32 values on the card against the port on the CPU, |card - cpu| <= rtol
+# x the largest |cpu| value: index_add_ sums in another order on the card
+# (atomics), cuDNN's and cuBLAS's f32 sums too
+SPARSE_RTOL = 1e-5
+CONTRIB_RTOL = 1e-5
+CONTRIB_GRAD_RTOL = 1e-4
+SQUARE_SUM_RTOL = 1e-6      # a reduction of f32 squares in another order
+# SSD300 (Liu et al. 2016), as MXNet's example/ssd configures VGG16 at 300:
+# six maps, 4, 6, 6, 6, 4 and 4 anchors a position, 8,732 anchors
+SSD300_MAPS = (38, 19, 10, 5, 3, 1)
+SSD300_SIZES = ((.1, .141), (.2, .272), (.37, .447), (.54, .619),
+                (.71, .79), (.88, .961))
+SSD300_RATIOS = ((1, 2, .5), (1, 2, .5, 3, 1. / 3), (1, 2, .5, 3, 1. / 3),
+                 (1, 2, .5, 3, 1. / 3), (1, 2, .5), (1, 2, .5))
+SSD300_STEPS = (8, 16, 32, 64, 100, 300)
+SSD_CLASSES = 21            # VOC's 20 and the background
+SSD_BATCH = 32
+SSD_MAX_OBJECTS = 16
+SSD_CPU_SAMPLES = 2         # MultiBoxDetection works a sample at a time:
+                            # the CPU holds the batch's first samples
+SSD_IOU_CPU_ROWS = 1024     # box_iou's rows held against the CPU
+# examples/ssd/train_ssd.py at its own sizes
+SSD_IMG, SSD_FG, SSD_OBJS = 64, 3, 4
+SSD_SAMPLES, SSD_EX_BATCH, SSD_EPOCHS, SSD_EX_LR = 128, 16, 2, 0.05
+# Faster R-CNN (Ren et al. 2015): VGG16's conv5 at stride 16 on two
+# 600 x 1000 images, 9 anchors, the op's reference defaults
+RPN_MAP = (38, 63)
+RPN_IMAGES = 2
+RPN_SCALES = (8.0, 16.0, 32.0)
+RPN_RATIOS = (0.5, 1.0, 2.0)
+ROI_CHANNELS = 512
+ROI_CPU = 32                # rois held against the CPU, forward and backward
+# examples/rcnn/train_rcnn_lite.py at its own sizes
+RCNN_IMG, RCNN_STRIDE, RCNN_SCALES, RCNN_FG = 64, 8, (2.0, 4.0), 3
+RCNN_SAMPLES, RCNN_BATCH, RCNN_RPN_EPOCHS, RCNN_HEAD_EPOCHS = 48, 8, 5, 20
+RCNN_LR = 0.005
+# R-FCN (Dai et al. 2016) and its deformable form (Dai et al. 2017)
+RFCN_DIM, RFCN_GROUP, RFCN_SPP, RFCN_TSTD = 21, 7, 4, 0.1
+DEFORM_SHAPE = (2, 512, 38, 63)     # res5 of Dai et al. 2017
+DEFORM_CPU = 1                      # samples held against the CPU
+FLOW_SHAPE = (4, 256, 48, 64)       # FlowNetC's correlation
+FLOW_DISP, FLOW_STRIDE2 = 20, 2
+FLOW_CPU = 1
+STN_SHAPE = (32, 3, 224, 224)
+STN_CPU = 2
+FFT_SHAPE = (256, 4096)
+SKETCH_SHAPE, SKETCH_DIM = (4096, 512), 8192
+KL_SHAPE = (256, 1024)
+QUANT_MLP = (768, 8, 48, 8)         # quantize_mlp.py: samples, classes, dim, epochs
+
+
+def _held(got, want, rtol, what):
+    """``got`` (the card's) against ``want`` (the CPU's): integer and bool
+    tensors exactly, floats within rtol x the largest |want| value. Returns
+    the largest |got - want|."""
+    import torch
+    got, want = got.detach().cpu(), want.detach().cpu()
+    check(tuple(got.shape) == tuple(want.shape),
+          '%s: shape %s, on the CPU %s' % (what, tuple(got.shape),
+                                          tuple(want.shape)))
+    if not want.is_floating_point():
+        check(torch.equal(got, want), '%s differs from the CPU' % what)
+        return 0.0
+    if want.numel() == 0:
+        return 0.0
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    check(err <= rtol * scale, '%s: max |card - cpu| %.3e over %.0e x %.4g'
+          % (what, err, rtol, scale))
+    return err
+
+
+def _exact(got, want, what):
+    """Bit for bit (floats compared as their bits, NaN and -0 included)."""
+    import torch
+    got, want = got.detach().cpu(), want.detach().cpu()
+    ok = tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype
+    if ok and got.is_floating_point():
+        ok = torch.equal(got.view(torch.int32) if got.dtype == torch.float32
+                         else got, want.view(torch.int32)
+                         if want.dtype == torch.float32 else want)
+    elif ok:
+        ok = torch.equal(got, want)
+    check(ok, '%s is not bit for bit the CPU\'s' % what)
+
+
+def _wall_ms(fn, device, runs=5):
+    """Median synchronised host ms of ``fn()`` (for work that reads a size
+    back from the device inside, where CUDA events would time the host's
+    wait)."""
+    fn()
+    _sync(device)
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def write_avazu_libsvm(path, rows, nfeat=SVM_FEATURES, seed=3):
+    """The Avazu-shaped generator of tests/compat/test_reference_scripts.py
+    (10-30 distinct sorted features a row, each a value in [0, 1), the
+    label from the share of features in the lower half plus noise). A row's
+    distinct features are drawn by rejection, not by a permutation of all
+    the features a row, which costs 8 ms a row at 1,000,000."""
+    rng = np.random.RandomState(seed)
+    lines = []
+    for _ in range(rows):
+        nnz = rng.randint(10, 30)
+        while True:
+            idx = np.unique(rng.randint(0, nfeat, nnz))
+            if len(idx) == nnz:
+                break
+        sig = (idx < nfeat // 2).sum() - nnz / 2.0
+        label = 1 if sig + rng.randn() * 2 > 0 else 0
+        vals = rng.rand(nnz)
+        lines.append('%d %s\n' % (label, ' '.join(
+            '%d:%.4f' % (j, v) for j, v in zip(idx, vals))))
+    with open(path, 'w') as f:
+        f.writelines(lines)
+
+
+def _svm_iter(mt, path, batch=None):
+    return mt.io.LibSVMIter(data_libsvm=path, data_shape=(SVM_FEATURES,),
+                            batch_size=batch or SVM_BATCH)
+
+
+def linear_recipe(device, path):
+    """examples/sparse/linear_classification.py's loop on ``device``: the
+    CSR batch through nd.sparse.dot, the logistic loss, the transposed
+    sparse dot's row_sparse gradient, the dense update. Returns (mean log
+    loss an epoch, synchronised host ms a batch, w, b)."""
+    import mxnet_tpu_torch as mt
+    with _ctx_of(device):
+        it = _svm_iter(mt, path)
+        w = mt.nd.zeros((SVM_FEATURES, 1))
+        b = mt.nd.zeros((1,))
+        losses, ms = [], []
+        for _ in range(SVM_EPOCHS):
+            it.reset()
+            tot, seen = 0.0, 0
+            for batch in it:
+                t0 = time.perf_counter()
+                data, lab = batch.data[0], batch.label[0]
+                n = data.shape[0]
+                z = mt.nd.sparse.dot(data, w).reshape((-1,)) + b
+                p = 1.0 / (1.0 + (-z).exp())
+                err = p - lab
+                gw = (1.0 / n) * mt.nd.sparse.dot(data, err.reshape((-1, 1)),
+                                                  transpose_a=True)
+                check(gw.stype == 'row_sparse', 'the transposed dot gave %s'
+                      % gw.stype)
+                w = w - (SVM_LR * gw).tostype('default')
+                b -= SVM_LR * err.mean()
+                eps = 1e-7
+                tot += float((-(lab * (p + eps).log() + (1 - lab) *
+                                (1 - p + eps).log())).sum().asscalar())
+                ms.append((time.perf_counter() - t0) * 1e3)
+                seen += n
+            losses.append(tot / seen)
+    return losses, ms, w, b
+
+
+def sparse_module(device, path, batches):
+    """The reference script's Module form: a csr ``data`` Variable,
+    sym.sparse.dot with a row_sparse ``weight``, a logistic output, a local
+    kvstore and kv.row_sparse_pull(row_ids=batch.data[0].indices) before
+    each batch. Returns (each batch's output on the host, synchronised host
+    ms a batch, the parameters)."""
+    import mxnet_tpu_torch as mt
+    ctx = _ctx_of(device)
+    data = mt.sym.Variable('data', stype='csr')
+    weight = mt.sym.Variable('weight', shape=(SVM_FEATURES, 1),
+                             stype='row_sparse')
+    bias = mt.sym.Variable('bias', shape=(1,))
+    pred = mt.sym.broadcast_add(mt.sym.sparse.dot(data, weight), bias)
+    net = mt.sym.LogisticRegressionOutput(
+        pred.reshape((-1,)), mt.sym.Variable('softmax_label'), name='out')
+    with ctx:
+        it = _svm_iter(mt, path)
+        mod = mt.mod.Module(net, data_names=['data'],
+                            label_names=['softmax_label'], context=ctx)
+        mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        rng = np.random.RandomState(5)
+        mod.init_params(arg_params={
+            'weight': mt.nd.array(0.01 * rng.randn(SVM_FEATURES, 1).astype(
+                np.float32)), 'bias': mt.nd.zeros((1,))})
+        kv = mt.kv.create('local')
+        mod.init_optimizer(kvstore=kv, optimizer='sgd', optimizer_params={
+            'learning_rate': 0.1, 'rescale_grad': 1.0 / SVM_BATCH})
+        widx = mod._exec_group.param_names.index('weight')
+        outs, ms = [], []
+        for k, batch in enumerate(it):
+            if k == batches:
+                break
+            t0 = time.perf_counter()
+            kv.row_sparse_pull('weight', mod._exec_group.param_arrays[widx],
+                               row_ids=batch.data[0].indices)
+            mod.forward_backward(batch)
+            mod.update()
+            out = mod.get_outputs()[0].handle
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out.detach().cpu())
+        args, _ = mod.get_params()
+    return outs, ms, {k: v.handle.detach().cpu() for k, v in args.items()}
+
+
+def sparse_classifier(device, work):
+    """Phase (t1): returns the generated file's path and the first batch's
+    CSR on the card."""
+    import torch
+    import mxnet_tpu_torch as mt
+    path = os.path.join(work, 'avazu.libsvm')
+    t0 = time.perf_counter()
+    write_avazu_libsvm(path, SVM_BATCH * SVM_BATCHES, SVM_FEATURES)
+    log('    wrote %d rows of %d features: %.1f s'
+        % (SVM_BATCH * SVM_BATCHES, SVM_FEATURES, time.perf_counter() - t0))
+    losses, ms, w, b = linear_recipe(device, path)
+    log('    example recipe on the card: log loss %s an epoch; %.3f ms a '
+        'batch (median of %d, synchronised host wall, LibSVMIter\'s batch '
+        'upload outside)' % (', '.join('%.5f' % l for l in losses),
+                             statistics.median(ms), len(ms)))
+    check(losses[-1] < losses[0], 'the log loss did not fall: %s' % losses)
+    cpu = torch.device('cpu')
+    closs, _, cw, cb = linear_recipe(cpu, path)
+    for k, (a, c) in enumerate(zip(losses, closs)):
+        check(abs(a - c) <= SPARSE_RTOL * abs(c),
+              'epoch %d loss %.7f, on the CPU %.7f' % (k, a, c))
+    werr = _held(w.handle, cw.handle, SPARSE_RTOL, 'the trained w')
+    _held(b.handle, cb.handle, SPARSE_RTOL, 'the trained b')
+    log('    held against the CPU: losses within %.0e, w max err %.3e'
+        % (SPARSE_RTOL, werr))
+
+    # the dot alone: work proportional to the stored values against the
+    # dense lowering of the batch (1.02 GB at 256 x 1,000,000 f32)
+    with _ctx_of(device):
+        batch = next(iter(_svm_iter(mt, path)))
+    csr = batch.data[0]
+    nnz = csr.data.shape[0]
+    col = mt.nd.array(np.random.RandomState(6).randn(SVM_BATCH, 1).astype(
+        np.float32), ctx=_ctx_of(device))
+    sparse_ms = device_ms(lambda: mt.nd.sparse.dot(csr, w), runs=20)
+    dense_ms = device_ms(lambda: mt.nd.dot(csr.tostype('default'), w),
+                         runs=5)
+    t_sparse = _wall_ms(lambda: mt.nd.sparse.dot(csr, col, transpose_a=True),
+                        device)
+    t_dense = _wall_ms(lambda: mt.nd.dot(csr.tostype('default'), col,
+                                         transpose_a=True), device)
+    bound = (nnz * 4 * 3 + (SVM_BATCH + 1) * 4 + SVM_BATCH * 4) / \
+        HBM_BYTES_PER_S * 1e3
+    log('    nd.sparse.dot(csr %d x %d, %d nnz; w %d x 1): %.4f ms (CUDA '
+        'events) against the dense lowering (cast + dot) %.4f ms; bound '
+        '%.2e ms (bytes); csr.T . x: %.4f ms (host wall: the unique columns '
+        'are read back) against %.4f dense'
+        % (SVM_BATCH, SVM_FEATURES, nnz, SVM_FEATURES, sparse_ms, dense_ms,
+           bound, t_sparse, t_dense))
+
+    outs, mms, params = sparse_module(device, path, SVM_MODULE_BATCHES)
+    couts, _, cparams = sparse_module(cpu, path, SVM_MODULE_CPU)
+    for k in range(SVM_MODULE_CPU):
+        _held(outs[k], couts[k], SPARSE_RTOL, 'Module output, batch %d' % k)
+    log('    the reference script\'s Module form (row_sparse_pull, the CSR '
+        'batch densified on the card, 1.02 GB): %s ms a batch; outputs of '
+        'batches 1-%d held against the CPU'
+        % (', '.join('%.2f' % m for m in mms), SVM_MODULE_CPU))
+    check(all(np.isfinite(v.numpy()).all() for v in params.values()),
+          'the Module\'s parameters are not finite')
+    return path, csr
+
+
+def storage_round_trips(device, path, work):
+    """Phase (t2): cast_storage both ways, retain, square_sum, add and
+    nd.save/nd.load on the card, each against the CPU."""
+    import torch
+    import mxnet_tpu_torch as mt
+    cpu = torch.device('cpu')
+    whole = SVM_BATCH * SVM_BATCHES
+    sides = {}
+    for dev in (device, cpu):
+        with _ctx_of(dev):
+            sides[dev.type] = next(iter(_svm_iter(mt, path, whole))).data[0]
+    card, host = sides[device.type], sides['cpu']
+    # csr [8192, 1,000,000] -> dense (32.8 GB f32) -> csr
+    t0 = time.perf_counter()
+    dense = mt.nd.cast_storage(card, 'default')
+    back = dense.tostype('csr')
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    # the CPU's csr of the same dense array: the file's explicit zeros
+    # ('0.0000' values) dropped, as a cast from dense drops them
+    import scipy.sparse as sp
+    m = sp.csr_matrix((host.data.asnumpy(), host.indices.asnumpy(),
+                       host.indptr.asnumpy()), shape=host.shape)
+    m.eliminate_zeros()
+    for part, want in (('data', m.data), ('indptr', m.indptr),
+                       ('indices', m.indices)):
+        _exact(getattr(back, part).handle,
+               torch.from_numpy(want.astype(np.float32 if part == 'data'
+                                            else np.int32)),
+               'csr -> dense -> csr ' + part)
+    del dense, back
+    log('    csr [%d, %d] (%d stored, %d of them zeros) -> dense -> csr: '
+        'bit for bit the CPU\'s csr of the same array, %.1f ms (host wall)'
+        % (whole, SVM_FEATURES, host.data.shape[0],
+           host.data.shape[0] - m.nnz, ms))
+    # row_sparse [1,000,000, 128]: the sparse head's gradient shape, rows
+    # the first batch's features
+    ids = np.unique(host.indices.asnumpy()[:int(host.indptr.asnumpy()[
+        SVM_BATCH])])
+    ids2 = np.unique(host.indices.asnumpy()[int(host.indptr.asnumpy()[
+        SVM_BATCH]):int(host.indptr.asnumpy()[2 * SVM_BATCH])])
+    rng = np.random.RandomState(7)
+    vals = rng.randn(len(ids), SPARSE_CLASSES).astype(np.float32)
+    vals2 = rng.randn(len(ids2), SPARSE_CLASSES).astype(np.float32)
+    res = {}
+    for dev in (device, cpu):
+        with _ctx_of(dev):
+            shape = (SVM_FEATURES, SPARSE_CLASSES)
+            r = mt.nd.sparse.row_sparse_array((vals, ids), shape=shape)
+            r2 = mt.nd.sparse.row_sparse_array((vals2, ids2), shape=shape)
+            d = r.tostype('default')
+            rr = mt.nd.cast_storage(d, 'row_sparse')
+            col = mt.nd.sparse.row_sparse_array(
+                (vals[:, :1], ids), shape=(SVM_FEATURES, 1))
+            res[dev.type] = {
+                'dense': d.handle, 'rsp.data': rr.data.handle,
+                'rsp.indices': rr.indices.handle,
+                'retain.data': r.retain(mt.nd.array(ids2)).data.handle,
+                'retain.indices': r.retain(mt.nd.array(ids2)).indices.handle,
+                'add.data': (r + r2).data.handle,
+                'add.indices': (r + r2).indices.handle,
+                'square_sum axis 1 [1M, 1]':
+                    mt.nd.sparse.square_sum(col, axis=1).handle,
+                'square_sum': mt.nd.sparse.square_sum(r).handle,
+                'square_sum axis 0': mt.nd.sparse.square_sum(r, axis=0).handle,
+                'square_sum axis 1': mt.nd.sparse.square_sum(
+                    r, axis=1, keepdims=True).data.handle}
+            f = os.path.join(work, 'sparse-%s.params' % dev.type)
+            mt.nd.save(f, {'csr': sides[dev.type], 'rsp': r}, fmt='mxnet')
+            loaded = mt.nd.load(f)
+            for part in ('data', 'indptr', 'indices'):
+                _exact(getattr(loaded['csr'], part).handle,
+                       getattr(host, part).handle, 'loaded csr ' + part)
+            _exact(loaded['rsp'].data.handle, torch.from_numpy(vals),
+                   'loaded row_sparse data')
+    for k in res['cpu']:
+        if k.startswith('square_sum') and not k.endswith('[1M, 1]'):
+            _held(res[device.type][k], res['cpu'][k], SQUARE_SUM_RTOL, k)
+        else:
+            _exact(res[device.type][k], res['cpu'][k], k)
+    files = [open(os.path.join(work, 'sparse-%s.params' % t), 'rb').read()
+             for t in (device.type, 'cpu')]
+    check(files[0] == files[1], 'the card\'s sparse file differs from the '
+          'CPU\'s')
+    log('    row_sparse [%d, %d] (%d rows) -> dense -> row_sparse, retain, '
+        'add: bit for bit the CPU\'s; square_sum along 1 of [1M, 1] bit for '
+        'bit, its sums along each axis within %.0e; nd.save of csr and '
+        'row_sparse byte for byte the CPU\'s (%d bytes), nd.load bit for bit'
+        % (SVM_FEATURES, SPARSE_CLASSES, len(ids), SQUARE_SUM_RTOL,
+           len(files[0])))
+
+
+def sparse_head(device, path):
+    """Phase (t3): a multi-class head over (t1)'s CSR batches, W [1M,
+    classes] f32, the class of a row its first feature modulo classes:
+    nd.sparse.dot -> nd.softmax_cross_entropy (K3) and nd.softmax (K5) ->
+    the transposed sparse dot -> the dense update, two passes (the loss
+    falls on the second). Every launch counted over both. Returns
+    ({wrapper: launches}, ms a batch)."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    ctx = _ctx_of(device)
+    classes = SPARSE_CLASSES
+    g = torch.Generator(device=device).manual_seed(8)
+    with ctx:
+        W = mt.nd.from_torch(0.01 * torch.randn(
+            (SVM_FEATURES, classes), generator=g, device=device))
+        W0 = W.handle.detach().cpu()
+        it = _svm_iter(mt, path)
+        batches = list(it)
+    counters = _staged_counters()
+    _zero_counts(counters)
+    losses, ms, first = [], [], None
+    with ctx:
+        for batch in batches * SVM_EPOCHS:
+            t0 = time.perf_counter()
+            csr = batch.data[0]
+            ptr = csr.indptr.handle.long()
+            label = mt.nd.from_torch(
+                (csr.indices.handle[ptr[:-1]] % classes).float())
+            logits = mt.nd.sparse.dot(csr, W)
+            loss = mt.nd.softmax_cross_entropy(logits, label)
+            prob = mt.nd.softmax(logits)
+            onehot = mt.nd.one_hot(label, classes)
+            gW = mt.nd.sparse.dot(csr, (prob - onehot) / csr.shape[0],
+                                  transpose_a=True)
+            W = W - (SPARSE_LR * gW).tostype('default')
+            losses.append(float(loss.asscalar()) / csr.shape[0])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = (logits.handle, label.handle, loss.handle,
+                         prob.handle)
+    launches = _counts(counters)
+    n = len(batches) * SVM_EPOCHS
+    # off the card the wrappers run their plain versions: no launch
+    want = n if device.type == 'cuda' else 0
+    check(launches['softmax_xent_fwd'] == want and
+          launches['softmax_fwd'] == want,
+          'the sparse head launched K3 %d and K5 %d times over %d batches'
+          % (launches['softmax_xent_fwd'], launches['softmax_fwd'], n))
+    logits, label, loss, prob = first
+    # against the plain versions on the same logits, and the CPU's head
+    xerr = _held(loss, ck.softmax_xent_ref(logits, label.long()).sum(),
+                 1e-5, 'K3 against xent_ref')
+    perr = _held(prob, ck.softmax_ref(logits), 1e-5, 'K5 against softmax_ref')
+    with mt.cpu():
+        cbatch = next(iter(_svm_iter(mt, path)))
+        clog = mt.nd.sparse.dot(cbatch.data[0], mt.nd.from_torch(W0))
+    lerr = _held(logits, clog.handle, SPARSE_RTOL, 'the head\'s logits')
+    _held(loss, mt.nd.softmax_cross_entropy(
+        clog, mt.nd.from_torch(label.cpu())).handle, SPARSE_RTOL,
+          'the head\'s loss')
+    per = len(batches)
+    epochs = [float(np.mean(losses[k:k + per])) for k in range(0, n, per)]
+    check(epochs[-1] < epochs[0], 'the head\'s loss did not fall: %s'
+          % epochs)
+    log('    %d passes over %d batches: K3 %d and K5 %d launches; mean loss '
+        '%s a pass; %.3f ms a batch (median, synchronised host wall); K3 '
+        'against xent_ref %.2e, K5 against softmax_ref %.2e, logits against '
+        'the CPU %.2e'
+        % (SVM_EPOCHS, per, launches['softmax_xent_fwd'],
+           launches['softmax_fwd'], ', '.join('%.4f' % e for e in epochs),
+           statistics.median(ms), xerr, perr, lerr))
+    return launches, statistics.median(ms)
+
+
+def ssd300_anchors(mt):
+    """SSD300's 8,732 anchors [1, 8732, 4] from its six maps."""
+    parts = []
+    for side, sizes, ratios, step in zip(SSD300_MAPS, SSD300_SIZES,
+                                         SSD300_RATIOS, SSD300_STEPS):
+        parts.append(mt.nd.contrib.MultiBoxPrior(
+            mt.nd.zeros((1, 1, side, side)), sizes=sizes, ratios=ratios,
+            clip=False, steps=(step / 300.0, step / 300.0)))
+    return mt.nd.concatenate(parts, axis=1)
+
+
+def ssd300_ops(device):
+    """Phase (t4)'s second half: MultiBoxPrior, MultiBoxTarget,
+    MultiBoxDetection and box_iou at SSD300's widths, each against the
+    CPU. Returns {op: ms}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    rng = np.random.RandomState(9)
+    label = -np.ones((SSD_BATCH, SSD_MAX_OBJECTS, 5), np.float32)
+    for i in range(SSD_BATCH):
+        for j in range(rng.randint(1, SSD_MAX_OBJECTS + 1)):
+            x0, y0 = rng.uniform(0, 0.8, 2)
+            w, h = rng.uniform(0.03, 0.5, 2)
+            label[i, j] = [rng.randint(SSD_CLASSES - 1), x0, y0,
+                           min(x0 + w, 1.0), min(y0 + h, 1.0)]
+    logits = rng.randn(SSD_BATCH, SSD_CLASSES, 8732).astype(np.float32) * 2
+    prob = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    loc = (0.5 * rng.randn(SSD_BATCH, 8732 * 4)).astype(np.float32)
+    out = {}
+    for side, dev in (('card', device), ('cpu', torch.device('cpu'))):
+        with _ctx_of(dev):
+            anchor = ssd300_anchors(mt)
+            check(anchor.shape == (1, 8732, 4), 'SSD300 has %s anchors'
+                  % (anchor.shape,))
+            lab, pr, lc = (mt.nd.array(a) for a in (label, prob, loc))
+            n = SSD_BATCH if side == 'card' else SSD_CPU_SAMPLES
+            tgt = mt.nd.contrib.MultiBoxTarget(anchor, lab, pr)
+            det = mt.nd.contrib.MultiBoxDetection(pr[:n], lc[:n], anchor)
+            rows = 8732 if side == 'card' else SSD_IOU_CPU_ROWS
+            iou = mt.nd.contrib.box_iou(anchor.reshape((-1, 4))[:rows],
+                                        anchor.reshape((-1, 4)))
+            out[side] = [anchor, tgt, det, iou, (anchor, lab, pr, lc)]
+    card, cpu = out['card'], out['cpu']
+    _held(card[0].handle, cpu[0].handle, CONTRIB_RTOL, 'MultiBoxPrior')
+    names = ('loc_target', 'loc_mask', 'cls_target')
+    for nm, a, b in zip(names, card[1], cpu[1]):
+        if nm == 'loc_target':
+            _held(a.handle, b.handle, CONTRIB_RTOL, 'MultiBoxTarget ' + nm)
+        else:
+            _exact(a.handle, b.handle, 'MultiBoxTarget ' + nm)
+    d, c = card[2].handle[:SSD_CPU_SAMPLES], cpu[2].handle
+    _exact(d[..., 0], c[..., 0], 'MultiBoxDetection class ids')
+    _held(d[..., 1:], c[..., 1:], CONTRIB_RTOL,
+          'MultiBoxDetection scores and boxes')
+    _held(card[3].handle[:SSD_IOU_CPU_ROWS], cpu[3].handle, CONTRIB_RTOL,
+          'box_iou')
+    kept = int((card[2].handle[..., 0] >= 0).sum())
+    matched = int((card[1][2].handle > 0).sum())
+    anchor, lab, pr, lc = card[4]
+    with _ctx_of(device):
+        ms = {'MultiBoxPrior': device_ms(lambda: ssd300_anchors(mt), runs=10)}
+    ms.update({
+        'MultiBoxTarget': device_ms(lambda: mt.nd.contrib.MultiBoxTarget(
+            anchor, lab, pr), runs=10),
+        'MultiBoxDetection': device_ms(
+            lambda: mt.nd.contrib.MultiBoxDetection(pr, lc, anchor), runs=5),
+        'box_iou': device_ms(lambda: mt.nd.contrib.box_iou(
+            anchor.reshape((-1, 4)), anchor.reshape((-1, 4))), runs=10)})
+    log('    SSD300 (8,732 anchors, %d classes, batch %d, 1-%d objects): '
+        '%d anchors matched, %d detections kept; class ids and targets '
+        'exact, boxes and scores within %.0e of the CPU (detection: the '
+        'first %d samples; box_iou: the first %d rows); ms (CUDA events): %s'
+        % (SSD_CLASSES, SSD_BATCH, SSD_MAX_OBJECTS, matched, kept,
+           CONTRIB_RTOL, SSD_CPU_SAMPLES, SSD_IOU_CPU_ROWS,
+           ', '.join('%s %.3f' % kv for kv in ms.items())))
+    return ms
+
+
+def ssd_symbol(mt, mode='train'):
+    """examples/ssd/train_ssd.py's network."""
+    def conv_block(data, num_filter, name, stride=(1, 1)):
+        c = mt.sym.Convolution(data=data, num_filter=num_filter,
+                               kernel=(3, 3), stride=stride, pad=(1, 1),
+                               name=name + '_conv')
+        b = mt.sym.BatchNorm(data=c, name=name + '_bn')
+        return mt.sym.Activation(data=b, act_type='relu', name=name + '_relu')
+
+    data = mt.sym.Variable('data')
+    label = mt.sym.Variable('label')
+    body = conv_block(data, 16, 'b1')
+    body = mt.sym.Pooling(data=body, kernel=(2, 2), stride=(2, 2),
+                          pool_type='max')
+    body = conv_block(body, 32, 'b2')
+    scale1 = mt.sym.Pooling(data=body, kernel=(2, 2), stride=(2, 2),
+                            pool_type='max')
+    scale1 = conv_block(scale1, 64, 'b3')
+    scale2 = conv_block(scale1, 64, 'b4', stride=(2, 2))
+    preds, anchors = [], []
+    cfg = [(scale1, (0.2, 0.35), (1.0, 2.0, 0.5)),
+           (scale2, (0.4, 0.6), (1.0, 2.0, 0.5))]
+    per = len(cfg[0][2]) + len(cfg[0][1]) - 1
+    for i, (feat, sizes, ratios) in enumerate(cfg):
+        anc = mt.sym.contrib.MultiBoxPrior(feat, sizes=sizes, ratios=ratios,
+                                           clip=True, name='anchors%d' % i)
+        pred = mt.sym.Convolution(data=feat, num_filter=per * (SSD_FG + 5),
+                                  kernel=(3, 3), pad=(1, 1),
+                                  name='pred%d' % i)
+        pred = mt.sym.transpose(pred, axes=(0, 2, 3, 1))
+        preds.append(mt.sym.Reshape(pred, shape=(0, -1, SSD_FG + 5)))
+        anchors.append(mt.sym.Reshape(anc, shape=(0, -1, 4)))
+    pred = mt.sym.Concat(*preds, dim=1)
+    anchor = mt.sym.Concat(*anchors, dim=1)
+    cls_pred = mt.sym.slice_axis(pred, axis=2, begin=0, end=SSD_FG + 1)
+    loc_pred = mt.sym.Reshape(mt.sym.slice_axis(
+        pred, axis=2, begin=SSD_FG + 1, end=SSD_FG + 5), shape=(0, -1))
+    cls_pred_t = mt.sym.transpose(cls_pred, axes=(0, 2, 1))
+    if mode == 'train':
+        loc_t, loc_m, cls_t = mt.sym.contrib.MultiBoxTarget(
+            anchor, label, cls_pred_t, overlap_threshold=0.5,
+            name='multibox_target')
+        cls_loss = mt.sym.SoftmaxOutput(data=cls_pred_t, label=cls_t,
+                                        multi_output=True, use_ignore=True,
+                                        ignore_label=-1,
+                                        normalization='valid',
+                                        name='cls_prob')
+        loc_loss = mt.sym.MakeLoss(mt.sym.smooth_l1(
+            loc_m * (loc_pred - loc_t), scalar=1.0), grad_scale=1.0,
+            name='loc_loss')
+        return mt.sym.Group([cls_loss, loc_loss,
+                             mt.sym.BlockGrad(cls_t, name='cls_label')])
+    cls_prob = mt.sym.softmax(cls_pred_t, axis=1)
+    det = mt.sym.contrib.MultiBoxDetection(cls_prob, loc_pred, anchor,
+                                           nms_threshold=0.5,
+                                           name='detection')
+    return mt.sym.Group([det, cls_prob, loc_pred, anchor])
+
+
+def ssd_data(n, seed=0):
+    """train_ssd.py's synthetic boxes: images [n, 3, 64, 64], labels [n, 4,
+    5] of (class, box) normalised, -1 padding."""
+    rng = np.random.RandomState(seed)
+    images = np.zeros((n, 3, SSD_IMG, SSD_IMG), np.float32)
+    labels = -np.ones((n, SSD_OBJS, 5), np.float32)
+    for i in range(n):
+        for j in range(rng.randint(1, SSD_OBJS + 1)):
+            cls = rng.randint(0, SSD_FG)
+            w, h = rng.uniform(0.2, 0.5, 2)
+            x0 = rng.uniform(0, 1 - w)
+            y0 = rng.uniform(0, 1 - h)
+            xi0, yi0 = int(x0 * SSD_IMG), int(y0 * SSD_IMG)
+            xi1, yi1 = int((x0 + w) * SSD_IMG), int((y0 + h) * SSD_IMG)
+            images[i, cls, yi0:yi1, xi0:xi1] = 1.0
+            labels[i, j] = (cls, x0, y0, x0 + w, y0 + h)
+        images[i] += 0.1 * rng.randn(3, SSD_IMG, SSD_IMG)
+    return images, labels
+
+
+def ssd_record(path, n, seed=0):
+    """train_ssd.py's vendor_record_dataset: the labelled set packed into a
+    detection .rec ([2, 5, objects...] labels, uint8 CHW .raw images)."""
+    import mxnet_tpu_torch as mt
+    images, labels = ssd_data(n, seed)
+    rec = mt.recordio.MXRecordIO(path, 'w')
+    for i in range(n):
+        objs = labels[i][labels[i][:, 0] >= 0]
+        packed = np.concatenate([[2.0, 5.0], objs.ravel()]).astype(np.float32)
+        img = (np.clip(images[i], 0.0, 1.0) * 255.0).round().astype(np.uint8)
+        rec.write(mt.recordio.pack_img(
+            mt.recordio.IRHeader(len(packed), packed, i, 0), img,
+            img_fmt='.raw'))
+    rec.close()
+
+
+def ssd_fit(device, work):
+    """Phase (t4)'s first half: train_ssd.py's recipe through Module.fit
+    from its .rec, then its MultiBoxDetection decode held against the
+    CPU's op on the card's own inputs."""
+    import torch
+    import mxnet_tpu_torch as mt
+    ctx = _ctx_of(device)
+    rec = os.path.join(work, 'ssd_synth.rec')
+    ssd_record(rec, SSD_SAMPLES)
+
+    class DetLabels(mt.io.DataIter):
+        """train_ssd.py's adapter: the packed label's header stripped, the
+        objects as (B, objects, 5)."""
+
+        def __init__(self, inner):
+            super().__init__(inner.batch_size)
+            self._it = inner
+            self._w = inner.label_object_width
+
+        @property
+        def provide_data(self):
+            return self._it.provide_data
+
+        @property
+        def provide_label(self):
+            d = self._it.provide_label[0]
+            n_obj = (d.shape[1] - 2) // self._w
+            return [mt.io.DataDesc('label', (d.shape[0], n_obj, self._w),
+                                   d.dtype)]
+
+        def reset(self):
+            self._it.reset()
+
+        def next(self):
+            batch = self._it.next()
+            lab = batch.label[0].asnumpy()[:, 2:]
+            lab = lab.reshape(lab.shape[0], -1, self._w)
+            return mt.io.DataBatch([batch.data[0]], [mt.nd.array(
+                lab, ctx=mt.cpu())], pad=batch.pad)
+
+    mt.random.seed(0)
+    train = DetLabels(mt.io.ImageDetRecordIter(
+        path_imgrec=rec, data_shape=(3, SSD_IMG, SSD_IMG),
+        batch_size=SSD_EX_BATCH, shuffle=True, scale=1.0 / 255.0,
+        label_pad_width=2 + SSD_OBJS * 5))
+    mod = mt.mod.Module(ssd_symbol(mt), label_names=('label',), context=ctx)
+    mod.bind(data_shapes=train.provide_data, label_shapes=train.provide_label)
+    mod.init_params(initializer=mt.init.Xavier())
+
+    class ClsLoss(mt.metric.EvalMetric):
+        """The mean -log p of each anchor's target class (ignored anchors
+        left out), from the outputs (cls_prob, loc_loss, cls_label)."""
+
+        def update(self, labels, preds):
+            import torch
+            prob, lab = preds[0].handle, preds[2].handle
+            valid = lab >= 0
+            p = prob.gather(1, lab.clamp(min=0).long()[:, None])[:, 0]
+            self.sum_metric += float(-(torch.log(p + 1e-12) * valid).sum())
+            self.num_inst += int(valid.sum())
+
+    def losses():
+        # over the training set, by Module.score: the class loss and the
+        # example's own metric, the loc loss
+        metric = mt.metric.CompositeEvalMetric([
+            ClsLoss('cls-loss'),
+            mt.metric.Loss(output_names=['loc_loss_output'])])
+        value = [v for _, v in mod.score(train, metric)]
+        train.reset()
+        return value
+    before = losses()
+    t0 = time.perf_counter()
+    mod.fit(train, eval_metric=mt.metric.Loss(output_names=[
+        'loc_loss_output']), optimizer='sgd', optimizer_params={
+        'learning_rate': SSD_EX_LR, 'momentum': 0.9, 'wd': 5e-4},
+        num_epoch=SSD_EPOCHS)
+    _sync(device)
+    sec = time.perf_counter() - t0
+    after = losses()
+    batches = SSD_EPOCHS * SSD_SAMPLES // SSD_EX_BATCH
+    check(np.isfinite(before + after).all() and after[0] < before[0],
+          'the SSD class loss did not fall: %s -> %s' % (before, after))
+    log('    train_ssd.py through Module.fit (%d images of %d x %d, batch %d, '
+        '%d epochs, from the .rec): over the set (Module.score) the class '
+        'loss %.5f -> %.5f, the loc loss %.5f -> %.5f; %.1f ms a batch '
+        '(host wall over the fit)'
+        % (SSD_SAMPLES, SSD_IMG, SSD_IMG, SSD_EX_BATCH, SSD_EPOCHS,
+           before[0], after[0], before[1], after[1], sec * 1e3 / batches))
+    images, labels = ssd_data(64, 0)
+    det = mt.mod.Module(ssd_symbol(mt, 'test'), data_names=('data',),
+                        label_names=None, context=ctx)
+    det.bind(data_shapes=[('data', images.shape)], for_training=False)
+    args, auxs = mod.get_params()
+    det.set_params(args, auxs, allow_missing=False)
+    det.forward(mt.io.DataBatch([mt.nd.array(images, ctx=ctx)], []),
+                is_train=False)
+    out, prob, loc, anchor = (o.handle for o in det.get_outputs())
+    with mt.cpu():
+        want = mt.nd.contrib.MultiBoxDetection(
+            *(mt.nd.from_torch(t.detach().cpu()) for t in (prob, loc, anchor)),
+            nms_threshold=0.5).handle
+    _exact(out[..., 0], want[..., 0], 'the decode\'s class ids')
+    _held(out[..., 1:], want[..., 1:], CONTRIB_RTOL,
+          'the decode\'s scores and boxes')
+    # the example's recall: ground truth matched by a same-class detection
+    # of IoU over 0.5 and score over 0.2
+    o = out.detach().cpu().numpy()
+    matched = total = 0
+    for i in range(len(images)):
+        dets = o[i][(o[i, :, 0] >= 0) & (o[i, :, 1] > 0.2)]
+        for obj in labels[i][labels[i][:, 0] >= 0]:
+            total += 1
+            for d in dets:
+                if int(d[0]) != int(obj[0]):
+                    continue
+                ix0, iy0 = np.maximum(d[2:4], obj[1:3])
+                ix1, iy1 = np.minimum(d[4:6], obj[3:5])
+                inter = max(0, ix1 - ix0) * max(0, iy1 - iy0)
+                ua = ((d[4] - d[2]) * (d[5] - d[3]) +
+                      (obj[3] - obj[1]) * (obj[4] - obj[2]) - inter)
+                if ua > 0 and inter / ua > 0.5:
+                    matched += 1
+                    break
+    log('    its MultiBoxDetection decode of 64 images: class ids exact and '
+        'scores and boxes within %.0e of the CPU\'s op on the same inputs; '
+        'recall %.3f' % (CONTRIB_RTOL, matched / max(total, 1)))
+
+
+# -- Faster R-CNN -------------------------------------------------------------
+
+def rcnn_anchors():
+    """train_rcnn_lite.py's anchor grid ((y, x, A) order)."""
+    feat = RCNN_IMG // RCNN_STRIDE
+    base = RCNN_STRIDE / 2.0
+    anchors = []
+    for y in range(feat):
+        for x in range(feat):
+            cx, cy = x * RCNN_STRIDE + base, y * RCNN_STRIDE + base
+            for r in RPN_RATIOS:
+                for s in RCNN_SCALES:
+                    size = s * RCNN_STRIDE
+                    w = size * np.sqrt(1.0 / r)
+                    h = size * np.sqrt(r)
+                    anchors.append([cx - w / 2, cy - h / 2, cx + w / 2,
+                                    cy + h / 2])
+    return np.asarray(anchors, np.float32)
+
+
+def _iou_np(a, b):
+    ix0 = np.maximum(a[:, None, 0], b[None, :, 0])
+    iy0 = np.maximum(a[:, None, 1], b[None, :, 1])
+    ix1 = np.minimum(a[:, None, 2], b[None, :, 2])
+    iy1 = np.minimum(a[:, None, 3], b[None, :, 3])
+    inter = np.clip(ix1 - ix0, 0, None) * np.clip(iy1 - iy0, 0, None)
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    return inter / np.maximum(area_a[:, None] + area_b[None, :] - inter,
+                              1e-6)
+
+
+def rcnn_scenes(rng, n, anchors):
+    """train_rcnn_lite.py's scene_batch: images, RPN labels, bbox targets
+    and masks in the conv layout, and the scenes."""
+    A = len(RCNN_SCALES) * len(RPN_RATIOS)
+    feat = RCNN_IMG // RCNN_STRIDE
+    imgs = np.zeros((n, 3, RCNN_IMG, RCNN_IMG), np.float32)
+    labels = np.zeros((n, len(anchors)), np.float32)
+    btgts = np.zeros((n, len(anchors), 4), np.float32)
+    scenes = []
+    for i in range(n):
+        img = rng.randn(3, RCNN_IMG, RCNN_IMG).astype(np.float32) * 0.1
+        boxes, classes = [], []
+        for _ in range(rng.randint(1, 3)):
+            cls = rng.randint(RCNN_FG)
+            w, h = rng.uniform(12, 28, 2)
+            x0 = rng.uniform(2, RCNN_IMG - w - 2)
+            y0 = rng.uniform(2, RCNN_IMG - h - 2)
+            img[cls][int(y0):int(y0 + h), int(x0):int(x0 + w)] += 1.0
+            boxes.append([x0, y0, x0 + w, y0 + h])
+            classes.append(cls)
+        boxes = np.asarray(boxes, np.float32)
+        imgs[i] = img
+        iou = _iou_np(anchors, boxes)
+        lab = -np.ones(len(anchors), np.float32)
+        lab[iou.max(1) < 0.2] = 0
+        lab[iou.max(1) > 0.5] = 1
+        lab[iou.argmax(0)] = 1
+        tgt = np.zeros((len(anchors), 4), np.float32)
+        pos = np.where(lab == 1)[0]
+        g = boxes[iou[pos].argmax(1)]
+        aw = anchors[pos, 2] - anchors[pos, 0]
+        ah = anchors[pos, 3] - anchors[pos, 1]
+        gw = g[:, 2] - g[:, 0]
+        gh = g[:, 3] - g[:, 1]
+        tgt[pos, 0] = (g[:, 0] + gw / 2 - anchors[pos, 0] - aw / 2) / aw
+        tgt[pos, 1] = (g[:, 1] + gh / 2 - anchors[pos, 1] - ah / 2) / ah
+        tgt[pos, 2] = np.log(gw / aw)
+        tgt[pos, 3] = np.log(gh / ah)
+        labels[i], btgts[i] = lab, tgt
+        scenes.append((boxes, np.asarray(classes)))
+    perm = np.arange(len(anchors)).reshape(feat, feat, A).transpose(
+        2, 0, 1).ravel()
+    labels = labels[:, perm]
+    btgts = btgts[:, perm].reshape(n, A, feat, feat, 4).transpose(
+        0, 1, 4, 2, 3).reshape(n, A * 4, feat, feat)
+    masks = (labels.reshape(n, A, feat, feat) == 1)[:, :, None]
+    masks = np.repeat(masks, 4, axis=2).reshape(n, A * 4, feat, feat)
+    return imgs, labels, btgts, masks.astype(np.float32), scenes
+
+
+def rpn_symbol(mt):
+    A = len(RCNN_SCALES) * len(RPN_RATIOS)
+    feat = RCNN_IMG // RCNN_STRIDE
+    x = mt.sym.Variable('data')
+    lab = mt.sym.Variable('rpn_label')
+    btgt = mt.sym.Variable('rpn_bbox_target')
+    bmask = mt.sym.Variable('rpn_bbox_mask')
+    for i, nf in enumerate([16, 32, 32]):
+        x = mt.sym.Convolution(x, kernel=(3, 3), num_filter=nf, stride=(2, 2),
+                               pad=(1, 1), name='b%d' % i)
+        x = mt.sym.Activation(x, act_type='relu')
+    f = mt.sym.Activation(mt.sym.Convolution(
+        x, kernel=(3, 3), pad=(1, 1), num_filter=32, name='rpn_conv'),
+        act_type='relu')
+    cls = mt.sym.Convolution(f, kernel=(1, 1), num_filter=2 * A,
+                             name='rpn_cls')
+    bbox = mt.sym.Convolution(f, kernel=(1, 1), num_filter=4 * A,
+                              name='rpn_bbox')
+    cls_loss = mt.sym.SoftmaxOutput(
+        mt.sym.Reshape(cls, shape=(0, 2, -1)), lab, multi_output=True,
+        use_ignore=True, ignore_label=-1, normalization='valid',
+        name='rpn_cls_prob')
+    bb_loss = mt.sym.MakeLoss(mt.sym.smooth_l1(bmask * (bbox - btgt),
+                                               scalar=3.0),
+                              grad_scale=1.0 / (feat * feat),
+                              name='rpn_bbox_loss')
+    return mt.sym.Group([cls_loss, bb_loss, mt.sym.BlockGrad(cls),
+                         mt.sym.BlockGrad(bbox)])
+
+
+def rcnn_fit(device):
+    """Phase (t5)'s first half: train_rcnn_lite.py's two stages on the
+    card, the proposals and the pooled rois held against the CPU's ops on
+    the card's own inputs, and the example's own gates (RPN recall over
+    0.5, head accuracy over 0.7)."""
+    import mxnet_tpu_torch as mt
+    ctx = _ctx_of(device)
+    A = len(RCNN_SCALES) * len(RPN_RATIOS)
+    feat = RCNN_IMG // RCNN_STRIDE
+    mt.random.seed(0)
+    rng = np.random.RandomState(0)
+    anchors = rcnn_anchors()
+    imgs, labels, btgts, masks, scenes = rcnn_scenes(rng, RCNN_SAMPLES,
+                                                     anchors)
+    t0 = time.perf_counter()
+    with ctx:
+        it = mt.io.NDArrayIter({'data': imgs}, {
+            'rpn_label': labels, 'rpn_bbox_target': btgts,
+            'rpn_bbox_mask': masks}, batch_size=RCNN_BATCH, shuffle=True)
+        mod = mt.mod.Module(rpn_symbol(mt), data_names=('data',),
+                            label_names=('rpn_label', 'rpn_bbox_target',
+                                         'rpn_bbox_mask'), context=ctx)
+        mod.fit(it, num_epoch=RCNN_RPN_EPOCHS, optimizer='adam',
+                optimizer_params={'learning_rate': RCNN_LR},
+                initializer=mt.init.Xavier(),
+                eval_metric=mt.metric.Loss(
+                    output_names=['rpn_bbox_loss_output']))
+        arg_p, aux_p = mod.get_params()
+        internals = rpn_symbol(mt).get_internals()
+        cls_sm = mt.sym.Reshape(mt.sym.softmax(mt.sym.Reshape(
+            internals['rpn_cls_output'], shape=(0, 2, -1)), axis=1),
+            shape=(0, 2 * A, feat, feat))
+        attrs = dict(rpn_pre_nms_top_n=64, rpn_post_nms_top_n=16,
+                     threshold=0.7, rpn_min_size=4, scales=RCNN_SCALES,
+                     ratios=RPN_RATIOS, feature_stride=RCNN_STRIDE)
+        rois_sym = mt.sym.contrib.MultiProposal(
+            cls_sm, internals['rpn_bbox_output'], mt.sym.Variable('im_info'),
+            name='proposals', **attrs)
+        prop = mt.mod.Module(mt.sym.Group([rois_sym, internals['b2_output'],
+                                           cls_sm,
+                                           internals['rpn_bbox_output']]),
+                             data_names=('data', 'im_info'), label_names=None,
+                             context=ctx)
+        prop.bind(data_shapes=[('data', (RCNN_BATCH, 3, RCNN_IMG, RCNN_IMG)),
+                               ('im_info', (RCNN_BATCH, 3))],
+                  for_training=False)
+        prop.set_params(arg_p, aux_p, allow_missing=True)
+        info = np.tile([RCNN_IMG, RCNN_IMG, 1.0], (RCNN_BATCH, 1)).astype(
+            np.float32)
+
+        def proposals(batch_imgs):
+            prop.forward(mt.io.DataBatch([mt.nd.array(batch_imgs),
+                                          mt.nd.array(info)], []),
+                         is_train=False)
+            return prop.get_outputs()
+
+        rois, feats, cls_prob, bbox = proposals(imgs[:RCNN_BATCH])
+        with mt.cpu():
+            want = mt.nd.contrib.MultiProposal(
+                mt.nd.from_torch(cls_prob.handle.cpu()),
+                mt.nd.from_torch(bbox.handle.cpu()), mt.nd.array(info),
+                **attrs).handle
+        _held(rois.handle, want, CONTRIB_RTOL, 'the RPN\'s proposals')
+        _exact((rois.handle[:, 1:] == 0).all(1), (want[:, 1:] == 0).all(1),
+               'the proposals\' zero tail')
+        r = rois.asnumpy()
+        covered = total = 0
+        for b in range(RCNN_BATCH):
+            mine = r[r[:, 0] == b][:, 1:]
+            total += len(scenes[b][0])
+            if len(mine):
+                covered += (_iou_np(scenes[b][0], mine).max(1) > 0.5).sum()
+        recall = covered / max(1, total)
+        check(recall > 0.5, 'RPN proposal recall %.2f (the example needs '
+              'over 0.5)' % recall)
+        pooled_all, roi_labels = [], []
+        for s in range(0, RCNN_SAMPLES, RCNN_BATCH):
+            rois, feats = (o.asnumpy() for o in proposals(
+                imgs[s:s + RCNN_BATCH])[:2])
+            keep_rois, labs = [], []
+            for b in range(RCNN_BATCH):
+                gt_boxes, gt_cls = scenes[s + b]
+                mine = rois[rois[:, 0] == b]
+                if not len(mine):
+                    continue
+                iou = _iou_np(mine[:, 1:], gt_boxes)
+                lab = np.where(iou.max(1) > 0.5, gt_cls[iou.argmax(1)] + 1, 0)
+                keep = np.concatenate([np.where(lab > 0)[0],
+                                       np.where(lab == 0)[0][:4]])
+                keep_rois.append(mine[keep])
+                labs.append(lab[keep])
+            if not keep_rois:
+                continue
+            keep_rois = np.concatenate(keep_rois)
+            pooled = mt.nd.ROIPooling(mt.nd.array(feats),
+                                      mt.nd.array(keep_rois),
+                                      pooled_size=(4, 4),
+                                      spatial_scale=1.0 / RCNN_STRIDE)
+            if s == 0:
+                with mt.cpu():
+                    want = mt.nd.ROIPooling(
+                        mt.nd.array(feats), mt.nd.array(keep_rois),
+                        pooled_size=(4, 4), spatial_scale=1.0 / RCNN_STRIDE)
+                _held(pooled.handle, want.handle, CONTRIB_RTOL,
+                      'the example\'s ROIPooling')
+            pooled_all.append(pooled.asnumpy())
+            roi_labels.append(np.concatenate(labs))
+        pooled_all = np.concatenate(pooled_all).astype(np.float32)
+        roi_labels = np.concatenate(roi_labels).astype(np.float32)
+        h = mt.sym.Activation(mt.sym.FullyConnected(
+            mt.sym.flatten(mt.sym.Variable('pooled')), num_hidden=64,
+            name='h1'), act_type='relu')
+        head = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+            h, num_hidden=RCNN_FG + 1, name='h2'), name='softmax')
+        hmod = mt.mod.Module(head, data_names=('pooled',),
+                             label_names=('softmax_label',), context=ctx)
+        hit = mt.io.NDArrayIter({'pooled': pooled_all},
+                                {'softmax_label': roi_labels}, batch_size=32,
+                                shuffle=True)
+        hmod.fit(hit, num_epoch=RCNN_HEAD_EPOCHS, optimizer='adam',
+                 optimizer_params={'learning_rate': RCNN_LR},
+                 initializer=mt.init.Xavier(), eval_metric='acc')
+        acc = dict(hmod.score(hit, 'acc'))['accuracy']
+    check(acc > 0.7, 'ROI head accuracy %.2f (the example needs over 0.7)'
+          % acc)
+    log('    train_rcnn_lite.py (%d scenes, RPN %d epochs, head %d epochs on '
+        '%d pooled rois): proposals and pooled rois held against the CPU; '
+        'RPN recall %.2f, head accuracy %.2f; %.1f s'
+        % (RCNN_SAMPLES, RCNN_RPN_EPOCHS, RCNN_HEAD_EPOCHS, len(pooled_all),
+           recall, acc, time.perf_counter() - t0))
+
+
+def rpn_inputs(seed=10):
+    """cls_prob [2, 18, 38, 63] (a softmax over each anchor's background
+    and foreground maps), bbox_pred [2, 36, 38, 63], im_info of two
+    600 x 1000 images."""
+    rng = np.random.RandomState(seed)
+    A = len(RPN_SCALES) * len(RPN_RATIOS)
+    fh, fw = RPN_MAP
+    logits = rng.randn(RPN_IMAGES, 2, A, fh, fw).astype(np.float32)
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (e / e.sum(1, keepdims=True)).reshape(RPN_IMAGES, 2 * A, fh, fw)
+    bbox = (0.1 * rng.randn(RPN_IMAGES, 4 * A, fh, fw)).astype(np.float32)
+    info = np.array([[600, 1000, 1.0]] * RPN_IMAGES, np.float32)
+    return prob.astype(np.float32), bbox, info
+
+
+def rpn_and_roi_pooling(device):
+    """Phase (t5)'s second half: MultiProposal at the op's reference
+    defaults (pre-NMS 6,000, post-NMS 300, threshold 0.7, min size 16,
+    stride 16) with the Faster R-CNN paper's 9 anchors; ROIPooling 7 x 7 at
+    1/16 over its 600 rois on a [2, 512, 38, 63] map, forward and backward.
+    Returns {op: ms}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    prob, bbox, info = rpn_inputs()
+    attrs = dict(scales=RPN_SCALES, ratios=RPN_RATIOS, output_score=True)
+    res = {}
+    for dev in (device, torch.device('cpu')):
+        with _ctx_of(dev):
+            res[dev.type] = [o.handle for o in mt.nd.contrib.MultiProposal(
+                *(mt.nd.array(a) for a in (prob, bbox, info)), **attrs)]
+    rois, scores = res[device.type]
+    _held(rois, res['cpu'][0], CONTRIB_RTOL, 'MultiProposal rois')
+    _held(scores, res['cpu'][1], CONTRIB_RTOL, 'MultiProposal scores')
+    _exact(scores == 0, res['cpu'][1] == 0, 'MultiProposal\'s kept slots')
+    kept = int((scores != 0).sum())
+    ctx = _ctx_of(device)
+    p_nd = [mt.nd.array(a, ctx=ctx) for a in (prob, bbox, info)]
+    prop_ms = _wall_ms(lambda: mt.nd.contrib.MultiProposal(*p_nd, **attrs),
+                       device)
+
+    g = torch.Generator(device='cpu').manual_seed(11)
+    data = torch.randn((RPN_IMAGES, ROI_CHANNELS) + RPN_MAP, generator=g)
+    cot = torch.randn((rois.shape[0], ROI_CHANNELS, 7, 7), generator=g)
+    attrs = {'pooled_size': (7, 7), 'spatial_scale': 1.0 / 16}
+    op = mt.ops.registry.get('ROIPooling').fn
+
+    def fwd_bwd(x, r, c):
+        x = x.detach().requires_grad_()
+        out = op(attrs, x, r)
+        grad, = torch.autograd.grad(out, x, c)
+        return out.detach(), grad
+    d_card, r_card, c_card = (t.to(device) for t in (data, rois, cot))
+    out, grad = fwd_bwd(d_card, r_card, c_card)
+    want, wgrad = fwd_bwd(data, rois.cpu()[:ROI_CPU], cot[:ROI_CPU])
+    _held(out[:ROI_CPU], want, CONTRIB_RTOL, 'ROIPooling (first %d rois)'
+          % ROI_CPU)
+    _, sub_grad = fwd_bwd(d_card, r_card[:ROI_CPU], c_card[:ROI_CPU])
+    _held(sub_grad, wgrad, CONTRIB_GRAD_RTOL, 'ROIPooling\'s gradient (first '
+          '%d rois)' % ROI_CPU)
+    check(torch.isfinite(grad).all(), 'ROIPooling\'s gradient is not finite')
+    x = d_card.detach().requires_grad_()
+    ms = {'MultiProposal': prop_ms,
+          'ROIPooling': device_ms(lambda: op(attrs, d_card, r_card), runs=5),
+          'ROIPooling fwd+bwd': device_ms(lambda: torch.autograd.grad(
+              op(attrs, x, r_card), x, c_card), runs=3)}
+    log('    MultiProposal (2 x 21,546 anchors, pre-NMS 6,000, post-NMS 300, '
+        'threshold 0.7): %d of 600 slots kept, every proposal held against '
+        'the CPU; ROIPooling 7 x 7 at 1/16 over those 600 rois on [2, 512, '
+        '38, 63]: the first %d rois\' outputs and gradient held against the '
+        'CPU; ms: %s (MultiProposal by synchronised host wall: its sweep '
+        'reads each block\'s convergence back; ROIPooling by CUDA events)'
+        % (kept, ROI_CPU, ', '.join('%s %.3f' % kv for kv in ms.items())))
+    return ms
+
+
+# -- the rest -------------------------------------------------------------------
+
+def _op_vs_cpu(device, name, attrs, inputs, grad_of=(), sub=None, runs=5):
+    """Op ``name`` on the card against the port on the CPU: forward, and
+    the gradients of inputs ``grad_of`` for a seeded cotangent of the first
+    output. ``sub(inputs)`` cuts the inputs that the CPU runs (a few
+    samples or rois; the card runs them too for the held gradient).
+    Returns (forward ms, forward and backward ms) by CUDA events."""
+    import torch
+    import mxnet_tpu_torch as mt
+    op = mt.ops.registry.get(name)
+
+    def run(ins):
+        args = [t.detach().requires_grad_() if i in grad_of else t
+                for i, t in enumerate(ins)]
+        outs = op.fn(dict(attrs), *args)
+        outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+        grads = []
+        if grad_of:
+            cot = torch.from_numpy(np.random.RandomState(12).randn(
+                *outs[0].shape).astype(np.float32)).to(outs[0].device)
+            grads = torch.autograd.grad(outs[0], [args[i] for i in grad_of],
+                                        cot, allow_unused=True)
+        return [o.detach() for o in outs], grads
+    card_in = [t.to(device) for t in inputs]
+    cut = sub(inputs) if sub else inputs
+    want, wgrads = run(cut)
+    got, ggrads = run([t.to(device) for t in cut])
+    for k, (g_, w_) in enumerate(zip(got, want)):
+        _held(g_, w_, CONTRIB_RTOL, '%s output %d' % (name, k))
+    for i, g_, w_ in zip(grad_of, ggrads, wgrads):
+        if w_ is None:
+            continue
+        _held(g_, w_, CONTRIB_GRAD_RTOL, '%s gradient of input %d'
+              % (name, i))
+    fwd = device_ms(lambda: op.fn(dict(attrs), *card_in), runs=runs)
+    both = None
+    if grad_of:
+        def fb():
+            args = [t.detach().requires_grad_() if i in grad_of else t
+                    for i, t in enumerate(card_in)]
+            out = op.fn(dict(attrs), *args)
+            out = out[0] if isinstance(out, (tuple, list)) else out
+            torch.autograd.grad(out, [args[i] for i in grad_of],
+                                torch.ones_like(out), allow_unused=True)
+        both = device_ms(fb, runs=max(2, runs // 2))
+    return fwd, both
+
+
+def quantize_mlp(device):
+    """quantize_mlp.py's recipe on the card: a Gluon MLP trained on the
+    blobs, its weights to uint8 and back, the accuracy drop at most 0.02;
+    the codes bit for bit the CPU's for the same weights."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn
+    n, ncls, dim, epochs = QUANT_MLP
+    ctx = _ctx_of(device)
+    mt.random.seed(10)
+    rng = np.random.RandomState(23)
+    centers = rng.randn(ncls, dim).astype(np.float32) * 1.6
+
+    def blobs(k):
+        lab = rng.randint(0, ncls, k)
+        x = centers[lab] + 0.45 * rng.randn(k, dim).astype(np.float32)
+        return x.astype(np.float32), lab.astype(np.float32)
+    xtr, ytr = blobs(n)
+    xte, yte = blobs(n // 4)
+    with ctx:
+        net = nn.Sequential()
+        with net.name_scope():
+            net.add(nn.Dense(64, activation='relu'), nn.Dense(ncls))
+        net.initialize(mt.init.Xavier(), ctx=ctx)
+        trainer = gluon.Trainer(net.collect_params(), 'sgd',
+                                {'learning_rate': 0.1, 'momentum': 0.9})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        for _ in range(epochs):
+            perm = rng.permutation(len(xtr))
+            for i in range(0, len(xtr), 64):
+                idx = perm[i:i + 64]
+                with autograd.record():
+                    loss = loss_fn(net(mt.nd.array(xtr[idx])),
+                                   mt.nd.array(ytr[idx]))
+                loss.backward()
+                trainer.step(len(idx))
+
+        def accuracy():
+            return float((net(mt.nd.array(xte)).asnumpy().argmax(1) ==
+                          yte).mean())
+        acc32 = accuracy()
+        stored = {}
+        for name, p in net.collect_params().items():
+            w = p.data()
+            w_np = w.asnumpy()
+            lo, hi = float(w_np.min()), float(w_np.max()) + 1e-8
+            stored[name] = mt.nd.contrib.quantize(
+                w, mt.nd.array([lo]), mt.nd.array([hi]), out_type='uint8')
+            with mt.cpu():
+                want = mt.nd.contrib.quantize(
+                    mt.nd.array(w_np), mt.nd.array([lo]), mt.nd.array([hi]),
+                    out_type='uint8')[0]
+            _exact(stored[name][0].handle, want.handle, 'uint8 codes of '
+                   + name)
+        for name, p in net.collect_params().items():
+            q, qmin, qmax = stored[name]
+            p.set_data(mt.nd.contrib.dequantize(q, qmin, qmax).reshape(
+                p.data().shape))
+        acc8 = accuracy()
+    check(acc32 > 0.9 and acc32 - acc8 <= 0.02, 'quantize_mlp: f32 accuracy '
+          '%.3f, uint8 %.3f' % (acc32, acc8))
+    log('    quantize_mlp.py: accuracy %.3f in f32, %.3f from uint8 codes '
+        '(bit for bit the CPU\'s)' % (acc32, acc8))
+
+
+def resnet_uint8(device):
+    """bench's resnet50_v1 parameters (bench's host init from RandomState(0))
+    to uint8 codes and back on the card, each code bit for bit the CPU's.
+    Returns the ms of the quantize of all parameters."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch import graph_train
+    with mt.name.NameManager():
+        net = vision.get_model('resnet50_v1', classes=1000)
+    prog, arg_shapes, _ = graph_train.build_graph(net, (1, 3, 224, 224))
+    rng = np.random.RandomState(0)
+    params = [graph_train.host_init(n, s, rng)
+              for n, s in zip(prog.arg_names, arg_shapes) if n != 'data']
+    total = sum(p.size for p in params)
+    ctx = _ctx_of(device)
+
+    def quantize_all(arrays):
+        outs = []
+        for a in arrays:
+            lo, hi = a.min(), a.max()
+            q = mt.nd.contrib.quantize(a, lo.reshape((1,)), hi.reshape((1,)),
+                                       out_type='uint8')
+            outs.append((q[0], mt.nd.contrib.dequantize(*q)))
+        return outs
+    card = [mt.nd.array(p, ctx=ctx) for p in params]
+    with mt.cpu():
+        host = quantize_all([mt.nd.array(p) for p in params])
+    got = quantize_all(card)
+    err = 0.0
+    for (q, d), (wq, wd) in zip(got, host):
+        _exact(q.handle, wq.handle, 'a resnet50_v1 parameter\'s uint8 codes')
+        err = max(err, _held(d.handle, wd.handle, CONTRIB_RTOL,
+                             'a dequantized parameter'))
+    ms = device_ms(lambda: quantize_all(card), runs=3)
+    log('    bench\'s resnet50_v1: %d parameters (%d arrays) to uint8 and '
+        'back: codes bit for bit the CPU\'s, dequantized within %.2e; %.3f '
+        'ms (CUDA events)' % (total, len(card), err, ms))
+    return ms
+
+
+def contrib_rest(device):
+    """Phase (t6): quantize_mlp.py, resnet50_v1's parameters in uint8, then
+    DeformableConvolution, PSROIPooling and DeformablePSROIPooling,
+    Correlation, the spatial transformer's three ops, fft/ifft,
+    count_sketch and IdentityAttachKLSparseReg at their widths, each
+    forward (and backward) against the CPU. Returns {op: (fwd ms, fwd+bwd
+    ms)}."""
+    import torch
+    quantize_mlp(device)
+    ms = {'quantize resnet50_v1': (resnet_uint8(device), None)}
+    g = torch.Generator(device='cpu').manual_seed(13)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    N, C, H, W = DEFORM_SHAPE
+    off = randn(N, 18, H, W, scale=2.0)
+    ms['DeformableConvolution'] = _op_vs_cpu(
+        device, '_contrib_DeformableConvolution',
+        {'kernel': (3, 3), 'pad': (2, 2), 'dilate': (2, 2), 'num_filter': C,
+         'no_bias': False},
+        [randn(N, C, H, W), off, randn(C, C, 3, 3, scale=0.02),
+         randn(C)], grad_of=(0, 1, 2, 3),
+        sub=lambda ins: [ins[0][:DEFORM_CPU], ins[1][:DEFORM_CPU], ins[2],
+                         ins[3]], runs=3)
+
+    prob, bbox, info = rpn_inputs()
+    import mxnet_tpu_torch as mt
+    with mt.cpu():
+        rois = mt.nd.contrib.MultiProposal(
+            *(mt.nd.array(a) for a in (prob, bbox, info)),
+            scales=RPN_SCALES, ratios=RPN_RATIOS).handle
+    dim = RFCN_DIM * RFCN_GROUP * RFCN_GROUP
+    maps = randn(RPN_IMAGES, dim, *RPN_MAP)
+    first = lambda ins: [ins[0], ins[1][:ROI_CPU]] + [t[:ROI_CPU]
+                                                      for t in ins[2:]]
+    ms['PSROIPooling'] = _op_vs_cpu(
+        device, '_contrib_PSROIPooling',
+        {'spatial_scale': 1.0 / 16, 'output_dim': RFCN_DIM,
+         'pooled_size': RFCN_GROUP, 'group_size': RFCN_GROUP},
+        [maps, rois], grad_of=(0,), sub=first)
+    ms['DeformablePSROIPooling'] = _op_vs_cpu(
+        device, '_contrib_DeformablePSROIPooling',
+        {'spatial_scale': 1.0 / 16, 'output_dim': RFCN_DIM,
+         'group_size': RFCN_GROUP, 'pooled_size': RFCN_GROUP,
+         'sample_per_part': RFCN_SPP, 'trans_std': RFCN_TSTD},
+        [maps, rois, randn(rois.shape[0], 2, RFCN_GROUP, RFCN_GROUP)],
+        grad_of=(0, 2), sub=first)
+    a, b = randn(*FLOW_SHAPE), randn(*FLOW_SHAPE)
+    ms['Correlation'] = _op_vs_cpu(
+        device, 'Correlation', {'max_displacement': FLOW_DISP,
+                                'stride2': FLOW_STRIDE2, 'kernel_size': 1},
+        [a, b], grad_of=(0, 1),
+        sub=lambda ins: [t[:FLOW_CPU] for t in ins], runs=3)
+    img = randn(*STN_SHAPE)
+    loc = torch.tensor([[0.9, 0.1, 0.05, -0.1, 0.95, 0.0]]).repeat(
+        STN_SHAPE[0], 1) + randn(STN_SHAPE[0], 6, scale=0.05)
+    stn = lambda ins: [t[:STN_CPU] for t in ins]
+    ms['SpatialTransformer'] = _op_vs_cpu(
+        device, 'SpatialTransformer', {'target_shape': STN_SHAPE[2:]},
+        [img, loc], grad_of=(0, 1), sub=stn)
+    ms['GridGenerator'] = _op_vs_cpu(
+        device, 'GridGenerator', {'transform_type': 'affine',
+                                  'target_shape': STN_SHAPE[2:]},
+        [loc], grad_of=(0,), sub=stn)
+    grid = randn(STN_SHAPE[0], 2, *STN_SHAPE[2:], scale=0.6)
+    ms['BilinearSampler'] = _op_vs_cpu(
+        device, 'BilinearSampler', {}, [img, grid], grad_of=(0, 1), sub=stn)
+    x = randn(*FFT_SHAPE)
+    ms['fft'] = _op_vs_cpu(device, '_contrib_fft', {}, [x], grad_of=(0,))
+    ms['ifft'] = _op_vs_cpu(device, '_contrib_ifft', {},
+                            [randn(FFT_SHAPE[0], 2 * FFT_SHAPE[1])],
+                            grad_of=(0,))
+    h = torch.from_numpy(np.random.RandomState(14).randint(
+        0, SKETCH_DIM, (1, SKETCH_SHAPE[1])).astype(np.float32))
+    s = torch.from_numpy(np.random.RandomState(15).choice(
+        [-1.0, 1.0], (1, SKETCH_SHAPE[1])).astype(np.float32))
+    ms['count_sketch'] = _op_vs_cpu(
+        device, '_contrib_count_sketch', {'out_dim': SKETCH_DIM},
+        [randn(*SKETCH_SHAPE), h, s], grad_of=(0, 2))
+    act = torch.sigmoid(randn(*KL_SHAPE))
+    ms['IdentityAttachKLSparseReg'] = _op_vs_cpu(
+        device, 'IdentityAttachKLSparseReg', {'__is_train__': True},
+        [act, torch.full((KL_SHAPE[1],), 0.5)], grad_of=(0,))
+    log('    each forward (and backward) held against the CPU: values within '
+        '%.0e, gradients within %.0e (DeformableConvolution, Correlation '
+        'and the samplers on their first samples, the poolings on their '
+        'first %d rois); ms (CUDA events; forward, forward + backward):'
+        % (CONTRIB_RTOL, CONTRIB_GRAD_RTOL, ROI_CPU))
+    for k, (f, fb) in ms.items():
+        log('      %s: %.3f%s' % (k, f, '' if fb is None else ', %.3f' % fb))
+    return ms
+
+
+def phase_t(device, work):
+    """Phase (t): (t1) the sparse linear classifier at Avazu's width, (t2)
+    sparse storage round trips, (t3) the sparse head through K3 and K5,
+    (t4) SSD, (t5) Faster R-CNN, (t6) the other contrib ops. Returns
+    ({wrapper: (t3)'s launches}, {wrapper: launches over (t4)-(t6)},
+    {figure: ms})."""
+    import torch
+    t0 = time.perf_counter()
+    figures = {}
+    if device.type == 'cuda':
+        # (t2) holds a 32.8 GB dense array: hand the earlier phases' cached
+        # blocks back first
+        torch.cuda.empty_cache()
+    log('  (t1) the sparse linear classifier at Avazu\'s width')
+    path, _ = sparse_classifier(device, work)
+    log('  (t2) sparse storage round trips on the card')
+    storage_round_trips(device, path, work)
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    log('  (t3) a sparse multi-class head through K3 and K5')
+    sparse_launches, figures['sparse head ms a batch'] = sparse_head(
+        device, path)
+    counters = _staged_counters()
+    _zero_counts(counters)
+    log('  (t4) SSD: train_ssd.py, then the MultiBox ops at SSD300\'s widths')
+    ssd_fit(device, work)
+    figures.update(ssd300_ops(device))
+    log('  (t5) Faster R-CNN: train_rcnn_lite.py, then MultiProposal and '
+        'ROIPooling at its widths')
+    rcnn_fit(device)
+    figures.update(rpn_and_roi_pooling(device))
+    log('  (t6) the other contrib ops')
+    figures.update(contrib_rest(device))
+    contrib_launches = _counts(counters)
+    log('  kernel launches over (t4)-(t6): %s' % contrib_launches)
+    log('  phase (t) took %.1f s' % (time.perf_counter() - t0))
+    return sparse_launches, contrib_launches, figures
+
+
 def main():
     # phase (l1)'s checkpoint, phase (n)'s head and its telemetry logs
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as work:
@@ -6830,6 +8224,9 @@ def run(work):
     log('(s) the staged executor path on the card')
     staged_launches, custom_launches, _ = phase_s(device, cfg, work)
 
+    log('(t) sparse storage and the contrib ops on the card')
+    sparse_launches, contrib_launches, _ = phase_t(device, work)
+
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
     tt = train_times(device, cfg, *step_args)
@@ -6880,6 +8277,8 @@ def run(work):
             'rnn_launches': rnn_launches[row_fns(kernel)[0].__name__],
             'staged_launches': staged_launches[row_fns(kernel)[0].__name__],
             'custom_launches': custom_launches[row_fns(kernel)[0].__name__],
+            'sparse_launches': sparse_launches[row_fns(kernel)[0].__name__],
+            'contrib_launches': contrib_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):
         record['kernels'].append({

@@ -1,15 +1,17 @@
 """The native runtime: the counterpart of ``mxnet_tpu/_native.py`` for its
-dependency engine, its profiler and its RecordIO stream.
+dependency engine, its pooled host storage, its profiler and its RecordIO
+stream.
 
 ``src/engine.cc`` (the read/write-set dependency engine, which also holds
-the C API's error channel), ``src/profiler.cc`` (the engine's op spans as
-chrome trace events) and ``src/recordio.cc`` (the dmlc RecordIO stream),
-shared with the JAX package and never edited here, are compiled with
-``g++`` into ``ops/build/libmxtt_native-<hash>.so`` at the first use, and
-loaded with ``ctypes``. The hash covers the sources and the flags, so an
-edited source is rebuilt and a stale library is never loaded; nothing is
-built under ``src/`` or the JAX package. ``src/storage.cc`` (the pooled
-host allocator) is not built: nothing in the port calls it yet.
+the C API's error channel), ``src/storage.cc`` (the size-bucketed pool of
+aligned host blocks: ``MXTStorageAlloc``, ``Free``, ``DirectFree``,
+``ReleaseAll`` and ``Stats``), ``src/profiler.cc`` (the engine's op spans
+as chrome trace events) and ``src/recordio.cc`` (the dmlc RecordIO
+stream), shared with the JAX package and never edited here, are compiled
+with ``g++`` into ``ops/build/libmxtt_native-<hash>.so`` at the first use,
+and loaded with ``ctypes``. The hash covers the sources and the flags, so
+an edited source is rebuilt and a stale library is never loaded; nothing
+is built under ``src/`` or the JAX package.
 
 :func:`backend` says which record reader is live: ``'native'``, or
 ``'python'`` when ``MXTPU_NO_NATIVE=1`` asks for the pure-Python reader or
@@ -35,7 +37,8 @@ __all__ = ['get_lib', 'loaded', 'backend', 'check_call', 'NativeError',
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG.parent / 'src'
 BUILD_DIR = _PKG / 'ops' / 'build'
-SOURCES = (_SRC / 'engine.cc', _SRC / 'profiler.cc', _SRC / 'recordio.cc')
+SOURCES = (_SRC / 'engine.cc', _SRC / 'storage.cc', _SRC / 'profiler.cc',
+           _SRC / 'recordio.cc')
 CXX_FLAGS = ('-std=c++17', '-O2', '-fPIC', '-Wall', '-shared',
              '-Wl,--no-undefined')
 
@@ -90,6 +93,11 @@ def _bind(lib):
         'MXTEngineWaitForVar': [C.c_void_p, C.c_void_p],
         'MXTEngineWaitForAll': [C.c_void_p],
         'MXTEnginePendingOps': [C.c_void_p, C.POINTER(C.c_int64)],
+        'MXTStorageAlloc': [C.c_size_t, C.POINTER(C.c_void_p)],
+        'MXTStorageFree': [C.c_void_p],
+        'MXTStorageDirectFree': [C.c_void_p],
+        'MXTStorageReleaseAll': [],
+        'MXTStorageStats': [C.POINTER(C.c_int64)],
         'MXTProfilerSetState': [C.c_int],
         'MXTProfilerDump': [C.c_char_p],
         'MXTRecordIOWriterCreate': [C.c_char_p, C.POINTER(C.c_void_p)],

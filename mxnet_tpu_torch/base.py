@@ -1,7 +1,8 @@
 """Shared plumbing of the port: the error type, dtype tables and attr
 normalisation. The counterpart of ``mxnet_tpu/base.py``, holding only what
-the operator registry and NDArray use, and the reference's
-``string_types``, ``numeric_types`` and ``build_param_doc``.
+the operator registry and NDArray use, the reference's
+``string_types``, ``numeric_types`` and ``build_param_doc``, and
+``NotSupportedForSparseNDArray``.
 
 Dtypes are named as the JAX package names them: ``np_dtype`` gives a numpy
 dtype (bfloat16 as ``ml_dtypes.bfloat16``), and ``torch_dtype`` the torch
@@ -13,9 +14,9 @@ import ml_dtypes
 import numpy as np
 import torch
 
-__all__ = ['MXNetError', 'np_dtype', 'torch_dtype', 'dtype_of',
-           'normalize_attrs', 'string_types', 'numeric_types',
-           'build_param_doc']
+__all__ = ['MXNetError', 'NotSupportedForSparseNDArray', 'np_dtype',
+           'torch_dtype', 'dtype_of', 'normalize_attrs', 'string_types',
+           'numeric_types', 'build_param_doc']
 
 string_types = (str,)
 numeric_types = (float, int, np.generic)
@@ -23,6 +24,25 @@ numeric_types = (float, int, np.generic)
 
 class MXNetError(Exception):
     """Error raised by the framework (reference: base.py MXNetError)."""
+
+
+class NotSupportedForSparseNDArray(MXNetError):
+    """An op that is not available for sparse storage types."""
+
+    def __init__(self, function, alias, *args):
+        super().__init__()
+        self.function = function.__name__
+        self.alias = alias
+        self.args = [str(type(a)) for a in args]
+
+    def __str__(self):
+        msg = 'Function %s' % self.function
+        if self.alias:
+            msg += ' (namely operator "%s")' % self.alias
+        if self.args:
+            msg += ' with arguments (%s)' % ', '.join(self.args)
+        return msg + ' is not supported for SparseNDArray and only ' \
+                     'available in NDArray.'
 
 
 _TORCH_OF = {

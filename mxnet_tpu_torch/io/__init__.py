@@ -28,8 +28,10 @@ With telemetry on, each batch an iterator yields counts in the
 ``io.batches`` counter, and the time ``PrefetchingIter`` waits for its
 producer threads in the ``io.prefetch_wait`` histogram (ms).
 
-``LibSVMIter`` yields CSR batches, which wait for sparse storage
-(ROADMAP.md §1 take-order 7): it raises NotImplementedError.
+``LibSVMIter`` parses a libsvm file on the host and yields CSR batches
+(:mod:`..ndarray.sparse`) on the current context, as the JAX package's
+does: the card by default, where ``nd.sparse.dot`` and the executor's
+dense lowering of a CSR batch run.
 """
 from collections import namedtuple
 import gzip
@@ -45,6 +47,7 @@ from .. import random as _random
 from .. import telemetry as _tele
 from ..context import cpu, current_context
 from ..ndarray import NDArray, array
+from ..ndarray.sparse import csr_matrix
 
 __all__ = ['DataDesc', 'DataBatch', 'DataIter', 'NDArrayIter', 'CSVIter',
            'MNISTIter', 'ResizeIter', 'PrefetchingIter', 'ImageRecordIter',
@@ -532,13 +535,99 @@ class CSVIter(NDArrayIter):
 
 
 class LibSVMIter(DataIter):
-    """The libsvm text format as CSR batches: they need sparse storage,
-    which is not ported yet (ROADMAP.md §1 take-order 7)."""
+    """The libsvm text format as CSR batches.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'LibSVMIter yields CSR batches, which need sparse storage; it is '
-            'not ported yet (ROADMAP.md §1 take-order 7)')
+    Each line is ``label [label...] idx:value idx:value ...`` (0-based
+    indices). Batches come out as CSRNDArray data with dense labels, both
+    on the current context (the card by default); an optional
+    ``label_libsvm`` file gives multi-dimensional sparse labels, densified.
+    With ``round_batch`` the last batch wraps around to the start and says
+    so in its ``pad``."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=None, batch_size=1, round_batch=True,
+                 data_name='data', label_name='softmax_label', **kwargs):
+        super().__init__(batch_size)
+        self.data_shape = tuple(data_shape) if not isinstance(
+            data_shape, int) else (data_shape,)
+        ncol = int(np.prod(self.data_shape))
+        rows, labels = self._parse(data_libsvm, ncol)
+        self._csr = rows                     # scipy csr [N, ncol]
+        if label_libsvm is not None:
+            lab_ncol = int(np.prod(label_shape)) if label_shape else 1
+            lab, _ = self._parse(label_libsvm, lab_ncol, labels_inline=False)
+            self._labels = np.asarray(lab.todense(), np.float32)
+        else:
+            self._labels = np.asarray(labels, np.float32)
+        self.num_data = self._csr.shape[0]
+        if self.num_data < batch_size:
+            raise ValueError('fewer rows (%d) than batch_size (%d)'
+                             % (self.num_data, batch_size))
+        self.round_batch = round_batch
+        self.provide_data = [DataDesc(data_name,
+                                      (batch_size,) + self.data_shape)]
+        lshape = (batch_size,) if self._labels.ndim == 1 else \
+            (batch_size,) + self._labels.shape[1:]
+        self.provide_label = [DataDesc(label_name, lshape)]
+        self.reset()
+
+    @staticmethod
+    def _parse(path, ncol, labels_inline=True):
+        import scipy.sparse as sp
+        data, indices, indptr, labels = [], [], [0], []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                i = 0
+                if labels_inline:
+                    labels.append(float(parts[0]))
+                    i = 1
+                for tok in parts[i:]:
+                    idx, val = tok.split(':')
+                    indices.append(int(idx))
+                    data.append(float(val))
+                indptr.append(len(data))
+        mat = sp.csr_matrix(
+            (np.asarray(data, np.float32),
+             np.asarray(indices, np.int64), np.asarray(indptr, np.int64)),
+            shape=(len(indptr) - 1, ncol))
+        return mat, np.asarray(labels, np.float32)
+
+    def reset(self):
+        self._cursor = 0
+
+    def iter_next(self):
+        if self._cursor + self.batch_size <= self.num_data:
+            return True
+        if self.round_batch and self._cursor < self.num_data:
+            return True
+        return False
+
+    def next(self):
+        if not self.iter_next():
+            raise StopIteration
+        start = self._cursor
+        stop = start + self.batch_size
+        pad = 0
+        if stop <= self.num_data:
+            sub = self._csr[start:stop]
+            lab = self._labels[start:stop]
+        else:  # wrap around to the start
+            pad = stop - self.num_data
+            import scipy.sparse as sp
+            sub = sp.vstack([self._csr[start:], self._csr[:pad]]).tocsr()
+            lab = np.concatenate([self._labels[start:], self._labels[:pad]])
+        self._cursor = stop
+        data = csr_matrix((sub.data, sub.indices, sub.indptr),
+                       shape=(self.batch_size,) + self.data_shape)
+        return DataBatch(data=[data], label=[array(lab)], pad=pad,
+                         index=None)
+
+    def getpad(self):
+        """0: the pad rides on each batch."""
+        return 0
 
 
 # ---------------------------------------------------------------------------

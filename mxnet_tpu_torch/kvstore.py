@@ -7,7 +7,11 @@ runs the updater on the stored value or stores the sum; ``pull`` copies
 the stored value into every target, cast to the target's dtype (a
 multi-precision updater keeps f32 masters under bf16 weights) and on the
 target's device. ``set_optimizer`` installs the optimizer's updater, and
-the optimizer states save and load through it. With telemetry on, push
+the optimizer states save and load through it. ``row_sparse_pull`` copies
+only the rows ``row_ids`` names: a row_sparse stored value is retained to
+them, a dense one gives a row_sparse array of those rows, and a dense
+target takes that array densified (zero elsewhere). A pushed sparse value
+is lowered to dense before the sum. With telemetry on, push
 and pull are the ``kvstore.push`` and ``kvstore.pull`` spans, and the
 bytes of their values count in ``kvstore.push_bytes`` and
 ``kvstore.pull_bytes``.
@@ -17,10 +21,13 @@ bytes of their values count in ``kvstore.push_bytes`` and
 across processes, NCCL across cards) are not ported: they raise
 NotImplementedError (ROADMAP.md §1 item 11).
 """
+import torch
+
 from . import optimizer as opt
 from . import telemetry as _tele
 from .base import MXNetError
 from .ndarray import NDArray
+from .ndarray.sparse import BaseSparseNDArray, RowSparseNDArray, retain
 
 __all__ = ['KVStore', 'create']
 
@@ -31,7 +38,9 @@ def _tele_bytes(counter_name, values):
     total = 0
     for v in values:
         for a in (v if isinstance(v, (list, tuple)) else [v]):
-            total += a.size * a.handle.element_size()
+            # a sparse value counts its dense size, as in the JAX package
+            t = a.data.handle if isinstance(a, BaseSparseNDArray) else a.handle
+            total += a.size * t.element_size()
     _tele.counter(counter_name).inc(total)
 
 
@@ -84,8 +93,37 @@ class KVStore:
                     o._data = src.to(o._data.device, o._data.dtype,
                                      copy=True)
 
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Copy the rows ``row_ids`` of each key's stored value into its
+        target(s)."""
+        assert out is not None and row_ids is not None
+        keys, outs = _key_value(key, out)
+        if isinstance(row_ids, NDArray):
+            row_ids = [row_ids] * len(keys)
+        for k, olist, rids in zip(keys, outs, row_ids if isinstance(
+                row_ids, list) else [row_ids]):
+            if not isinstance(olist, (list, tuple)):
+                olist = [olist]
+            src = self._store[k]
+            if isinstance(src, RowSparseNDArray):
+                res = retain(src, rids)
+            else:
+                rows = rids._data.to(src._data.device).long()
+                res = RowSparseNDArray(
+                    NDArray(src._data[rows], src.context),
+                    NDArray(rows.to(torch.int32), src.context), src.shape,
+                    src.context)
+            for o in olist:
+                if isinstance(o, RowSparseNDArray):
+                    o.data, o.indices = res.data, res.indices
+                else:
+                    res.copyto(o)
+
     def _reduce(self, vlist):
-        """The sum of ``vlist`` on the first value's device."""
+        """The sum of ``vlist`` on the first value's device (sparse values
+        lowered to dense)."""
+        if isinstance(vlist[0], BaseSparseNDArray):
+            vlist = [v.tostype('default') for v in vlist]
         if len(vlist) == 1:
             return vlist[0].copy()
         dev = vlist[0]._data.device

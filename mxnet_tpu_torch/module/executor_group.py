@@ -30,11 +30,15 @@ def _load_general(data, targets, major_axis):
     """Copy each batch array into its targets: a bound NDArray, or a list
     of ``(slice, bound NDArray)`` that takes the slice along the array's
     batch axis (``major_axis``, from its DataDesc layout; -1: no batch
-    axis, the whole array)."""
+    axis, the whole array). A sparse batch array is densified first."""
     for d_src, d_targets, axis in zip(data, targets, major_axis):
         if isinstance(d_targets, nd.NDArray):
             d_src.copyto(d_targets)
             continue
+        if isinstance(d_src, nd.sparse.BaseSparseNDArray):
+            # a sparse batch (LibSVMIter's CSR) is lowered to dense on its
+            # own device, the card for an iterator on the card
+            d_src = d_src.tostype('default')
         src = d_src._data.detach()
         for slice_idx, d_dst in d_targets:
             part = src

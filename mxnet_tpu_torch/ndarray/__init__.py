@@ -7,7 +7,9 @@ one generated function per registered op (``nd.LayerNorm``,
 ``nd.softmax``, ``nd.broadcast_add``, ``nd.sum``, ``nd.add_n``,
 ``nd.stack``, ``nd.sgd_mom_update``, ``nd.Convolution``, ...), called
 as in the JAX package, ``nd.random``, ``nd.contrib``, ``nd.linalg``,
-``nd._internal`` and ``nd.Custom`` (:mod:`..operator`).
+``nd._internal``, ``nd.Custom`` (:mod:`..operator`), and sparse storage:
+``nd.sparse``, ``nd.csr_matrix``, ``nd.row_sparse_array`` and the eager
+``nd.cast_storage`` and ``nd.sparse_retain`` (:mod:`.sparse`).
 """
 from .ndarray import (NDArray, array, zeros, ones, empty, full, arange,
                       invoke, waitall, concatenate, stack, moveaxis, from_torch)
@@ -18,8 +20,24 @@ from . import random  # noqa: F401  (nd.random samplers)
 from . import contrib  # noqa: F401  (nd.contrib: the _contrib_* ops)
 from . import linalg  # noqa: F401  (nd.linalg: the linalg_* ops)
 from . import _internal  # noqa: F401  (nd._internal: the _* ops)
+from . import sparse  # noqa: F401  (nd.sparse: csr and row_sparse)
+from .sparse import csr_matrix, row_sparse_array
 
 _register.install_ops(globals())
+
+
+def cast_storage(data, stype='default'):
+    """The container conversion, eagerly (the registry's ``cast_storage``
+    is the graph's identity)."""
+    return sparse.cast_storage(data, stype)
+
+
+def sparse_retain(data, indices):
+    """row_sparse in, row_sparse out; a dense input goes through the
+    registry op (rows outside ``indices`` become zero)."""
+    if isinstance(data, sparse.BaseSparseNDArray):
+        return sparse.retain(data, indices)
+    return invoke('_sparse_retain', [data, indices], {})
 
 
 def maximum(lhs, rhs):

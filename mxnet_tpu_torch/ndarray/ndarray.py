@@ -33,8 +33,9 @@ direct tensor methods (``astype``, ``reshape``, indexing, ``copyto``) record
 only while recording, too. A ``needs_rng`` op gets its device's generator
 (:func:`..random.generator`).
 
-Not yet: the method forms of ops that are not ported (``sort``), and
-sparse storage.
+Sparse storage (:mod:`.sparse`): ``stype`` is 'default' here,
+``tostype`` casts to a sparse container, and a dense (op) sparse
+arithmetic lowers the sparse operand to dense.
 """
 import numpy as np
 import torch
@@ -137,6 +138,10 @@ class NDArray:
     ctx = context
 
     @property
+    def stype(self):
+        return 'default'
+
+    @property
     def handle(self):
         """The backing torch.Tensor."""
         return self._data
@@ -226,6 +231,14 @@ class NDArray:
             return self
         with _recording_grad():
             return NDArray(self._data.to(d, copy=True), self._ctx)
+
+    def tostype(self, stype):
+        """This array as ``stype`` storage ('default' is the array
+        itself; 'row_sparse' and 'csr' build sparse containers)."""
+        if stype == 'default':
+            return self
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     def reshape(self, *shape, **kwargs):
         """Reshape, with MXNet's special codes: 0 copies a dim, -1 infers
@@ -443,6 +456,11 @@ def _binary(lhs, rhs, op_broadcast, op_scalar):
         return invoke(op_broadcast, [lhs, rhs], {})
     if isinstance(rhs, _NUMERIC):
         return invoke(op_scalar, [lhs], {'scalar': float(rhs)})
+    from .sparse import BaseSparseNDArray
+    if isinstance(rhs, BaseSparseNDArray):
+        # dense (op) sparse gives dense, as the reference's elemwise
+        # dense/sparse fallbacks do
+        return invoke(op_broadcast, [lhs, rhs.tostype('default')], {})
     raise TypeError('type %s not supported' % str(type(rhs)))
 
 
@@ -712,6 +730,17 @@ def _place(tensor, ctx):
     return NDArray(tensor.to(ctx.torch_device()), ctx)
 
 
+def narrowed(dtype):
+    """``dtype`` as an NDArray stores it: 64-bit types narrowed to 32 bits,
+    as in the JAX package (x64 off)."""
+    d = np_dtype(dtype)
+    if d == np.int64:
+        return np.dtype(np.int32)
+    if d == np.float64:
+        return np.dtype(np.float32)
+    return d
+
+
 def array(source_array, ctx=None, dtype=None):
     """Reference ndarray.py:1988 mx.nd.array. Python lists default to
     float32; numpy arrays and NDArrays keep their dtype, with 64-bit types
@@ -726,11 +755,7 @@ def array(source_array, ctx=None, dtype=None):
             dtype = np.float32
         else:
             dtype = src.dtype
-    d = np_dtype(dtype)
-    if d == np.int64:
-        d = np.dtype(np.int32)
-    elif d == np.float64:
-        d = np.dtype(np.float32)
+    d = narrowed(dtype)
     td = torch_dtype(d)
     if td == torch.bfloat16:
         # numpy holds no bfloat16 that torch reads: go through f32 and

@@ -13,7 +13,11 @@ two packages (and the reference's ``.params`` files load) in either
 direction. As in the JAX package, 64-bit payloads are narrowed to 32 bits
 (an integer beyond int32 raises), bfloat16 is written as float32 in the
 binary format, and a 0-d array as shape (1,). Loaded arrays are on the
-CPU, the context the files record. Sparse storage is not ported.
+CPU, the context the files record. Sparse arrays (:mod:`.sparse`) go into
+the binary format as the reference lays them out: row_sparse is storage
+type 1 with the aux array ``[indices]``, csr type 2 with ``[indptr,
+indices]``, each aux array int64, the data under its storage shape; the
+npz container stores them dense, as the JAX package does.
 """
 import struct
 import warnings
@@ -21,6 +25,7 @@ import warnings
 import numpy as np
 
 from ..context import cpu
+from . import sparse
 from .ndarray import NDArray, array
 
 __all__ = ['save', 'load']
@@ -107,13 +112,15 @@ class _Reader:
 
 
 def _read_one(r):
-    """One dense NDArray (V2, V1 or the legacy form whose magic is ndim)."""
+    """One NDArray (V2, V1 or the legacy form whose magic is ndim); a
+    sparse one under V2."""
     magic = r.u32()
+    stype, sshape, nad = 0, None, 0
     if magic == _V2_MAGIC:
         stype = r.i32()
-        if stype != 0:
-            raise NotImplementedError(
-                'sparse storage (stype %d) is not ported' % stype)
+        nad = {1: 1, 2: 2}.get(stype, 0)   # row_sparse / csr aux counts
+        if nad > 0:
+            sshape = r.shape()
         shape = r.shape()
     elif magic == _V1_MAGIC:
         shape = r.shape()
@@ -128,10 +135,30 @@ def _read_one(r):
     dtype = _TYPE_FLAGS.get(type_flag)
     if dtype is None:
         raise ValueError('unknown reference dtype flag %d' % type_flag)
-    n = int(np.prod(shape))
+    aux = []
+    for _ in range(nad):
+        at = r.i32()
+        aux.append((_TYPE_FLAGS[at], r.shape()))
+    data_shape = sshape if nad > 0 else shape
+    n = int(np.prod(data_shape)) if data_shape else 1
     data = np.frombuffer(r.take(n * np.dtype(dtype).itemsize),
-                         dtype=dtype).reshape(shape)
-    return _host(_guard_narrowing(data.copy()))
+                         dtype=dtype).reshape(data_shape)
+    aux_data = []
+    for at, ash in aux:
+        an = int(np.prod(ash)) if ash else 1
+        aux_data.append(np.frombuffer(
+            r.take(an * np.dtype(at).itemsize), dtype=at).reshape(ash))
+    data = _guard_narrowing(data.copy())
+    if nad == 0:
+        return _host(data)
+    aux_data = [_host(_guard_narrowing(a.astype(np.int64)))
+                for a in aux_data]
+    if stype == 1:  # row_sparse: aux [indices]
+        return sparse.RowSparseNDArray(_host(data), aux_data[0], shape,
+                                       cpu())
+    # csr: aux [indptr, indices]
+    return sparse.CSRNDArray(_host(data), aux_data[0], aux_data[1], shape,
+                             cpu())
 
 
 def _guard_narrowing(npy):
@@ -172,7 +199,40 @@ def _shape_bytes(shape):
         struct.pack('<%dq' % len(shape), *shape)
 
 
+def _body_bytes(npy):
+    """The context (cpu(0)) and the type flag of a payload."""
+    return (struct.pack('<ii', 1, 0) +
+            struct.pack('<i', _FLAG_OF[np.dtype(npy.dtype)]))
+
+
+def _write_sparse(f, arr):
+    """row_sparse (storage type 1, aux [indices]) or csr (type 2, aux
+    [indptr, indices]) in the reference's layout."""
+    data = arr.data.asnumpy()
+    if np.dtype(data.dtype) not in _FLAG_OF:
+        data = data.astype(np.float32)
+    if isinstance(arr, sparse.RowSparseNDArray):
+        stype, auxes = 1, [arr.indices.asnumpy().astype(np.int64)]
+    else:
+        stype = 2
+        auxes = [arr.indptr.asnumpy().astype(np.int64),
+                 arr.indices.asnumpy().astype(np.int64)]
+    f.write(struct.pack('<I', _V2_MAGIC))
+    f.write(struct.pack('<i', stype))
+    f.write(_shape_bytes(data.shape))                    # storage shape
+    f.write(_shape_bytes(arr.shape))
+    f.write(_body_bytes(data))
+    for a in auxes:
+        f.write(struct.pack('<i', _FLAG_OF[np.dtype(a.dtype)]))
+        f.write(_shape_bytes(a.shape))
+    f.write(np.ascontiguousarray(data).tobytes())
+    for a in auxes:
+        f.write(np.ascontiguousarray(a).tobytes())
+
+
 def _write_one(f, arr):
+    if isinstance(arr, sparse.BaseSparseNDArray):
+        return _write_sparse(f, arr)
     npy = arr.asnumpy()
     if np.dtype(npy.dtype) not in _FLAG_OF:
         npy = npy.astype(np.float32)   # bfloat16 and others: as float32
@@ -181,8 +241,7 @@ def _write_one(f, arr):
     f.write(struct.pack('<I', _V2_MAGIC))
     f.write(struct.pack('<i', 0))                        # dense storage
     f.write(_shape_bytes(npy.shape))
-    f.write(struct.pack('<ii', 1, 0))                    # cpu(0)
-    f.write(struct.pack('<i', _FLAG_OF[np.dtype(npy.dtype)]))
+    f.write(_body_bytes(npy))
     f.write(np.ascontiguousarray(npy).tobytes())
 
 

@@ -12,8 +12,6 @@ so are the Python-callback bridges ``_Native`` (a NumpyOp: numpy buffers on
 the host), ``_NDArray`` (an NDArrayOp: NDArrays on the node's context) and
 ``_CustomFunction`` (an ``autograd.Function``), each with its
 ``legacy_backward``. A graph runs them through ``registry.host_bridge``.
-Not here yet: ``_sparse_cast_storage`` (its target ``cast_storage`` comes
-with sparse storage).
 """
 import numpy as np
 import torch
@@ -46,6 +44,7 @@ _ALIASES = {
     '_sample_negbinomial': '_random_negative_binomial',
     '_sample_gennegbinomial': '_random_generalized_negative_binomial',
     # the sparse names over dense arrays, as in the JAX package
+    '_sparse_cast_storage': 'cast_storage',
     '_sparse_ElementWiseSum': 'add_n', '_sparse_add_n': 'add_n',
     '_sparse_elemwise_add': 'elemwise_add', '_sparse_dot': 'dot',
     '_sparse_slice': 'slice', '_sparse_zeros_like': 'zeros_like',

@@ -3,7 +3,7 @@
 composer per registered op (``sym.Convolution``, ``sym.BatchNorm``, ...),
 generated from the registry as ``nd.<op>`` is, ``zeros``/``ones``/
 ``arange``/``full``, ``maximum``/``minimum``/``hypot``, ``sym.random``,
-``sym.contrib``, ``sym.linalg`` and ``sym._internal``.
+``sym.contrib``, ``sym.linalg``, ``sym.sparse`` and ``sym._internal``.
 """
 from .symbol import Symbol, Variable, var, Group, load, load_json, create
 from . import register as _register
@@ -64,6 +64,7 @@ def hypot(lhs, rhs):
 from . import random    # noqa: E402,F401  (mx.sym.random.*)
 from . import contrib   # noqa: E402,F401  (mx.sym.contrib.*)
 from . import linalg    # noqa: E402,F401  (mx.sym.linalg.*)
+from . import sparse    # noqa: E402,F401  (mx.sym.sparse.*)
 from . import _internal  # noqa: E402,F401  (mx.sym._internal.*)
 from . import op        # noqa: E402,F401  (generated-op module path)
 

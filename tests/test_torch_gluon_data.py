@@ -385,10 +385,18 @@ def test_csv_iter_matches_jax(tmp_path, round_batch):
 
 
 def test_libsvm_iter_waits_for_sparse_storage(tmp_path):
+    # sparse storage has come: the iterator yields the JAX package's CSR
+    # batches (tests/test_torch_libsvm.py holds it at width)
     p = tmp_path / 'a.libsvm'
     p.write_text('1 0:1.5 3:2\n0 2:1\n')
-    with pytest.raises(NotImplementedError, match='take-order 7'):
-        mt.io.LibSVMIter(str(p), (4,))
+    out = []
+    for pkg, _ in PKGS:
+        with pkg.cpu():
+            b = next(iter(pkg.io.LibSVMIter(str(p), (4,), batch_size=2)))
+            out.append([b.data[0].stype, b.data[0].asnumpy(),
+                        _np(b.label[0]), b.pad])
+    assert out[1][0] == 'csr'
+    _eq(out[1], out[0])
 
 
 def test_mx_data_iter_matches_jax():

@@ -3,10 +3,9 @@ package's, and the registry as a whole, on the CPU.
 
 - Each alias of ``mxnet_tpu/ops/legacy_ops.py`` whose target the port has
   is the same OpDef as that target, as in the JAX registry.
-- Every name of the JAX registry (``import mxnet_tpu`` imports every ops
-  module) is in the port's ``list_ops()``, but for the names that wait for
-  later slices (``WAITING``, each with the module that brings it;
-  ROADMAP.md lists them with their take-order).
+- The port's ``list_ops()`` is the JAX registry's (``import mxnet_tpu``
+  imports every ops module): all 359 names. ``WAITING``, the names that
+  waited for later slices, is empty.
 - ``Convolution_v1`` against the JAX op (values and gradients, f32: rtol
   1e-5, atol 1e-5 x the largest |jax| value, sums in another order);
   ``_CrossDeviceCopy`` is the identity and ``_NoGradient`` passes no
@@ -27,32 +26,17 @@ from mxnet_tpu_torch import nd
 from mxnet_tpu_torch.ops import legacy_ops as tlegacy
 from mxnet_tpu_torch.ops import registry as treg
 
-# the JAX registry's names that later slices bring, by what brings them
-WAITING = {
-    # sparse storage (ndarray/sparse.py, ops/sparse_ops.py)
-    'cast_storage': 'sparse', '_sparse_cast_storage': 'sparse',
-    '_sparse_retain': 'sparse', 'sparse_retain': 'sparse',
-    '_square_sum': 'sparse',
-    # the contrib detection and signal ops
-    'BilinearSampler': 'contrib', 'Correlation': 'contrib',
-    'GridGenerator': 'contrib', 'IdentityAttachKLSparseReg': 'contrib',
-    'ROIPooling': 'contrib', 'SpatialTransformer': 'contrib',
-    '_contrib_DeformableConvolution': 'contrib',
-    '_contrib_DeformablePSROIPooling': 'contrib',
-    '_contrib_MultiBoxDetection': 'contrib',
-    '_contrib_MultiBoxPrior': 'contrib', '_contrib_MultiBoxTarget': 'contrib',
-    '_contrib_MultiProposal': 'contrib', '_contrib_PSROIPooling': 'contrib',
-    '_contrib_Proposal': 'contrib', '_contrib_box_iou': 'contrib',
-    '_contrib_count_sketch': 'contrib', '_contrib_dequantize': 'contrib',
-    '_contrib_fft': 'contrib', '_contrib_ifft': 'contrib',
-    '_contrib_quantize': 'contrib',
-}
+# the JAX registry's names that later slices bring, by what brings them:
+# none since sparse storage and the contrib ops came
+WAITING = {}
 
 
 def test_every_jax_name_is_registered_but_the_waiting_ones():
     jax_names, port_names = set(jreg.list_ops()), set(treg.list_ops())
     assert port_names <= jax_names
     assert jax_names - port_names == set(WAITING)
+    # every name of the JAX registry, and no other
+    assert port_names == jax_names and len(port_names) == 359
 
 
 @pytest.mark.parametrize('alias', sorted(jlegacy._ALIASES))

@@ -148,7 +148,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
             'mxnet_tpu_torch.gluon.rnn.rnn_layer, '
             'mxnet_tpu_torch.gluon.rnn.basic_init, '
             'mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.symbol.contrib, '
-            'mxnet_tpu_torch.serving.step_cache\n'
+            'mxnet_tpu_torch.serving.step_cache, '
+            'mxnet_tpu_torch.ndarray.sparse, mxnet_tpu_torch.ops.sparse_ops, '
+            'mxnet_tpu_torch.symbol.sparse\n'
             'from mxnet_tpu_torch.io import (ImageRecordIter, MNISTIter, '
             'CSVIter, ImageDetRecordIter, MXDataIter)\n'
             'from mxnet_tpu_torch.gluon.data import DataLoader, ArrayDataset\n'
