@@ -347,7 +347,34 @@ order they run:
     SpatialTransformer, GridGenerator and BilinearSampler on [32, 3, 224,
     224], fft/ifft on [256, 4096], count_sketch to 8,192 over [4096, 512]
     and IdentityAttachKLSparseReg on [256, 1024] in training, each timed
-    with CUDA events.
+    with CUDA events;
+(u) the resilience tier (run after (t), before (e); the kernel record's
+    resilience_launches count (u2)'s launches), under cuDNN's
+    deterministic algorithms where it holds a run bit for bit: (u1)
+    train_imagenet's recipe on ResNet-50 (as (l1), 12 batches) through
+    resilient_fit with checkpoints every 4 steps, MXTPU_HEALTH=1 with
+    action raise and nan-grad at batch 6, on the window (W = 4) and on the
+    per-batch loop: one restart from step 4, the incident at step 6 with
+    the bisect naming the input, the final parameters, aux states and
+    momenta bit for bit the uninterrupted run's, no synchronising call
+    inside a window; the size of a checkpoint, a batch's host ms with
+    checkpoints and sentinels on and off, and the ckpt.save span printed;
+    (u2) (l2)'s head (x [8192, 1024] f32 -> LayerNorm (K4) ->
+    FullyConnected to 16,384 -> MakeLoss(softmax_cross_entropy) (K3))
+    through the windowed Module.fit with health and dynamics on,
+    checkpoints every 2 steps and dispatch-exception at step 5 under
+    resilient_fit: one K3 and one K4 launch a trained step, each batch's
+    loss against the plain versions' trajectory, the final state bit for
+    bit the uninterrupted run's, window step 0's health row against its
+    recomputation from that step's gradients (1e-5); (u3)
+    checkpoint-corrupt on the head's step-8 checkpoint: the next fit falls
+    back to step 4 and ends bit for bit on the uninterrupted run; (u4)
+    python -m mxnet_tpu_torch.train_supervisor over a child that fits the
+    head on the card, once with host-loss (exit 113) and once with hang
+    under the watchdog's abort (exit 85, its abort hook certifying the save
+    in flight), beside an uninterrupted child: each relaunch resumes from
+    the certified pointer and saves the uninterrupted child's state bit
+    for bit.
 
 The second-to-last line of its output is the kernel record
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -357,6 +384,7 @@ prints neither.
 import json
 import math
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -8126,6 +8154,582 @@ def phase_t(device, work):
     return sparse_launches, contrib_launches, figures
 
 
+# ---------------------------------------------------------------------------
+# (u) the resilience tier on the card
+# ---------------------------------------------------------------------------
+
+RES_BATCHES = 12        # (u1): train_imagenet's recipe, 12 batches of 32
+RES_EVERY = 4           # (u1): a checkpoint every 4 steps
+RES_FAULT = 'nan-grad:6'
+RES_HEAD_BATCHES = 8    # (u2), (u3): (l2)'s head, two windows of 4
+RES_HEAD_EVERY = 2
+RES_HEAD_FAULT = 'dispatch-exception:5'
+RES_ROW_RTOL = 1e-5     # (u2): a sentinel row against its recomputation
+CHILD_BATCHES = 12      # (u4): the supervised child, three windows of 4
+CHILD_WATCHDOG_S = 5.0
+CHILD_TIMEOUT_S = 300
+
+
+class _resilience_env(_flags_set):
+    """_flags_set for the resilience tier's flags, with the telemetry and
+    fault-injection state (each decided once a process) reset on the way
+    in and out."""
+
+    def _reset(self):
+        from mxnet_tpu_torch import faults, telemetry
+        telemetry._reset_for_tests()
+        faults._reset_for_tests()
+
+    def __enter__(self):
+        super().__enter__()
+        self._reset()
+
+    def __exit__(self, *exc):
+        self._reset()
+        super().__exit__(*exc)
+
+
+def _train_state(mod):
+    """{name: tensor} of a module's parameters, aux states and optimizer
+    states (the momenta), cloned."""
+    from mxnet_tpu_torch.module.fused_fit import updater_obj, updater_keys
+    args, aux = mod.get_params()
+    out = {n: a.handle.detach().clone() for n, a in
+           list(args.items()) + list(aux.items())}
+    e = mod._exec_group.execs[0]
+    keys = updater_keys(mod, e._grad_names)
+    states = updater_obj(mod).states
+
+    def walk(st, name):
+        if st is None:
+            return
+        if isinstance(st, tuple):
+            for i, s in enumerate(st):
+                walk(s, '%s.%d' % (name, i))
+            return
+        out[name] = st.handle.detach().clone()
+    for n in e._grad_names:
+        walk(states.get(keys[n]), 'state:' + n)
+    return out
+
+
+def _same_state(got, want):
+    """The names whose tensors are not bit for bit equal."""
+    import torch
+    return sorted(n for n in set(got) | set(want)
+                  if n not in got or n not in want
+                  or not torch.equal(got[n].cpu(), want[n].cpu()))
+
+
+def _ckpt_bytes(directory):
+    """Bytes of the newest committed step of a checkpoint directory."""
+    steps = sorted(int(n) for n in os.listdir(directory) if n.isdigit())
+    d = os.path.join(directory, str(steps[-1]))
+    return steps[-1], sum(os.path.getsize(os.path.join(d, f))
+                          for f in os.listdir(d))
+
+
+def _callback_ms(stamps, every):
+    """A batch's host ms: the median wall between the callbacks ``every``
+    batches apart (a window's burst to the next), over the batches."""
+    gaps = [(stamps[i + every] - stamps[i]) * 1e3 / every
+            for i in range(0, len(stamps) - every, every)]
+    return statistics.median(gaps) if gaps else float('nan')
+
+
+def resilient_resnet(device, work, fused, spec=RESNET,
+                     n_batches=RES_BATCHES):
+    """Phase (u1) on one loop (the window when ``fused``, else the
+    per-batch loop): train_imagenet's recipe on ResNet-50 through
+    resilient_fit with checkpoints every RES_EVERY steps, health (raise)
+    and nan-grad at batch 6, against the uninterrupted run from the same
+    masters; returns {figure: value}."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.module.resilient_fit import resilient_fit
+    name, batch, image, classes = spec
+    on_card = device.type == 'cuda'
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    loop = 'window' if fused else 'per-batch'
+    rng = np.random.RandomState(0)
+    X = rng.standard_normal((n_batches * batch, 3, image, image)).astype(
+        np.float32)
+    y = rng.randint(0, classes, n_batches * batch).astype(np.int32)
+    sym = _zoo_symbol(name, classes, (batch, 3, image, image))
+    tele = os.path.join(work, 'u1_%s.jsonl' % loop)
+    ckdir = os.path.join(work, 'u1_%s_ckpt' % loop)
+    fused_flag = '1' if fused else '0'
+
+    def run(faulted):
+        train = mt.io.NDArrayIter(X, y, batch_size=batch)
+        mod = mt.mod.Module(sym) if on_card else \
+            mt.mod.Module(sym, context=ctx)
+        mod.bind(train.provide_data, train.provide_label)
+        mt.random.seed(0)
+        mod.init_params(_xavier())
+        stamps = []
+        windows = []
+        kw = dict(num_epoch=1, optimizer='sgd', optimizer_params=FIT_OPT,
+                  eval_metric=['acc'], kvstore='device',
+                  batch_end_callback=lambda p: stamps.append(
+                      time.perf_counter()))
+        with _timed_windows(device, windows):
+            if faulted:
+                with _resilience_env(
+                        MXTPU_FUSED_FIT=fused_flag, MXTPU_TELEMETRY='1',
+                        MXTPU_TELEMETRY_PATH=tele, MXTPU_HEALTH='1',
+                        MXTPU_HEALTH_ACTION='raise', MXTPU_CKPT_DIR=ckdir,
+                        MXTPU_CKPT_EVERY=str(RES_EVERY),
+                        MXTPU_FAULT_INJECT=RES_FAULT,
+                        MXTPU_RESTART_BACKOFF='0'):
+                    restarts = resilient_fit(mod, train, **kw)
+                    ck = mod.__dict__['_mxtpu_ckpt']
+                    hs = telemetry.health.snapshot_health()
+                    span = telemetry.get_registry().get('ckpt.save')
+                    figures = {
+                        'restarts': restarts,
+                        'restored_step': ck.restored_step,
+                        'last_good': ck.last_good,
+                        'incident': hs['incidents'][0] if hs['incidents']
+                        else {},
+                        'save_ms': (span.count, span.mean, span.max)
+                        if span is not None else None}
+            else:
+                with _flags_set(MXTPU_FUSED_FIT=fused_flag):
+                    mod.fit(train, **kw)
+                figures = {}
+        if on_card:
+            torch.cuda.synchronize()
+        figures['state'] = _train_state(mod)
+        figures['stamps'] = stamps
+        figures['syncs'] = [s for _, _, ss, _ in windows for s in ss]
+        figures['windows'] = len(windows)
+        return figures
+
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        off = run(False)
+        t_off = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on = run(True)
+        t_on = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    inc = on['incident']
+    step, size = _ckpt_bytes(ckdir)
+    diff = _same_state(on['state'], off['state'])
+    every = 4 if fused else 1
+    log('  (u1) %s loop: the faulted run (%.1f s) took %d restart, restored '
+        'step %s, last good %s; the incident names step %s (%s, window step '
+        '%s), first non-finite symbol %s; %d state tensors (parameters, aux '
+        'states, momenta) %s the uninterrupted run\'s (%.1f s); a '
+        'checkpoint of step %d is %d bytes (%.1f MB)'
+        % (loop, t_on, on['restarts'], on['restored_step'], on['last_good'],
+           inc.get('step'), inc.get('source'), inc.get('window_step'),
+           inc.get('first_bad_layer'), len(on['state']),
+           'bit for bit' if not diff else 'NOT bit for bit (%s)' % diff[:3],
+           t_off, step, size, size / 1e6))
+    log('      a batch\'s host ms (callback to callback, %s): %.3f with '
+        'checkpoints and sentinels on, %.3f off; the ckpt.save span '
+        '(writer thread): %s; synchronising calls inside the windows: %s'
+        % ('window to window over W' if fused else 'median',
+           _callback_ms(on['stamps'][-8:], every),
+           _callback_ms(off['stamps'], every),
+           'count %d, mean %.3f ms, max %.3f ms' % on['save_ms']
+           if on['save_ms'] else 'none', len(on['syncs']) if on_card
+           else 'not measured off the card'))
+    check(on['restarts'] == 1 and on['restored_step'] == 4,
+          '(u1) %s: %s restarts from step %s, not 1 from step 4'
+          % (loop, on['restarts'], on['restored_step']))
+    check(inc.get('step') == 6 and inc.get('first_bad_layer') == 'data',
+          '(u1) %s: the incident is %s' % (loop, inc))
+    check(not diff, '(u1) %s: the final state differs from the '
+          'uninterrupted run\'s in %s' % (loop, diff[:5]))
+    check(not on['syncs'] and not off['syncs'],
+          '(u1) a window synchronised with the device: %s'
+          % (on['syncs'] + off['syncs'])[:3])
+    if fused:
+        # the faulted run: windows 1 and 2, then 2 and 3 again after the
+        # restore
+        check(on['windows'] == 4 and off['windows'] == 3,
+              '(u1) the window ran %d and %d windows'
+              % (on['windows'], off['windows']))
+    return {'ckpt_bytes': size, 'on_ms': _callback_ms(on['stamps'][-8:],
+                                                      every),
+            'off_ms': _callback_ms(off['stamps'], every),
+            'save_ms': on['save_ms']}
+
+
+def _head_module(mt, ctx, V):
+    sym = mt.sym
+    x = sym.var('x')
+    logits = sym.Cast(sym.FullyConnected(sym.LayerNorm(x, name='ln'),
+                                         num_hidden=V, no_bias=True,
+                                         name='head'), dtype='float32')
+    net = sym.MakeLoss(sym.softmax_cross_entropy(logits, sym.var('label')))
+    return mt.mod.Module(net, data_names=('x',), label_names=('label',),
+                         context=ctx)
+
+
+def _head_shape(cfg):
+    """(N, D, V): (l2)'s head's rows, width and classes."""
+    return MAX_BATCH * cfg.seq_len, cfg.d_model, cfg.vocab
+
+
+def _head_data(shape, batches, seed=23):
+    N, D, V = shape
+    rng = np.random.RandomState(seed)
+    X = rng.standard_normal((batches * N, D)).astype(np.float32)
+    y = rng.randint(0, V, batches * N).astype(np.int32)
+    return X, y, N
+
+
+def _head_fit(mt, ctx, V, X, y, N, num_epoch=1, callback=None,
+              resilient=False):
+    """(l2)'s head through the windowed Module.fit from Xavier at seed 0;
+    returns (module, restarts)."""
+    from mxnet_tpu_torch.module.resilient_fit import resilient_fit
+    it = mt.io.NDArrayIter({'x': X}, {'label': y}, batch_size=N)
+    mod = _head_module(mt, ctx, V)
+    mod.bind(it.provide_data, it.provide_label)
+    mt.random.seed(0)
+    mod.init_params(_xavier())
+    kw = dict(num_epoch=num_epoch, optimizer='sgd', optimizer_params=FIT_OPT,
+              eval_metric='loss', kvstore='device',
+              batch_end_callback=callback)
+    if resilient:
+        return mod, resilient_fit(mod, it, **kw)
+    mod.fit(it, **kw)
+    return mod, 0
+
+
+def resilient_head(device, cfg, work, batches=RES_HEAD_BATCHES):
+    """Phase (u2): (l2)'s head through the windowed Module.fit with health
+    and dynamics on, checkpoints every RES_HEAD_EVERY steps and
+    dispatch-exception at step 5, under resilient_fit; each batch's loss
+    against the plain versions' trajectory, the final state against the
+    uninterrupted run, window step 0's sentinel row against its
+    recomputation from that step's gradients. Returns ({wrapper: launches
+    over the faulted run}, the uninterrupted run's state)."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.ops import registry
+    on_card = device.type == 'cuda'
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    V = cfg.vocab
+    X, y, N = _head_data(_head_shape(cfg), batches)
+    sums = []
+    rows = []
+    real_note = telemetry.health.note_window
+
+    def spy(hmat, *a, **k):
+        rows.append(np.asarray(hmat))
+        return real_note(hmat, *a, **k)
+
+    counters = (ck.layernorm_fwd, ck.rmsnorm_fwd, ck.softmax_fwd,
+                ck.softmax_xent_fwd)
+    windows = []
+    tele = os.path.join(work, 'u2.jsonl')
+    telemetry.health.note_window = spy
+    try:
+        with _timed_windows(device, windows), _resilience_env(
+                MXTPU_TELEMETRY='1', MXTPU_TELEMETRY_PATH=tele,
+                MXTPU_HEALTH='1', MXTPU_HEALTH_ACTION='raise',
+                MXTPU_DYNAMICS='1',
+                MXTPU_CKPT_DIR=os.path.join(work, 'u2_ckpt'),
+                MXTPU_CKPT_EVERY=str(RES_HEAD_EVERY),
+                MXTPU_FAULT_INJECT=RES_HEAD_FAULT,
+                MXTPU_RESTART_BACKOFF='0'):
+            # the main path: counts are zeroed just before and read just
+            # after
+            _zero_counts(counters)
+            mod, restarts = _head_fit(
+                mt, ctx, V, X, y, N, resilient=True,
+                callback=lambda p: sums.append(p.eval_metric.sum_metric))
+            if on_card:
+                torch.cuda.synchronize()
+            launches = _counts(counters)
+            ck_ = mod.__dict__['_mxtpu_ckpt']
+            restored = ck_.restored_step
+            dyn = telemetry.dynamics.snapshot_dynamics()
+            hsteps = telemetry.get_registry().counter('health.steps').value
+    finally:
+        telemetry.health.note_window = real_note
+    state = _train_state(mod)
+    ref_mod, _ = _head_fit(mt, ctx, V, X, y, N)
+    ref_state = _train_state(ref_mod)
+    diff = _same_state(state, ref_state)
+    losses = list(np.diff([0.0] + sums))
+    want = {'layernorm_fwd': batches, 'rmsnorm_fwd': 0, 'softmax_fwd': 0,
+            'softmax_xent_fwd': batches}
+    if not on_card:
+        want = dict.fromkeys(want, 0)
+    syncs = [s for _, _, ss, _ in windows for s in ss]
+    log('  (u2) Module(x [%d, %d] f32 -> LayerNorm -> FullyConnected to %d '
+        '-> f32 -> softmax_cross_entropy -> MakeLoss), %d batches under '
+        'resilient_fit with %s: %d restart from step %s; launches over the '
+        'run %s (one K4 and one K3 a trained step); %d health rows checked, '
+        'dynamics over %s steps (worst layer %s); %d state tensors %s the '
+        'uninterrupted run\'s; synchronising calls inside the windows: %s'
+        % (N, cfg.d_model, cfg.vocab, batches, RES_HEAD_FAULT, restarts,
+           restored, launches, hsteps, dyn and dyn['steps'],
+           dyn and dyn.get('worst_layer'), len(state),
+           'bit for bit' if not diff else 'NOT bit for bit (%s)' % diff[:3],
+           len(syncs) if on_card else 'not measured off the card'))
+    check(restarts == 1 and restored == 4,
+          '(u2) %s restarts from step %s' % (restarts, restored))
+    check(launches == want, '(u2) launches %s != %s' % (launches, want))
+    check(hsteps == batches and dyn is not None and dyn['steps'] == batches,
+          '(u2) the sentinels saw %s / %s rows' % (hsteps, dyn))
+    check(not diff, '(u2) the final state differs from the uninterrupted '
+          'run\'s in %s' % diff[:5])
+    check(not syncs, '(u2) a window synchronised with the device: %s'
+          % syncs[:3])
+
+    # each batch's loss against the plain versions' trajectory, and window
+    # step 0's sentinel row against its recomputation from that step's
+    # gradients (the executor's backward on the same module state and
+    # batch: the same kernels and the same update op the window runs)
+    def plain_loss(p, xb, lab):
+        h = ck.layernorm_ref(xb, p['ln_gamma'], p['ln_beta'])
+        return ck.softmax_xent_ref((h @ p['head_weight'].t()).float(),
+                                   lab).sum()
+
+    sgd = registry.get('sgd_mom_update').fn
+    chk = _head_module(mt, ctx, V)
+    it = mt.io.NDArrayIter({'x': X}, {'label': y}, batch_size=N)
+    chk.bind(it.provide_data, it.provide_label)
+    mt.random.seed(0)
+    chk.init_params(_xavier())
+    p0 = {n: a.handle.detach().clone() for n, a in chk.get_params()[0].items()}
+
+    def wd(n):
+        return FIT_OPT['wd'] if n.endswith(('_weight', '_gamma')) else 0.0
+
+    chk.forward_backward(next(iter(it)))
+    e = chk._exec_group.execs[0]
+    g0 = {n: e.grad_dict[n].handle.detach() for n in e._grad_names}
+    new0 = {n: sgd(dict(lr=FIT_OPT['learning_rate'],
+                        momentum=FIT_OPT['momentum'], wd=wd(n),
+                        rescale_grad=1.0 / N, clip_gradient=-1.0),
+                   p0[n], g0[n], torch.zeros_like(p0[n]))[0]
+            for n in e._grad_names}
+
+    def norm(ts):
+        return math.sqrt(sum(float(t.double().square().sum()) for t in ts))
+
+    pn = norm(p0[n] for n in e._grad_names)
+    recomputed = np.array([1.0, norm(g0.values()), pn,
+                           norm(new0[n] - p0[n] for n in e._grad_names) / pn,
+                           1.0])
+    row = rows[0][0].astype(np.float64)
+    row_err = float(np.max(np.abs(row - recomputed) / np.abs(recomputed)))
+    p = dict(p0)
+    mom = {n: torch.zeros_like(t) for n, t in p.items()}
+    ref = []
+    for b in range(batches):
+        xb = torch.from_numpy(X[b * N:(b + 1) * N]).to(device)
+        lab = torch.from_numpy(y[b * N:(b + 1) * N]).to(device)
+        leaves = {n: t.detach().requires_grad_() for n, t in p.items()}
+        loss = plain_loss(leaves, xb, lab)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        ref.append(float(loss.detach()))
+        with torch.no_grad():
+            for (n, t), g in zip(p.items(), grads):
+                attrs = dict(lr=FIT_OPT['learning_rate'],
+                             momentum=FIT_OPT['momentum'], wd=wd(n),
+                             rescale_grad=1.0 / N, clip_gradient=-1.0)
+                p[n], mom[n] = sgd(attrs, t, g, mom[n])
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    log('      each batch\'s loss against the plain versions\' trajectory '
+        'from the same parameters: relative errors %s; window step 0\'s '
+        'sentinel row %s against its recomputation %s (relative error '
+        '%.3e, held to %g)'
+        % (['%.3e' % v for v in errs], ['%.6g' % v for v in row],
+           ['%.6g' % v for v in recomputed], row_err, RES_ROW_RTOL))
+    check(len(errs) == batches and max(errs) <= WINDOW_LOSS_RTOL,
+          '(u2) a batch\'s loss disagrees with the plain versions')
+    check(row_err <= RES_ROW_RTOL, '(u2) the sentinel row disagrees with '
+          'its recomputation')
+    del mod, ref_mod, chk
+    return launches
+
+
+def corrupt_fallback(device, cfg, work, batches=RES_HEAD_BATCHES):
+    """Phase (u3): checkpoint-corrupt on the head's step-8 checkpoint; a
+    fresh fit of two epochs falls back to step 4 and ends bit for bit on
+    the uninterrupted two-epoch run."""
+    import mxnet_tpu_torch as mt
+    on_card = device.type == 'cuda'
+    ctx = mt.gpu(device.index or 0) if on_card else mt.cpu()
+    V = cfg.vocab
+    X, y, N = _head_data(_head_shape(cfg), batches)
+    ckdir = os.path.join(work, 'u3_ckpt')
+    env = dict(MXTPU_CKPT_DIR=ckdir, MXTPU_CKPT_EVERY=str(RES_HEAD_EVERY))
+    with _resilience_env(MXTPU_FAULT_INJECT='checkpoint-corrupt:8', **env):
+        _head_fit(mt, ctx, V, X, y, N)
+    with _resilience_env(**env):
+        mod, _ = _head_fit(mt, ctx, V, X, y, N, num_epoch=2)
+    restored = mod.__dict__['_mxtpu_ckpt'].restored_step
+    ref, _ = _head_fit(mt, ctx, V, X, y, N, num_epoch=2)
+    diff = _same_state(_train_state(mod), _train_state(ref))
+    log('  (u3) checkpoint-corrupt:8 truncated step 8; the next fit '
+        'restored step %s and ended %s the uninterrupted run'
+        % (restored, 'bit for bit on' if not diff else
+           'NOT bit for bit on (%s)' % diff[:3]))
+    check(restored == 4, '(u3) restored step %s, not 4' % restored)
+    check(not diff, '(u3) the resumed run differs in %s' % diff[:5])
+    del mod, ref
+
+
+def resilience_child():
+    """(u4)'s training child: (l2)'s head (its N, D, V in CHILD_HEAD)
+    through the windowed Module.fit for CHILD_BATCHES batches on
+    CHILD_DEVICE (the parent's: the card), its parameters, aux states and
+    momenta saved to CHILD_OUT. A relaunch clears the one-shot fault from
+    its own environment (CHILD_MARKER counts the attempts)."""
+    import torch
+    marker = os.environ['CHILD_MARKER']
+    first = not os.path.exists(marker)
+    with open(marker, 'a') as f:
+        f.write('x\n')
+    if not first:
+        os.environ.pop('MXTPU_FAULT_INJECT', None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import mxnet_tpu_torch as mt
+    shape = tuple(int(v) for v in os.environ['CHILD_HEAD'].split(','))
+    dev = torch.device(os.environ['CHILD_DEVICE'])
+    ctx = mt.gpu(dev.index or 0) if dev.type == 'cuda' else mt.cpu()
+    X, y, N = _head_data(shape, CHILD_BATCHES, seed=24)
+    mod, _ = _head_fit(mt, ctx, shape[2], X, y, N)
+    torch.save({n: t.cpu() for n, t in _train_state(mod).items()},
+               os.environ['CHILD_OUT'])
+
+
+def _child_env(work, tag, **extra):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith('MXTPU_')}
+    d = os.path.join(work, tag)
+    os.makedirs(d)
+    env.update({'PYTHONPATH': os.path.dirname(os.path.abspath(__file__)),
+                'CHILD_MARKER': os.path.join(d, 'marker'),
+                'CHILD_OUT': os.path.join(d, 'state.pt')})
+    env.update(extra)
+    return env, d
+
+
+def supervised_children(device, cfg, work):
+    """Phase (u4): ``python -m mxnet_tpu_torch.train_supervisor`` over
+    resilience_child on the card, once with host-loss (exit 113) and once
+    with hang under the watchdog's abort (exit 85), beside an
+    uninterrupted child, all three at once; each relaunch resumes from the
+    certified pointer and saves the uninterrupted child's state bit for
+    bit."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    child = [sys.executable, '-c',
+             'import chip_smoke; chip_smoke.resilience_child()']
+    sup = [sys.executable, '-m', 'mxnet_tpu_torch.train_supervisor',
+           '--backoff', '0', '--']
+    runs = {}
+    for tag, fault, extra in (
+            ('reference', None, {}),
+            # synchronous saves: step 4 is certified at step 8's note
+            ('host-loss', 'host-loss:9', {'MXTPU_CKPT_ASYNC': '0'}),
+            ('hang', 'hang:9:120', {
+                'MXTPU_WATCHDOG_SECS': str(CHILD_WATCHDOG_S),
+                'MXTPU_WATCHDOG_ACTION': 'abort'})):
+        env, d = _child_env(work, 'u4_' + tag)
+        env['CHILD_HEAD'] = ','.join(str(v) for v in _head_shape(cfg))
+        env['CHILD_DEVICE'] = str(device)
+        if fault:
+            env.update({'MXTPU_TELEMETRY': '1',
+                        'MXTPU_TELEMETRY_PATH': os.path.join(d, 'tele.jsonl'),
+                        'MXTPU_CKPT_DIR': os.path.join(d, 'ckpt'),
+                        'MXTPU_CKPT_EVERY': str(RES_HEAD_EVERY),
+                        'MXTPU_FAULT_INJECT': fault}, **extra)
+        cmd = (sup if fault else []) + child
+        runs[tag] = (d, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    out = {}
+    try:
+        for tag, (d, t0, proc) in runs.items():
+            so, se = proc.communicate(timeout=CHILD_TIMEOUT_S)
+            out[tag] = (d, proc.returncode, se, time.perf_counter() - t0)
+    finally:
+        for _, _, proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    d, code, se, _ = out['reference']
+    check(code == 0, '(u4) the uninterrupted child failed: %s' % se[-2000:])
+    want = torch.load(os.path.join(d, 'state.pt'))
+    for tag, exit_code in (('host-loss', 113), ('hang', 85)):
+        d, code, se, wall = out[tag]
+        recs = _jsonl(os.path.join(d, 'tele.jsonl'))
+        restarts = [r for r in recs if r['type'] == 'restart'
+                    and not r.get('final')]
+        resumes = [r for r in recs if r.get('name') == 'ckpt.resume']
+        drained = [int(s) for s in
+                   re.findall(r'abort drain certified step (\d+)', se)]
+        got = torch.load(os.path.join(d, 'state.pt')) if code == 0 else {}
+        diff = _same_state(got, want)
+        restored = resumes[0]['restored_step'] if resumes else None
+        log('  (u4) %s: the supervisor exited %s after %.1f s; the child '
+            'died with %s, was relaunched and restored step %s%s; its %d '
+            'state tensors %s the uninterrupted child\'s'
+            % (tag, code, wall, [r['exit_code'] for r in restarts],
+               restored, '; the abort hook certified step %s' % drained
+               if tag == 'hang' else '', len(got),
+               'bit for bit' if not diff else
+               'NOT bit for bit (%s)' % diff[:3]))
+        check(code == 0, '(u4) %s: the supervisor exited %s: %s'
+              % (tag, code, se[-2000:]))
+        check([r['exit_code'] for r in restarts] == [exit_code],
+              '(u4) %s: restart records %s' % (tag, restarts))
+        check(len(resumes) == 1 and restored is not None and restored >= 4,
+              '(u4) %s: the relaunch did not resume (%s)' % (tag, resumes))
+        if tag == 'hang':
+            check(drained == [restored] and restored in (4, 8),
+                  '(u4) hang: the abort hook certified %s, the relaunch '
+                  'restored %s' % (drained, restored))
+        else:
+            check(restored == 4, '(u4) host-loss: restored %s' % restored)
+        check(not diff, '(u4) %s: the relaunched child\'s state differs in '
+              '%s' % (tag, diff[:5]))
+
+
+def phase_u(device, cfg, work):
+    """Phase (u): (u1) ResNet-50 through resilient_fit on the window and
+    the per-batch loop, (u2) the decoder head with the sentinels, (u3)
+    checkpoint-corrupt, (u4) the process tier. Returns {wrapper: (u2)'s
+    launches}."""
+    import torch
+    t0 = time.perf_counter()
+    figures = {}
+    log('  (u1) train_imagenet\'s recipe through resilient_fit with %s'
+        % RES_FAULT)
+    for fused in (True, False):
+        figures['window' if fused else 'per-batch'] = resilient_resnet(
+            device, work, fused)
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    launches = resilient_head(device, cfg, work)
+    corrupt_fallback(device, cfg, work)
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    supervised_children(device, cfg, work)
+    log('  phase (u) took %.1f s' % (time.perf_counter() - t0))
+    return launches, figures
+
+
 def main():
     # phase (l1)'s checkpoint, phase (n)'s head and its telemetry logs
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as work:
@@ -8227,6 +8831,9 @@ def run(work):
     log('(t) sparse storage and the contrib ops on the card')
     sparse_launches, contrib_launches, _ = phase_t(device, work)
 
+    log('(u) the resilience tier on the card')
+    resilience_launches, _ = phase_u(device, cfg, work)
+
     log('(e) times (median of CUDA-event runs)')
     t = times(device, model, ref, cfg)
     tt = train_times(device, cfg, *step_args)
@@ -8279,6 +8886,8 @@ def run(work):
             'custom_launches': custom_launches[row_fns(kernel)[0].__name__],
             'sparse_launches': sparse_launches[row_fns(kernel)[0].__name__],
             'contrib_launches': contrib_launches[row_fns(kernel)[0].__name__],
+            'resilience_launches':
+                resilience_launches[row_fns(kernel)[0].__name__],
             'max_abs_err': nd_errs[kernel], **rt[kernel]})
     for name in rtc_kernels(cfg):
         record['kernels'].append({

@@ -51,12 +51,20 @@ the JAX package's, so one environment drives both packages:
 - ``MXTPU_DEVICE_AUGMENT`` and ``MXTPU_HOST_CROP``: ImageRecordIter's
   augment on the card, and whether its workers crop on the host first
   (:mod:`.io`);
-- ``MXTPU_CKPT_DIR``, ``MXTPU_FAULT_INJECT``, ``MXTPU_HEALTH``,
-  ``MXTPU_DYNAMICS``, ``MXTPU_SHARDED_UPDATE`` and ``MXTPU_GRAD_COMPRESS``:
-  paths of the JAX package's ``Module.fit`` and eval that the port does
-  not have yet;
-  set, each makes them raise NotImplementedError
-  (``module/base_module.py``).
+- the resilience tier: ``MXTPU_CKPT_DIR``, ``_EVERY``, ``_KEEP``,
+  ``_ASYNC`` and ``_RESUME`` (periodic checkpoints and restart from the
+  last good one, ``module/checkpointing.py``), ``MXTPU_RESTART_MAX`` and
+  ``_BACKOFF`` (``module/resilient_fit.py``, ``train_supervisor.py``),
+  ``MXTPU_FAULT_INJECT`` and ``MXTPU_FAULT_HOST`` (:mod:`.faults`),
+  ``MXTPU_SUPERVISOR_LIVENESS`` (``train_supervisor.py``);
+- the training-health planes: ``MXTPU_HEALTH``, ``_ACTION``, ``_K`` and
+  ``_WINDOW`` (``telemetry/health.py``), ``MXTPU_DYNAMICS`` and
+  ``MXTPU_SCALARS_EVERY``, its publication cadence
+  (``telemetry/dynamics.py``);
+- ``MXTPU_SHARDED_UPDATE`` and ``MXTPU_GRAD_COMPRESS``: paths of the JAX
+  package's ``Module.fit`` that the port does not have yet (ROADMAP.md §1
+  item 11); set, each makes fit, score and predict raise
+  NotImplementedError (``module/base_module.py``).
 
 A flag may name aliases (the reference's ``MXNET_*`` spellings), read when
 the flag's own name is unset.
@@ -204,21 +212,92 @@ flags.declare('MXTPU_FUSED_DONATE', bool, True,
               'each parameter and state to the new tensor its update op '
               'returns, and the old one goes back to the caching allocator '
               'once nothing holds it; the flag changes nothing in the port')
-# The JAX package's flags for paths of its fit and eval that the port does
-# not have yet. Set, each makes Module.fit, score and predict raise
-# NotImplementedError naming where it waits (module/base_module.py).
+# The resilience tier and the training-health planes, with the JAX
+# package's names and defaults.
 flags.declare('MXTPU_CKPT_DIR', str, '',
-              'Declared for the JAX package\'s periodic training '
-              'checkpoints; setting it raises here')
+              'Root directory of the periodic training checkpoints '
+              '(module/checkpointing.py over parallel/checkpoint.py): one '
+              'directory a saved step, committed by an atomic rename, and the '
+              'last-good pointer. Empty (default) = checkpointing off')
+flags.declare('MXTPU_CKPT_EVERY', int, 0,
+              'Save a training checkpoint every N trained steps (at window '
+              'boundaries on the fused fit): parameters, aux states, '
+              'optimizer states and update counts, the RNG streams, the '
+              'epoch/step cursor and the metric\'s sums. The copy to the host '
+              'and the write run off the step loop. 0 (default) = off '
+              '(MXTPU_CKPT_DIR must also be set)', min_value=0)
+flags.declare('MXTPU_CKPT_KEEP', int, 3,
+              'How many checkpoint steps to keep; older steps are deleted as '
+              'new ones commit', min_value=1)
+flags.declare('MXTPU_CKPT_ASYNC', bool, True,
+              'Write checkpoints on a background thread (the step loop only '
+              'captures device copies and moves on). If the writer dies, '
+              'saves fall back to synchronous ones, and if those fail too, '
+              'training continues without checkpoints (a warning, never a '
+              'crash). 0 saves synchronously from the start')
+flags.declare('MXTPU_CKPT_RESUME', bool, True,
+              'At fit() start, restore from the newest health-certified '
+              'checkpoint (the last-good pointer) when MXTPU_CKPT_DIR holds '
+              'one, and skip the data iterator to the restored step. 0 always '
+              'starts fresh (existing checkpoints are left alone)')
+flags.declare('MXTPU_RESTART_MAX', int, 3,
+              'Restart budget of the supervised training loops '
+              '(module/resilient_fit.py, train_supervisor.py): how many '
+              'times a failed run is restored from last-good and resumed '
+              'before the failure is re-raised', min_value=0)
+flags.declare('MXTPU_RESTART_BACKOFF', float, 2.0,
+              'Base backoff (seconds) between supervised restarts; attempt k '
+              'waits backoff * 2^(k-1), capped at 60s', min_value=0.0)
 flags.declare('MXTPU_FAULT_INJECT', str, '',
-              'Declared for the JAX package\'s fault injection; setting it '
-              'raises here')
+              "Deterministic fault injection (mxnet_tpu_torch/faults.py): "
+              "'<kind>:<step>[:<arg>]' with kind one of nan-grad, "
+              'checkpoint-corrupt, dispatch-exception, backend-probe-timeout, '
+              'slow-host, hang, host-loss, mem-hog, clock-skew: one real '
+              'fault at a deterministic training step. Empty (default) = '
+              'off: every seam is one cached-bool check')
+flags.declare('MXTPU_FAULT_HOST', int, -1,
+              'Restrict the MXTPU_FAULT_INJECT fault to the process whose '
+              'MXTPU_HOST_ID matches. -1 (default) = arm wherever the '
+              'environment reaches', min_value=-1)
+flags.declare('MXTPU_SUPERVISOR_LIVENESS', float, 0.0,
+              'train_supervisor.py\'s liveness tier: kill and relaunch a '
+              'child whose telemetry JSONL stops growing for this many '
+              'seconds. 0 (default) = off', min_value=0.0)
 flags.declare('MXTPU_HEALTH', bool, False,
-              'Declared for the JAX package\'s training-health sentinels; '
-              'setting it raises here')
+              'Training-health sentinels (telemetry/health.py, requires '
+              'MXTPU_TELEMETRY=1): per-step NaN/Inf flags and norms computed '
+              'on the step\'s device, with exact-step attribution through the '
+              'fused windows, a first-bad-layer bisect, rolling-baseline '
+              'spike detectors over step time, loss and grad-norm, and a '
+              '"run health" block in the telemetry summary. Off = no-op')
+flags.declare('MXTPU_HEALTH_ACTION', str, 'warn',
+              "What a non-finite incident does: 'warn' logs it (rate-"
+              "limited), 'record' only appends the health JSONL record, "
+              "'raise' raises telemetry.health.TrainingHealthError with the "
+              'diagnostic (step, window step, first bad layer) attached. '
+              'Spike anomalies never raise',
+              choices={'warn', 'record', 'raise'})
+flags.declare('MXTPU_HEALTH_K', float, 8.0,
+              'Spike threshold of the health anomaly detectors: an '
+              'observation more than K robust deviations (MAD) from the '
+              'rolling median is an anomaly', min_value=1.0)
+flags.declare('MXTPU_HEALTH_WINDOW', int, 64,
+              'Trailing-window length (observations) of the health anomaly '
+              "detectors' rolling median/MAD baseline", min_value=4)
 flags.declare('MXTPU_DYNAMICS', bool, False,
-              'Declared for the JAX package\'s per-layer training dynamics; '
-              'setting it raises here')
+              'Per-layer training dynamics (telemetry/dynamics.py, requires '
+              'MXTPU_TELEMETRY=1): per-parameter gradient norm, parameter '
+              'norm and update ratio, and an activation zero-fraction per '
+              'graph output, computed on the step\'s device and brought home '
+              'in the window\'s existing fetch')
+flags.declare('MXTPU_SCALARS_EVERY', int, 25,
+              'Cadence (trained steps) at which the dynamics plane publishes '
+              'its per-layer gauges and JSONL record (the JAX package\'s run '
+              'ledger shares it). 0 = the plane\'s default of 25',
+              min_value=0)
+# The JAX package's flags for paths of its fit that the port does not have
+# yet. Set, each makes Module.fit, score and predict raise
+# NotImplementedError naming where it waits (module/base_module.py).
 flags.declare('MXTPU_SHARDED_UPDATE', bool, True,
               'Declared for the JAX package\'s sharded weight update in its '
               'SPMD fit window (on by default there, where it engages only '

@@ -31,8 +31,13 @@ matmul results with ``dots``. The gradients are the same either way.
 ``grad_req`` write/add/null, the outputs and the arg/grad/aux/output
 dicts, ``copy_params_from``, ``reshape``, ``set_monitor_callback``,
 ``partial_forward`` (one op node a call) and ``first_nonfinite_node`` (the
-first NaN/Inf value of a replay). A training forward keeps its graph for
-the backward that follows it (with a monitor too: the JAX package's staged
+first NaN/Inf value of a replay). With the health or dynamics plane on
+(``MXTPU_HEALTH``, ``MXTPU_DYNAMICS``) a backward also computes the step's
+sentinel vectors on the device from its gradients and weights and checks
+them (``telemetry.health.note_step``, the bisect on a non-finite flag,
+before the optimizer's update runs); the ``executor`` seam of fault
+injection sits at the backward's start. A training forward keeps its graph
+for the backward that follows it (with a monitor too: the JAX package's staged
 backward runs the forward again under a fresh key, ROADMAP.md §3); a
 backward without one runs the forward first. Forward and backward are the
 ``executor.forward`` and ``executor.backward`` telemetry spans (host time:
@@ -43,6 +48,7 @@ import functools
 
 import torch
 
+from . import faults as _faults
 from . import random as _random
 from . import telemetry as _tele
 from .base import MXNetError, np_dtype
@@ -368,6 +374,10 @@ class Executor:
     def _backward_impl(self, out_grads, is_train):
         if not self._grad_names:
             return
+        if _faults.enabled():
+            # the dispatch-exception seam: the per-batch loop's backward is
+            # about to train one step
+            _faults.maybe_raise('executor')
         if self._pending is None:
             self._pending = self._run_graph(is_train, True)
         outs, wrt = self._pending
@@ -388,16 +398,40 @@ class Executor:
         grads = iter(torch.autograd.grad(
             [o for o, _ in pairs], leaves, [h for _, h in pairs],
             allow_unused=True) if pairs and leaves else [None] * len(leaves))
+        health_on = _tele.health.enabled()
+        dyn_on = _tele.dynamics.enabled()
+        step_grads = []
         for name, w in zip(self._grad_names, wrt):
             dst = self.grad_dict[name]
             g = next(grads) if w is not None else None
             if g is None:
                 g = torch.zeros_like(dst._data)
             g = g.to(dst._data.device, dst._data.dtype)
+            step_grads.append(g)
             if self._grad_req[name] == 'add':
                 dst._data = dst._data + g
             else:
                 dst._data = g
+        if health_on or dyn_on:
+            self._check_step(outs, step_grads, health_on, dyn_on)
+
+    def _check_step(self, outs, grads, health_on, dyn_on):
+        """The sentinels of one per-batch step: the vectors are computed on
+        the device from this backward's gradients and the weights it ran
+        with, then copied to the host and checked (the per-batch loop's one
+        added sync; it synchronises a batch for its metric anyway). On a
+        non-finite flag the offending batch is still bound, so the bisect
+        replays it directly."""
+        params = [self.arg_dict[n]._data for n in self._grad_names]
+        outs = [o.detach() for o in outs]
+        if health_on:
+            _tele.health.note_step(
+                _tele.health.step_stats(outs, grads=grads, params=params),
+                source='executor', bisect=self.first_nonfinite_node)
+        if dyn_on:
+            _tele.dynamics.note_step(
+                _tele.dynamics.step_stats(outs, grads, params),
+                self._grad_names, self._symbol.list_outputs())
 
     # -- the staged per-node path: group2ctx, monitor, stepping, bisect ---
     def _use_staged(self):
@@ -499,7 +533,7 @@ class Executor:
         itself. ``overrides`` maps variable names to values (NDArrays,
         tensors or numpy) that replace the bound ones for the replay. The
         monitor is not called; nothing is written back."""
-        from .monitor import has_nonfinite
+        from .telemetry.health import has_nonfinite
         prog = self._prog
         overrides = overrides or {}
 

@@ -11,7 +11,8 @@ the optimizer states save and load through it. ``row_sparse_pull`` copies
 only the rows ``row_ids`` names: a row_sparse stored value is retained to
 them, a dense one gives a row_sparse array of those rows, and a dense
 target takes that array densified (zero elsewhere). A pushed sparse value
-is lowered to dense before the sum. With telemetry on, push
+is lowered to dense before the sum. A push is fault injection's
+``kvstore`` seam (``MXTPU_FAULT_INJECT``). With telemetry on, push
 and pull are the ``kvstore.push`` and ``kvstore.pull`` spans, and the
 bytes of their values count in ``kvstore.push_bytes`` and
 ``kvstore.pull_bytes``.
@@ -23,6 +24,7 @@ NotImplementedError (ROADMAP.md §1 item 11).
 """
 import torch
 
+from . import faults as _faults
 from . import optimizer as opt
 from . import telemetry as _tele
 from .base import MXNetError
@@ -66,6 +68,10 @@ class KVStore:
         """Sum each key's values; run the updater on the stored value with
         the sum, or store the sum."""
         with _tele.span('kvstore.push', 'kvstore'):
+            if _faults.enabled():
+                # the dispatch-exception seam: the gradient push that would
+                # train the current step
+                _faults.maybe_raise('kvstore')
             keys, values = _key_value(key, value)
             if _tele.enabled():
                 _tele_bytes('kvstore.push_bytes', values)

@@ -23,17 +23,26 @@ per-batch eval's ``eval.dispatch``, ``eval.metric`` and ``eval.fetch``
 spans, the ``eval.batches`` counter and the ``eval_samples_per_sec``
 gauge. The watchdog is suspended as fit and each eval pass end.
 
-The JAX package's fit also carries seams for checkpoints, fault injection,
-training health and dynamics, the run ledger, cluster aggregation and the
-sharded or compressed update. None of these is ported, and a flag that
-would turn one of them on raises NotImplementedError naming its ROADMAP.md
-item (:func:`_check_unported_flags`).
+The resilience tier rides the same loops, as in the JAX package: the
+periodic checkpoints and restart from the last good one
+(``module/checkpointing.py``, ``MXTPU_CKPT_*``: built before the first
+epoch, which may restore; each trained step noted; a final save at the
+end, and a drain and certification when fit dies), the fault-injection
+seams (:mod:`..faults`, ``MXTPU_FAULT_INJECT``: the batch draw and the
+step counter here, the dispatch seams in the executor, the window and the
+kvstore) and the health and dynamics sentinels (``MXTPU_HEALTH``,
+``MXTPU_DYNAMICS``: each batch's index published for the executor's
+incidents, and the step time). The JAX package's run ledger, cluster
+aggregation and sharded or compressed update are not ported; a flag that
+would turn the last two on raises NotImplementedError naming its
+ROADMAP.md item (:func:`_check_unported_flags`).
 """
 import logging
 import os
 import time
 import warnings
 
+from .. import faults as _faults
 from .. import metric as metric_mod
 from .. import ndarray as nd
 from .. import profiler as _profiler
@@ -48,14 +57,6 @@ __all__ = ['BaseModule']
 # flags of the JAX package's fit and eval whose paths are not ported, and
 # where each waits
 _UNPORTED_FLAGS = (
-    ('MXTPU_CKPT_DIR', 'periodic training checkpoints '
-     '(module/checkpointing.py)', 'ROADMAP.md §1 item 12'),
-    ('MXTPU_FAULT_INJECT', 'fault injection (faults.py)',
-     'ROADMAP.md §1 item 12'),
-    ('MXTPU_HEALTH', 'the training-health sentinels (telemetry/health.py)',
-     'ROADMAP.md §1 item 13'),
-    ('MXTPU_DYNAMICS', 'the per-layer training dynamics '
-     '(telemetry/dynamics.py)', 'ROADMAP.md §1 item 13'),
     ('MXTPU_SHARDED_UPDATE', 'the sharded weight update of the SPMD fit '
      'window (fused_fit.py)', 'ROADMAP.md §1 item 11'),
     ('MXTPU_GRAD_COMPRESS', 'quantized gradient collectives '
@@ -297,6 +298,16 @@ class BaseModule:
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
 
+        # the resilience tier (module/checkpointing.py): periodic
+        # checkpoints and the restore from the last good one, built from
+        # the MXTPU_CKPT_* flags before the first epoch. Flags off = None
+        from .checkpointing import TrainCheckpointer
+        ckpt = TrainCheckpointer.for_fit(self, eval_metric,
+                                         logger=self.logger)
+        # fault injection (faults.py): one cached bool; every seam below is
+        # dead code while the flag is unset
+        faults_on = _faults.enabled()
+
         # the fused window: W steps a host call and one fetch of the metric
         # a window, where the module, optimizer and metric allow it
         # (module/fused_fit.py)
@@ -306,31 +317,56 @@ class BaseModule:
             fused = FusedFitLoop.build_cached(self, eval_metric,
                                               logger=self.logger)
 
-        # one cached bool each: the watchdog's progress marks and the step
-        # timeline's step count (its phases ride the spans below)
+        # one cached bool each: the watchdog's progress marks, the step
+        # timeline's step count (its phases ride the spans below), and the
+        # health and dynamics planes (the sentinels ride the executor's
+        # backward; here the batch's index and the step time)
         wd_on = _tele.watchdog.enabled()
         tl_on = _tele.timeline.enabled()
+        health_on = _tele.health.enabled()
+        dyn_on = _tele.dynamics.enabled()
         try:
             for epoch in range(begin_epoch, num_epoch):
                 tic = time.time()
                 eval_metric.reset()
+                if ckpt is not None and not ckpt.begin_epoch(
+                        epoch, eval_metric, train_data):
+                    # resumed past this epoch: skip it without touching the
+                    # data or running its eval
+                    continue
                 if fused is not None:
                     fused.run_epoch(train_data, eval_metric, epoch,
-                                    batch_end_callback)
+                                    batch_end_callback, ckpt=ckpt)
                     self._fit_epoch_end(epoch, eval_metric, tic,
                                         epoch_end_callback, eval_data,
                                         validation_metric, eval_end_callback,
                                         eval_batch_end_callback)
                     train_data.reset()
                     continue
-                nbatch = 0
+                # a resumed epoch's first batch IS batch r_step
+                nbatch = ckpt.epoch_nbatch_base if ckpt is not None else 0
                 data_iter = iter(train_data)
                 end_of_batch = False
-                next_data_batch = next(data_iter)
+                next_data_batch = None
+                try:
+                    next_data_batch = next(data_iter)
+                except StopIteration:
+                    if ckpt is None or not ckpt.allow_empty_epoch(epoch):
+                        raise
+                    # the restore point was this epoch's boundary: the
+                    # skip consumed every batch
+                    end_of_batch = True
                 while not end_of_batch:
                     data_batch = next_data_batch
+                    if faults_on:
+                        # the nan-grad draw seam (batches in step order)
+                        data_batch = _faults.maybe_poison_batch(data_batch)
                     if monitor is not None:
                         monitor.tic()
+                    t_step = time.time() if health_on else 0.0
+                    if health_on or dyn_on:
+                        # the executor's incidents carry the batch's index
+                        _tele.health.note_batch(nbatch)
                     # the batch's host time by part (each a no-op unless
                     # telemetry is on or the profiler runs)
                     with _tele.span('fit.batch', 'fit'):
@@ -359,6 +395,14 @@ class BaseModule:
                             with _tele.span('fit.callback', 'fit'):
                                 for callback in _as_list(batch_end_callback):
                                     callback(batch_end_params)
+                    if health_on:
+                        _tele.health.note_step_time(time.time() - t_step)
+                    if ckpt is not None:
+                        # the sentinel check ran in the backward: health
+                        # trails by nothing (lag=0)
+                        ckpt.note_steps(1)
+                    if faults_on:
+                        _faults.note_steps(1, device=self._fault_device())
                     if tl_on:
                         _tele.timeline.note_step(1)
                     nbatch += 1
@@ -368,17 +412,43 @@ class BaseModule:
                                     validation_metric, eval_end_callback,
                                     eval_batch_end_callback)
                 train_data.reset()
-        finally:
+        except BaseException as e:
+            if ckpt is not None:
+                # the run is dying with a save possibly in flight: drain
+                # and certify now, while the interpreter is whole, so that
+                # a relaunch has something to restore (idempotent:
+                # resilient_fit's call after this finds nothing pending)
+                diag = getattr(e, 'diagnostic', None)
+                try:
+                    ckpt.handle_failure(dict(diag) if diag else None)
+                except Exception:  # noqa: BLE001 — never mask the failure
+                    pass
             # fit is over, however it ended: stop expecting marks, so that
             # host work after training cannot trip the watchdog
             if wd_on:
                 _tele.watchdog.suspend()
+            raise
+        if ckpt is not None:
+            # the final save, the writer drained, last-good certified (its
+            # commit is a progress mark: suspend after it)
+            ckpt.finish()
+        if wd_on:
+            _tele.watchdog.suspend()
+
+    def _fault_device(self):
+        """The torch device of the module's batches (mem-hog's leak goes
+        there)."""
+        execs = getattr(getattr(self, '_exec_group', None), 'execs', None)
+        return execs[0]._ctx.torch_device() if execs else None
 
     def _fit_epoch_end(self, epoch, eval_metric, tic, epoch_end_callback,
                        eval_data, validation_metric, eval_end_callback,
                        eval_batch_end_callback):
         """The metric's log line, the parameters synced from the devices,
         the epoch-end callbacks and the validation score."""
+        # the batch loop is over: clear the executor incidents' step
+        # context (one attribute store, safe while health is off)
+        _tele.health.note_batch(None)
         _tele.counter('fit.epochs').inc()
         name_vals = eval_metric.get_name_value()
         for name, val in name_vals:

@@ -38,8 +38,15 @@ window's ``fused_eval.build``, ``fused_eval.draw``, ``fused_eval.put``,
 ``fused_eval.windows`` and ``eval.batches`` counters, the
 ``fused_eval.steps_per_call`` gauge and the watchdog's
 ``fused_eval.window`` mark; the tail batches take the per-batch loop's
-``eval.*`` spans. The JAX module's health sentinels are not ported
-(ROADMAP.md §1 item 13).
+``eval.*`` spans.
+
+With the health sentinels on (``MXTPU_HEALTH``) each forward also computes
+its row on the card (``telemetry.health.step_stats`` of the outputs: the
+per-output finite flags; the norms are zero without gradients). The
+window's (W, k) rows ride its one fetch (columns of the statistics matrix;
+in stacked-output mode one more copy) and are checked with
+``has_grads=False``, the bad step bisected on its draw-time batch in
+prediction, as in the JAX loop.
 """
 import logging
 
@@ -84,6 +91,9 @@ class FusedEvalLoop:
         self._pipe = WindowPipeline(window,
                                     device_fn=lambda: e._ctx.torch_device(),
                                     span_prefix='fused_eval')
+        # the sentinels, decided at build (build_cached keys reuse on them)
+        self._health_on = _tele.health.enabled()
+        self._hk = _tele.health.N_FIXED + len(module._symbol.list_outputs())
         self.windows = 0
         self.fetches = 0
 
@@ -111,7 +121,8 @@ class FusedEvalLoop:
                 from .fused_fit import FusedFitLoop
                 msig = FusedFitLoop._metric_sig(eval_metric)
             if msig is not None:
-                sig = (id(execs[0]), _eval_window(), msig)
+                sig = (id(execs[0]), _eval_window(), msig,
+                       bool(_tele.health.enabled()))
         cache = module.__dict__.get('_fused_eval_cache')
         if sig is None:
             # unsignable (several executors, a staged executor, or a metric
@@ -206,9 +217,10 @@ class FusedEvalLoop:
                        if i not in io_pos]
         stat_fns = self.stat_fns
         W = self.window
+        health_on = self._health_on
 
         def window_fn(fixed, aux, data_stack, label_stack, seeds):
-            ys = []
+            ys, rows = [], []
             with torch.no_grad():
                 for j in range(W):
                     datas = tuple(d[j] for d in data_stack)
@@ -221,15 +233,22 @@ class FusedEvalLoop:
                     for li, ai in fed_pairs:
                         full[ai] = labels[li]
                     outs, _ = run(tuple(full), aux, seeds[j], False)
+                    if health_on:
+                        rows.append(_tele.health.step_stats(outs))
                     if stat_fns is not None:
                         # every metric's statistics in one vector a step
                         ys.append(torch.stack([v for fn in stat_fns
                                                for v in fn(outs, labels)]))
                     else:
                         ys.append(outs)
+                hmat = torch.stack(rows) if rows else None
                 if stat_fns is not None:
-                    return torch.stack(ys)
-                return tuple(torch.stack(o) for o in zip(*ys))
+                    ys = torch.stack(ys)
+                    if hmat is not None:
+                        # the rows ride the statistics' one copy
+                        return torch.cat([ys, hmat], dim=1), None
+                    return ys, None
+                return tuple(torch.stack(o) for o in zip(*ys)), hmat
 
         return window_fn, fixed_names
 
@@ -310,15 +329,30 @@ class FusedEvalLoop:
         for snap in snaps:
             yield ('tail', self._rebuild_batch(snap), snap)
 
-    def _fetch(self, pieces):
+    def _fetch(self, pieces, win_snaps, nbatch):
         """One copy of a window's results to the host: the statistics'
-        (W, 2 * metrics) array, or each output's stack."""
+        (W, 2 * metrics) array, or each output's stack; then the sentinel
+        rows' check (the bisect on the bad step's batch, in prediction)."""
+        ys, hmat = pieces
         with _tele.span('fused_eval.fetch', 'fused_eval'):
             if self.stat_fns is not None:
                 self.fetches += 1
-                return pieces.cpu().numpy()
-            self.fetches += len(pieces)
-            return [o.cpu() for o in pieces]
+                host = ys.cpu().numpy()
+                if self._health_on:
+                    host, hmat = host[:, :-self._hk], host[:, -self._hk:]
+            else:
+                self.fetches += len(ys) + (hmat is not None)
+                host = [o.cpu() for o in ys]
+                if hmat is not None:
+                    hmat = hmat.cpu().numpy()
+        if hmat is not None:
+            _tele.health.note_window(
+                hmat, source='fused_eval', nbatch_base=nbatch,
+                has_grads=False,
+                bisect=_wp.window_bisect(
+                    self._exec, list(self.module._data_names),
+                    list(self.module._label_names), win_snaps, False))
+        return host
 
     # -- score -------------------------------------------------------------
     def run_score(self, eval_data, eval_metric, num_batch,
@@ -349,7 +383,7 @@ class FusedEvalLoop:
                 fire_callback(nbatch)
                 nbatch += 1
                 continue
-            host = self._fetch(a)
+            host = self._fetch(a, b, nbatch)
             for i, (_, ls, _, _) in enumerate(b):
                 if self.stat_fns is not None:
                     for j, child in enumerate(self.children):
@@ -386,7 +420,7 @@ class FusedEvalLoop:
                 yield outputs, nbatch, a
                 nbatch += 1
                 continue
-            outs_host = self._fetch(a)
+            outs_host = self._fetch(a, b, nbatch)
             for i, snap in enumerate(b):
                 pad = snap[2] or 0
                 outputs = [host_wrap(o[i][0:o[i].shape[0] - pad])

@@ -66,11 +66,23 @@ The spans time the host: ``fused_fit.dispatch`` is the window's launches,
 and the device's time lands in the next ``fused_fit.fetch`` that waits
 for it.
 
+The resilience tier, as in the JAX loop: with ``MXTPU_HEALTH`` (and
+``MXTPU_DYNAMICS``) each step also computes its sentinel row (and its
+per-layer dynamics row) on the card; the window stacks them into (W, k)
+matrices that ride the window's one fetch (concatenated onto the metric's
+statistics, so the fetch count is unchanged; in host-metric mode they are
+one more copy a window) and are checked one window late, when the window
+is fetched, with the bad step bisected through
+``Executor.first_nonfinite_node`` on that step's draw-time batch (kept
+with the window's results until its rows are checked). The checkpointer
+(``ckpt``) is noted once a window (the window's rows applied first when a
+save is due, so that its capture covers them); the fault seams are the
+draw (nan-grad, written into the window's own slot) and the dispatch.
+
 Not ported: the sharded (ZeRO) update and the compressed gradients with
-their ``update.*`` and ``comm.*`` gauges (ROADMAP.md §1 item 11), faults
-and the checkpointer hook (item 12), the health and dynamics sentinels and
-the run ledger (item 13). Without a mesh the JAX loop's ``_prepare_tail``
-has nothing to do, and it is left out.
+their ``update.*`` and ``comm.*`` gauges (ROADMAP.md §1 item 11) and the
+run ledger (item 13). Without a mesh the JAX loop's ``_prepare_tail`` has
+nothing to do, and it is left out.
 
 Flags: MXTPU_FUSED_FIT=0 turns the window off; MXTPU_FIT_STEPS_PER_CALL
 sets W (4 by default); MXTPU_FUSED_FIT_PREFETCH=0 uploads each window in
@@ -84,6 +96,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import faults as _faults
 from .. import metric as metric_mod
 from .. import optimizer as opt_mod
 from .. import profiler as _profiler
@@ -316,6 +329,10 @@ class FusedFitLoop:
         self._upd_keys = updater_keys(module, self._grad_names)
         ensure_opt_states(module, self._grad_names, self._upd_keys,
                           e.arg_dict)
+        # the sentinels, decided at build (build_cached keys reuse on them)
+        self._health_on = _tele.health.enabled()
+        self._dyn_on = _tele.dynamics.enabled()
+        self._out_names = list(module._symbol.list_outputs())
         # the deferred augment's function of each iterator, while it
         # lives, and the one of the epoch that runs (None: no defer)
         self._defer_fns = weakref.WeakKeyDictionary()
@@ -366,7 +383,10 @@ class FusedFitLoop:
                        bool(module._update_on_kvstore),
                        getattr(module._kvstore, 'type', None),
                        _window_size(), str(_flag('MXTPU_BACKWARD_DO_MIRROR')),
-                       msig)
+                       msig,
+                       # the sentinels are part of the window's steps
+                       bool(_tele.health.enabled()),
+                       bool(_tele.dynamics.enabled()))
         cached = module.__dict__.get('_fused_fit_cache')
         if cached is not None and sig is not None and cached[0] == sig:
             loop = cached[1]
@@ -492,6 +512,7 @@ class FusedFitLoop:
         n_args = len(arg_pos)
         W = self.window
         defer_fn = self._defer_fn
+        health_on, dyn_on = self._health_on, self._dyn_on
 
         def step(params, states, aux, gaccs, datas, labels, seed, lr_row,
                  wd_row, aug_seed):
@@ -561,24 +582,42 @@ class FusedFitLoop:
                                       for v in fn(outs, labels)])
                 else:
                     ys = outs
+                # the sentinel rows, on the card beside the step's results
+                sentinels = []
+                if health_on or dyn_on:
+                    old = [params[i] for i in grad_carry_idx]
+                    new = [new_params[i] for i in grad_carry_idx]
+                    if health_on:
+                        sentinels.append(_tele.health.step_stats(
+                            outs, grads=grads, params=old, new_params=new))
+                    if dyn_on:
+                        sentinels.append(_tele.dynamics.step_stats(
+                            outs, grads, old, new_params=new))
             return tuple(new_params), tuple(new_states), tuple(new_aux), \
-                gaccs, ys
+                gaccs, (ys, sentinels)
 
         def window_fn(params, states, aux, gaccs, data_stack, label_stack,
                       seeds, lr, wd, aug_seeds=None):
-            ys = []
+            ys, rows = [], []
             for j in range(W):
-                params, states, aux, gaccs, y = step(
+                params, states, aux, gaccs, (y, r) = step(
                     params, states, aux, gaccs,
                     tuple(d[j] for d in data_stack),
                     tuple(l[j] for l in label_stack), seeds[j], lr[j], wd[j],
                     aug_seeds[j] if aug_seeds is not None else None)
                 ys.append(y)
+                rows.append(r)
+            # the (W, k) sentinel matrices, health's then dynamics'
+            sentinels = [torch.stack(m) for m in zip(*rows)]
             if stat_fns is not None:
                 ys = torch.stack(ys)
+                if sentinels:
+                    # one matrix, so that they ride the statistics' one copy
+                    ys = torch.cat([ys] + sentinels, dim=1)
+                    sentinels = []
             else:
                 ys = tuple(torch.stack(o) for o in zip(*ys))
-            return params, states, aux, gaccs, ys
+            return params, states, aux, gaccs, (ys, sentinels)
 
         return window_fn
 
@@ -612,34 +651,95 @@ class FusedFitLoop:
                 e.grad_dict[n]._data = v
         m._params_dirty = True
 
-    def run_epoch(self, train_data, eval_metric, epoch, batch_end_callback):
+    def _split_rows(self, ys, extra):
+        """(stats, health rows, dynamics rows) of a fetched window: in
+        stats mode the rows are the statistics matrix's extra columns,
+        else ``extra``, the result's second part."""
+        hrows = drows = None
+        if self.stat_fns is not None and (self._health_on or self._dyn_on):
+            n = 2 * len(self.children)
+            hk = _tele.health.N_FIXED + len(self._out_names)
+            cols = ys[:, n:]
+            ys = ys[:, :n]
+            if self._health_on:
+                hrows, cols = cols[:, :hk], cols[:, hk:]
+            if self._dyn_on:
+                drows = cols
+        else:
+            extra = list(extra)
+            if self._health_on:
+                hrows = extra.pop(0)
+            if self._dyn_on:
+                drows = extra.pop(0)
+        return ys, hrows, drows
+
+    def _bisect(self, win_snaps):
+        """The first-bad-layer replay of a window step's draw-time batch,
+        or None without the batches."""
+        if win_snaps is None:
+            return None
+        dev = self._exec._ctx.torch_device()
+        return _wp.window_bisect(
+            self._exec, list(self.module._data_names),
+            list(self.module._label_names), win_snaps, True,
+            defer_fn=self._defer_fn, device=dev)
+
+    def run_epoch(self, train_data, eval_metric, epoch, batch_end_callback,
+                  ckpt=None):
         """Run one epoch; returns the number of batches consumed. The
         tail batches (fewer than W) run through the per-batch loop: the
-        state is written back after every window, so the two interleave."""
+        state is written back after every window, so the two interleave.
+        ``ckpt`` is fit's TrainCheckpointer, noted once a window."""
         from ..model import BatchEndParam
         from .base_module import _as_list
 
-        def apply_stats(pieces, labels_w, nbatch):
-            """One copy of the window's results to the host, then each
-            batch's metric update and callbacks: the statistics' sums into
-            the metric's children, or (host-metric mode) the metric's own
-            update on each step's outputs against the draw-time labels."""
+        # the children that carry a batch's loss: the CrossEntropy
+        # statistics feed the health plane's loss detector
+        ce_idx = [j for j, c in enumerate(self.children or ())
+                  if type(c) is metric_mod.CrossEntropy] \
+            if self.stat_fns is not None and self._health_on else []
+
+        def apply_stats(pieces, labels_w, nbatch, win_snaps=None):
+            """One copy of the window's results to the host, then the
+            sentinel rows' check and each batch's metric update and
+            callbacks: the statistics' sums into the metric's children, or
+            (host-metric mode) the metric's own update on each step's
+            outputs against the draw-time labels."""
             with _tele.span('fused_fit.fetch', 'fused_fit'):
                 # the window's one copy to the host: the host waits here
                 # for the window's device work
+                ys, extra = pieces
                 if self.stat_fns is not None:
-                    host = pieces.cpu().numpy()     # (W, 2 * n_metrics)
+                    # (W, 2 * n_metrics [+ sentinel columns])
+                    host = ys.cpu().numpy()
                     self.fetches += 1
+                    host, hrows, drows = self._split_rows(host, extra)
                     steps = host.shape[0]
                 else:
-                    outs_host = [o.cpu() for o in pieces]   # (W, ...)
-                    self.fetches += len(outs_host)
+                    outs_host = [o.cpu() for o in ys]   # (W, ...)
+                    _, hrows, drows = self._split_rows(
+                        None, [r.cpu().numpy() for r in extra])
+                    self.fetches += len(outs_host) + len(extra)
                     steps = outs_host[0].shape[0]
+            if hrows is not None:
+                # a mid-window NaN: its exact step, and (at the first
+                # incident) the bisect on that step's batch; action=raise
+                # surfaces here, before the metric sees garbage
+                _tele.health.note_window(
+                    hrows, source='fused_fit', nbatch_base=nbatch,
+                    bisect=self._bisect(win_snaps))
+            if drows is not None:
+                _tele.dynamics.note_window(
+                    drows, self._grad_names, self._out_names,
+                    nbatch_base=nbatch)
             for i in range(steps):
                 if self.stat_fns is not None:
                     for j, child in enumerate(self.children):
                         child.sum_metric += float(host[i, 2 * j])
                         child.num_inst += int(host[i, 2 * j + 1])
+                    for j in ce_idx:
+                        _tele.health.note_loss(
+                            host[i, 2 * j] / max(host[i, 2 * j + 1], 1.0))
                 else:
                     eval_metric.update(labels_w[i],
                                        [host_wrap(o[i]) for o in outs_host])
@@ -674,7 +774,7 @@ class FusedFitLoop:
         try:
             return self._run_epoch_inner(train_data, eval_metric, epoch,
                                          batch_end_callback, apply_stats,
-                                         defer_sig)
+                                         defer_sig, ckpt)
         finally:
             if defer_switch is not None:
                 defer_switch(False)
@@ -684,15 +784,20 @@ class FusedFitLoop:
             self._pipe.drop_cache()
 
     def _run_epoch_inner(self, train_data, eval_metric, epoch,
-                         batch_end_callback, apply_stats, defer_sig):
+                         batch_end_callback, apply_stats, defer_sig,
+                         ckpt=None):
         from ..io import DataBatch
         from ..model import BatchEndParam
         from .base_module import _as_list
         m = self.module
         _tele.gauge('fused_fit.steps_per_call').set(self.window)
         tl_on = _tele.timeline.enabled()
-        nbatch = 0
-        pending = None
+        faults_on = _faults.enabled()
+        health_on = self._health_on
+        dev = self._exec._ctx.torch_device()
+        # a resumed epoch's first batch IS batch r_step of the epoch
+        nbatch = ckpt.epoch_nbatch_base if ckpt is not None else 0
+        pending = pending_snaps = None
         it = iter(train_data)
         # MXTPU_FUSED_FIT_TIMING=1: the epoch's host stages; wall time
         # beyond them is device time the host did not hide
@@ -705,12 +810,25 @@ class FusedFitLoop:
 
         def collect():
             t = clk()
-            got = pipe.collect(it)
+            snaps, drawn = pipe.collect(it)
+            if faults_on:
+                # the nan-grad draw seam: training batches counted in step
+                # order, the armed one poisoned in its slot before the
+                # upload; a poisoned window never shares the upload cache
+                poisoned = [_faults.maybe_poison_snap(sn) for sn in snaps]
+                if any(a is not b for a, b in zip(poisoned, snaps)):
+                    drawn[1].append((object(), 0))
+                snaps = poisoned
             tm['draw'] += clk() - t
-            return got
+            return snaps, drawn
 
+        t_win = clk()   # the window-edge wall clock (health's step time)
         snaps, drawn = collect()
         if not snaps:
+            if ckpt is not None and ckpt.allow_empty_epoch(epoch):
+                # resumed exactly at this epoch's boundary: the skip
+                # consumed every batch, the epoch is trained
+                return nbatch
             # exhausted before the first batch: the per-batch loop's first
             # next() raises here, so the window does too (a score or
             # predict pass leaves the iterator drained until reset())
@@ -740,6 +858,10 @@ class FusedFitLoop:
                 if self.stat_fns is None:
                     labels_snap = [[NDArray(l) for l in ls]
                                    for _, ls, _, _ in snaps]
+                if faults_on:
+                    # the dispatch-exception seam: before the window that
+                    # holds the armed step is issued
+                    _faults.maybe_raise('dispatch', upcoming=self.window)
                 params, states, aux, gaccs = self._snapshot()
                 # the optimizer's host work runs before the wait for the
                 # upload, which it hides under
@@ -781,14 +903,42 @@ class FusedFitLoop:
                 # the device runs this window while the host draws the next
                 # one (its upload starts on the side thread) and fetches
                 # the previous window's results: callbacks run one window
-                # late, with unchanged values and cadence
+                # late, with unchanged values and cadence. With the
+                # sentinels on, this window's batches stay with its results
+                # until its rows are checked (the bisect replays them)
+                win_snaps = snaps if health_on else None
                 snaps, drawn = collect()
                 fut = pipe.start_put(snaps, drawn, pool) \
                     if len(snaps) == self.window else None
                 t = clk()
                 if pending is not None:
-                    nbatch = apply_stats(pending[0], pending[1], nbatch)
+                    nbatch = apply_stats(*pending, nbatch=nbatch,
+                                         win_snaps=pending_snaps)
                 pending = (pieces, labels_snap)
+                pending_snaps = win_snaps
+                # one wall observation a window, window edge to window
+                # edge: wall / W is the step time
+                now = clk()
+                if health_on:
+                    _tele.health.note_step_time(now - t_win,
+                                                steps=self.window)
+                t_win = now
+                if ckpt is not None:
+                    lag = self.window
+                    if ckpt.save_due(self.window):
+                        # a save starts for THIS window: apply its results
+                        # first, so that the capture's metric covers every
+                        # step it claims (and a NaN in it raises before a
+                        # poisoned capture)
+                        nbatch = apply_stats(*pending, nbatch=nbatch,
+                                             win_snaps=pending_snaps)
+                        pending = None
+                        lag = 0
+                    # otherwise health has checked only the PREVIOUS
+                    # window's rows: certification trails by W
+                    ckpt.note_steps(self.window, lag=lag)
+                if faults_on:
+                    _faults.note_steps(self.window, device=dev)
                 if tl_on:
                     # the step timeline: a whole window of steps
                     _tele.timeline.note_step(self.window)
@@ -800,7 +950,8 @@ class FusedFitLoop:
                 WindowPipeline.drain(fut)
         t = clk()
         if pending is not None:
-            nbatch = apply_stats(pending[0], pending[1], nbatch)
+            nbatch = apply_stats(*pending, nbatch=nbatch,
+                                 win_snaps=pending_snaps)
         tm['fetch'] += clk() - t
         for ds, ls, pad, idx in snaps:
             # the tail (< W): the per-batch path, on batches rebuilt from
@@ -815,14 +966,24 @@ class FusedFitLoop:
             sb = DataBatch(data=[NDArray(d) for d in ds],
                            label=[NDArray(l) for l in ls], pad=pad,
                            index=idx)
+            if health_on or self._dyn_on:
+                # the tail runs the executor's path: its incidents carry
+                # the batch's index
+                _tele.health.note_batch(nbatch)
             m.forward_backward(sb)
             m.update()
             _tele.counter('fit.steps').inc()
             _tele.watchdog.note_progress('fit.step')
+            if faults_on:
+                _faults.note_steps(1, device=dev)
             if tl_on:
                 _tele.timeline.note_step(1)
             _profiler.note_step()
             m.update_metric(eval_metric, sb.label)
+            if ckpt is not None:
+                # after update_metric, so that a save on a tail step
+                # covers this batch; the executor checked its rows (lag 0)
+                ckpt.note_steps(1)
             self.tail_batches += 1
             if batch_end_callback is not None:
                 p = BatchEndParam(epoch=epoch, nbatch=nbatch,

@@ -34,9 +34,15 @@ here:
   torch on the outputs' device, one vector a step, so that the host
   fetches a window's statistics once.
 
-The JAX module's registered compile, mesh placements, health and
-dynamics sentinels and bisect belong to ROADMAP.md §1 items 11 and 13 and
-are not ported.
+- the first-bad-layer replay of a window step (:func:`window_bisect`),
+  which the fit and eval windows hand the health plane with a window's
+  sentinel rows. The sentinel functions themselves are the health and
+  dynamics planes' ``step_stats``, which the windows call on the card
+  when the planes are on (the JAX module's ``health_sentinel`` and
+  ``dynamics_sentinel`` pick them at build time the same way).
+
+The JAX module's registered compile and mesh placements belong to
+ROADMAP.md §1 items 11 and 13 and are not ported.
 """
 import time
 
@@ -49,7 +55,7 @@ from ..context import cpu
 from ..ndarray.ndarray import NDArray
 
 __all__ = ['WindowPipeline', 'window_size', 'plan_metric', 'host_wrap',
-           'rebind_children', 'OUT_STACK_CAP']
+           'rebind_children', 'window_bisect', 'OUT_STACK_CAP']
 
 # the fit window's host-metric mode and the eval window's stacked-output
 # mode keep W steps of outputs on the device: at most this many bytes of
@@ -65,6 +71,28 @@ def window_size(flag='MXTPU_FIT_STEPS_PER_CALL'):
     flags.reload(flag)
     n = flags.get(flag)
     return n if n > 0 else 4
+
+
+def window_bisect(executor, data_names, label_names, snaps, is_train,
+                  defer_fn=None, device=None):
+    """The first-bad-layer replay of a window's incident: returns
+    ``bisect(i)``, which replays window step ``i``'s draw-time batch node by
+    node (:meth:`~mxnet_tpu_torch.executor.Executor.first_nonfinite_node`)
+    with the current parameters. ``defer_fn`` applies the deferred device
+    augment (the fit window's raw uint8 batches) on ``device`` first, so
+    that the replay sees the graph's real input."""
+    def bisect(i):
+        ds, ls, _, _ = snaps[i]
+        if defer_fn is not None:
+            from .. import random as _random
+            from ..io import aug_generator
+            x = ds[0].to(device)
+            ds = (defer_fn(x, aug_generator(device, _random.next_seed())),) \
+                + tuple(ds[1:])
+        overrides = dict(zip(data_names, ds))
+        overrides.update(zip(label_names, ls))
+        return executor.first_nonfinite_node(overrides, is_train=is_train)
+    return bisect
 
 
 def host_wrap(t):

@@ -11,62 +11,21 @@ RMS is one reduction on the card and a scalar copy).
 
 :meth:`Monitor.nan_watch` flags NaN/Inf in every matched tensor with
 :func:`finite_report`. :func:`has_nonfinite` and :func:`finite_report` are
-the port's copies of the JAX package's host checks
-(``telemetry/health.py``; the rest of that plane is not ported), and
-:func:`has_nonfinite` also takes a tensor, which it checks where it lives
-(the executor's bisect, ``Executor.first_nonfinite_node``).
+the health plane's host checks (``telemetry/health.py``), re-exported here
+as the JAX package's monitor does; :func:`has_nonfinite` also takes a
+tensor, which it checks where it lives (the executor's bisect,
+``Executor.first_nonfinite_node``).
 """
 import logging
 import re
 from collections import namedtuple
 from math import sqrt
 
-import numpy as np
-import torch
+from .telemetry.health import has_nonfinite, finite_report
 
 __all__ = ['Monitor', 'has_nonfinite', 'finite_report']
 
 _Record = namedtuple('_Record', ['step', 'name', 'stat'])
-
-
-def _finite_mask(a):
-    """np.isfinite, through f32 for the types numpy cannot test (bf16);
-    None for a non-numeric array (always finite)."""
-    try:
-        return np.isfinite(a)
-    except TypeError:
-        try:
-            return np.isfinite(a.astype(np.float32))
-        except (TypeError, ValueError):
-            return None
-
-
-def has_nonfinite(a):
-    """True when the array holds any NaN or Inf. A tensor is tested where
-    it lives (one reduction and a one-element copy); anything else as a
-    numpy array."""
-    if isinstance(a, torch.Tensor):
-        if a.numel() == 0 or not (a.is_floating_point() or a.is_complex()):
-            return False
-        return not bool(torch.isfinite(a).all())
-    a = np.asarray(a)
-    if a.size == 0 or a.dtype.kind in 'biu?SU':
-        return False
-    mask = _finite_mask(a)
-    return mask is not None and not mask.all()
-
-
-def finite_report(a):
-    """'ok' when every element is finite, else 'nan=<n> inf=<n> of
-    <size>' (a Monitor stat string)."""
-    a = np.asarray(a)
-    if not has_nonfinite(a):
-        return 'ok'
-    if a.dtype.kind not in 'fc':
-        a = a.astype(np.float32)
-    n_nan = int(np.isnan(a).sum())
-    n_bad = int(a.size - _finite_mask(a).sum())
-    return 'nan=%d inf=%d of %d' % (n_nan, n_bad - n_nan, int(a.size))
 
 
 def _rms_stat(x):

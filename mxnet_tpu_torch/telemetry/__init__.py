@@ -28,13 +28,18 @@ the planes the training loop and the serving plane report to.
   ``flight-<reason>.jsonl`` by each incident path;
 - the hang watchdog (:mod:`.watchdog`, ``MXTPU_WATCHDOG_SECS``): a
   progress monitor fed by the fit, eval and serving loops, whose stall
-  flips /healthz to ``hung``.
+  flips /healthz to ``hung`` and, under ``MXTPU_WATCHDOG_ACTION=abort``,
+  runs its abort hooks (the checkpointer's drain) before the exit;
+- the training-health sentinels (:mod:`.health`, ``MXTPU_HEALTH``): the
+  per-step finite flags and norms of the fit loops, the first-bad-layer
+  bisect, the spike detectors and the "run health" block, which also
+  reaches /healthz and /summary;
+- the per-layer training dynamics (:mod:`.dynamics`, ``MXTPU_DYNAMICS``).
 
 Not ported: the planes bound to XLA (``xla``, ``programs``, ``roofline``,
-``memory``), the training-health planes (``health``, ``dynamics``), the
-run ledger (``ledger``), cluster aggregation and the step timeline's
-sync-round half; reaching one raises NotImplementedError naming ROADMAP.md
-§1 item 13.
+``memory``), the run ledger (``ledger``), cluster aggregation and the step
+timeline's sync-round half; reaching one raises NotImplementedError naming
+ROADMAP.md §1 item 13.
 
 Everything is OFF by default. ``MXTPU_TELEMETRY=1`` turns it on;
 ``MXTPU_TELEMETRY_PATH`` points the JSONL log (default
@@ -81,16 +86,18 @@ from . import watchdog  # noqa: F401  (public submodule)
 from . import trace  # noqa: F401  (public submodule)
 from . import slo  # noqa: F401  (public submodule)
 from . import flight  # noqa: F401  (public submodule)
+from . import health  # noqa: F401  (public submodule)
+from . import dynamics  # noqa: F401  (public submodule)
 
 __all__ = ['enabled', 'counter', 'gauge', 'histogram', 'span',
            'current_span_path', 'event', 'snapshot', 'summary',
            'write_summary', 'shutdown', 'serve', 'watchdog', 'trace', 'slo',
-           'flight', 'goodput', 'timeline', 'get_registry']
+           'flight', 'goodput', 'timeline', 'health', 'dynamics',
+           'get_registry']
 
 # the JAX package's telemetry planes that are not ported, each raising
 # where it is reached
-_UNPORTED = ('xla', 'programs', 'health', 'roofline', 'memory', 'dynamics',
-             'ledger')
+_UNPORTED = ('xla', 'programs', 'roofline', 'memory', 'ledger')
 
 
 def __getattr__(name):
@@ -290,6 +297,8 @@ def summary():
     good = goodput.snapshot_goodput() if _state.summary_written \
         else goodput.current()
     return _export.summary_table(_state.registry.snapshot(), elapsed,
+                                 health=health.snapshot_health(
+                                     input_bound=health.input_bound_pct()),
                                  goodput=good,
                                  timeline=timeline.snapshot_timeline())
 
@@ -300,6 +309,10 @@ def write_summary(log=True):
     None when telemetry is off."""
     if not enabled():
         return None
+    # the run-health roll-up: publishes the fit.input_bound_pct gauge and,
+    # with MXTPU_HEALTH=1, returns the "run health" block's input and the
+    # summary record's 'health' key
+    hsnap = health.summarize()
     elapsed = time.time() - _state.t_start
     # wall-clock attribution: publishes the goodput.* gauges and the
     # goodput JSONL record before the snapshot below, so that the gauges
@@ -312,14 +325,16 @@ def write_summary(log=True):
     if _state.sink is not None:
         rec = {'type': 'summary', 'elapsed_s': round(elapsed, 3),
                'snapshot': snap}
+        if hsnap:
+            rec['health'] = hsnap
         if gsnap:
             rec['goodput'] = gsnap
         if tsnap:
             rec['timeline'] = tsnap
         _state.sink.emit(rec)
         _state.sink.flush()
-    table = _export.summary_table(snap, elapsed, goodput=gsnap,
-                                  timeline=tsnap)
+    table = _export.summary_table(snap, elapsed, health=hsnap,
+                                  goodput=gsnap, timeline=tsnap)
     if log:
         logging.info('%s', table)
     _state.summary_written = True
@@ -364,3 +379,5 @@ def _reset_for_tests():
     flight._reset_for_tests()
     goodput._reset_for_tests()
     timeline._reset_for_tests()
+    health._reset_for_tests()
+    dynamics._reset_for_tests()

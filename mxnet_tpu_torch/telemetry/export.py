@@ -3,16 +3,17 @@ the append-only JSONL log and the human-readable summary table.
 
 The JSONL sink is the machine-readable record: one JSON object per line,
 each with a ``type`` ('start', 'span', 'event', 'trace', 'slo', 'hang',
-'flight', 'goodput', 'timeline', 'summary') and a ``t`` epoch-seconds stamp. Records buffer in
+'flight', 'goodput', 'timeline', 'health', 'anomaly', 'restart',
+'dynamics', 'summary') and a ``t`` epoch-seconds stamp. Records buffer in
 memory and flush every ``_FLUSH_EVERY`` lines or ``_FLUSH_SECS`` seconds
 (and at shutdown). ``MXTPU_TELEMETRY_MAX_MB`` caps the file.
 
 ``summary_table`` renders a registry snapshot as the end-of-run table:
 counters, gauges, the "where the time went" block (goodput), the "step
-timeline" block and histograms. The JAX table's sections of planes that
-are not ported (programs, roofline, memory, cluster, run ledger, run
-health) are left out; for the same snapshot, goodput and timeline the two
-tables are the same text.
+timeline" block, the "run health" block and histograms. The JAX table's
+sections of planes that are not ported (programs, roofline, memory,
+cluster, run ledger) are left out; for the same snapshot, goodput,
+timeline and health the two tables are the same text.
 """
 import json
 import logging
@@ -230,12 +231,56 @@ def _timeline_lines(tl):
     return lines
 
 
-def summary_table(snapshot, elapsed_s=None, goodput=None, timeline=None):
+def _health_lines(health):
+    """The "run health" block (telemetry.health.snapshot_health's dict):
+    non-finite incidents, anomaly counts, the last anomaly, restarts, hangs
+    and the input-bound share."""
+    lines = ['-- run health --']
+    n_bad = int(health.get('nonfinite_steps') or 0)
+    lines.append('  status            %s'
+                 % ('DEGRADED (%d non-finite step%s)'
+                    % (n_bad, 's' if n_bad != 1 else '')
+                    if n_bad else 'ok'))
+    incidents = health.get('incidents') or []
+    if incidents:
+        first = incidents[0]
+        desc = '%s' % first.get('source', '?')
+        if first.get('step') is not None:
+            desc += ' step %s' % first['step']
+        if first.get('window_step') is not None:
+            desc += ' (window step %d)' % first['window_step']
+        if first.get('first_bad_layer'):
+            desc += ': first non-finite symbol %s' % first['first_bad_layer']
+        lines.append('  first_incident    %s' % desc)
+    counts = health.get('anomaly_counts') or {}
+    if counts:
+        lines.append('  anomalies         %s'
+                     % ', '.join('%s=%d' % (k, counts[k])
+                                 for k in sorted(counts)))
+    last = health.get('last_anomaly')
+    if last:
+        lines.append('  last_anomaly      %s=%s (baseline %s)'
+                     % (last.get('detector', '?'), _fmt(last.get('value')),
+                        _fmt(last.get('baseline'))))
+    if health.get('restarts'):
+        lines.append('  restarts          %d' % int(health['restarts']))
+    if health.get('hangs'):
+        lines.append('  hangs             %d' % int(health['hangs']))
+    if health.get('input_bound_pct') is not None:
+        lines.append('  input_bound_pct   %s'
+                     % _fmt(float(health['input_bound_pct'])))
+    return lines
+
+
+def summary_table(snapshot, elapsed_s=None, goodput=None, timeline=None,
+                  health=None):
     """Registry snapshot -> aligned text table (one block per kind).
     ``goodput`` is telemetry.goodput's dict, rendered as the "where the time
-    went" block, and ``timeline`` telemetry.timeline's attribution, rendered
-    as the "step timeline" block; the ``goodput.*`` and ``timeline.*``
-    gauges that those blocks carry are left out of the gauges block."""
+    went" block, ``timeline`` telemetry.timeline's attribution, rendered
+    as the "step timeline" block, and ``health``
+    telemetry.health.snapshot_health()'s dict, rendered as the "run health"
+    block; the ``goodput.*`` and ``timeline.*`` gauges that those blocks
+    carry are left out of the gauges block."""
     lines = ['== telemetry summary%s ==' %
              (' (%.1fs)' % elapsed_s if elapsed_s is not None else '')]
     counters = snapshot.get('counters', {})
@@ -261,6 +306,8 @@ def summary_table(snapshot, elapsed_s=None, goodput=None, timeline=None):
         lines.extend(_goodput_lines(goodput))
     if timeline:
         lines.extend(_timeline_lines(timeline))
+    if health:
+        lines.extend(_health_lines(health))
     if hists:
         lines.append('-- histograms (ms) --')
         w = max(len(n) for n in hists)

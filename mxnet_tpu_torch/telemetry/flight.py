@@ -10,10 +10,14 @@ Each ported incident path dumps the ring to ``flight-<reason>.jsonl``
 next to the telemetry log the moment the incident is on record:
 
 - ``flight-hang.jsonl``       — watchdog stall (telemetry/watchdog.py);
-- ``flight-slo-burn.jsonl``   — SLO error-budget burn (telemetry/slo.py).
+- ``flight-slo-burn.jsonl``   — SLO error-budget burn (telemetry/slo.py);
+- ``flight-nonfinite.jsonl``  — a non-finite training step
+  (telemetry/health.py);
+- ``flight-restart.jsonl``    — a supervised restart
+  (module/resilient_fit.py through health.note_restart).
 
-(The JAX package's non-finite, OOM and restart dumps come with their
-planes.) The dump carries a ``flight`` header record (reason, ring size,
+(The JAX package's OOM dump comes with the memory plane.) The dump
+carries a ``flight`` header record (reason, ring size,
 wall time) followed by the retained records oldest-first: the seconds
 BEFORE the incident. Dumps are bounded per reason
 (:data:`_MAX_DUMPS_PER_REASON`, newest wins).

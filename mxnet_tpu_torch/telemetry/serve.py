@@ -5,15 +5,16 @@
   Prometheus text exposition format, every sample labeled with this
   process's ``host`` index;
 - ``/healthz`` — 200 while healthy; 503 while the hang watchdog says
-  the loop is stalled (``hung``) or the SLO plane's error budget is
-  burning (``slo_degraded``), with the digest as the JSON body;
-- ``/summary`` — the registry snapshot, the SLO snapshot and the
-  rendered summary table, as JSON.
+  the loop is stalled (``hung``), the SLO plane's error budget is burning
+  (``slo_degraded``) or the health sentinels have recorded a non-finite
+  step (``degraded``), with the digest (the health snapshot among it) as
+  the JSON body;
+- ``/summary`` — the registry snapshot, the health, dynamics and SLO
+  snapshots and the rendered summary table, as JSON.
 
-The JAX package's endpoint also reports the planes that are not ported
-(non-finite incidents and the health snapshot, memory pressure, the
-cluster round, programs, roofline, ledger, dynamics, goodput, timeline);
-their keys are left out of these payloads.
+The JAX package's endpoint also reports planes that are not ported
+(memory pressure, the cluster round, programs, roofline, ledger, goodput,
+timeline); their keys are left out of these payloads.
 
 Transport is stdlib ``http.server`` (ThreadingHTTPServer) on a daemon
 thread. Gating: ``MXTPU_TELEMETRY=1`` *and* ``MXTPU_TELEMETRY_PORT`` set
@@ -157,42 +158,54 @@ def render_prometheus(snapshot, host=None):
 def healthz_payload():
     """(ok, digest) for /healthz. ``ok`` flips False — the endpoint
     answers 503 — while the hang watchdog says the loop is stalled right
-    now or the SLO plane's error budget is burning. The states are
-    distinct (``hung`` / ``slo_degraded``) so a supervisor or load
-    balancer can choose its reaction; both clear on recovery."""
-    from . import cluster, watchdog, slo
+    now, the SLO plane's error budget is burning, or the health sentinels
+    have seen a non-finite step (so a warn-action NaN run is visible). The
+    states are distinct (``hung`` / ``slo_degraded`` / ``degraded``) so a
+    supervisor or load balancer can choose its reaction; the hang and SLO
+    states clear on recovery. The digest carries the health snapshot."""
+    from . import cluster, watchdog, slo, health
     st = _tele()
+    hs = health.snapshot_health(input_bound=health.input_bound_pct()) \
+        if st.active else None
+    bad = int(hs.get('nonfinite_steps') or 0) if hs else 0
     hang = watchdog.hang_info()
     slo_bad = slo.degraded()
     body = {
         'status': 'hung' if hang is not None
-        else ('slo_degraded' if slo_bad is not None else 'ok'),
+        else ('slo_degraded' if slo_bad is not None
+              else ('ok' if not bad else 'degraded')),
         'telemetry': bool(st.active),
+        'health_sentinels': bool(health.enabled()),
         'host': cluster.host_index(),
     }
     if hang is not None:
         body['hang'] = hang
+    if hs is not None:
+        body['health'] = hs
     slo_snap = slo.snapshot_slo()
     if slo_snap is not None:
         body['slo'] = slo_snap
-    return hang is None and slo_bad is None, body
+    return bad == 0 and hang is None and slo_bad is None, body
 
 
 def summary_payload():
-    """The /summary JSON: the registry snapshot and the SLO snapshot,
-    read-only, plus the rendered summary table."""
+    """The /summary JSON: the registry snapshot, the health, dynamics and
+    SLO snapshots, read-only, plus the rendered summary table."""
     import time
-    from . import cluster, slo
+    from . import cluster, slo, health, dynamics
     from .export import summary_table
     st = _tele()
     snap = st.registry.snapshot()
     elapsed = (time.time() - st.t_start) if st.t_start else None
+    hs = health.snapshot_health(input_bound=health.input_bound_pct())
     return {
         'elapsed_s': round(elapsed, 3) if elapsed is not None else None,
         'host': cluster.host_index(),
         'snapshot': snap,
+        'health': hs,
+        'dynamics': dynamics.snapshot_dynamics(),
         'slo': slo.snapshot_slo(),
-        'table': summary_table(snap, elapsed),
+        'table': summary_table(snap, elapsed, health=hs),
     }
 
 

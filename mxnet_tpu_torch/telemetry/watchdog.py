@@ -16,7 +16,11 @@ end, stops expecting marks until the next one. On a stall it:
   the same digest, and dumps the flight recorder (``flight-hang.jsonl``);
 - flips ``/healthz`` to 503 with a ``hung`` status until progress
   resumes (telemetry/serve.py reads :func:`hang_info`);
-- under ``MXTPU_WATCHDOG_ACTION=abort`` exits the process with the
+- under ``MXTPU_WATCHDOG_ACTION=abort`` runs the abort hooks
+  (:func:`add_abort_hook`; the checkpointer registers its drain, which
+  commits and certifies the save in flight so that the relaunch has a
+  last-good checkpoint) on a side thread for at most
+  :data:`_ABORT_HOOK_CAP_S` seconds, then exits the process with the
   distinct code :data:`HANG_EXIT_CODE` (85) after flushing the JSONL
   sink. The exit is ``os._exit`` by design: a wedged thread cannot be
   unwound, only replaced.
@@ -24,8 +28,7 @@ end, stops expecting marks until the next one. On a stall it:
 Off (the default) = no thread is ever created and every progress site
 costs one cached-bool check. The watchdog is independent of
 ``MXTPU_TELEMETRY``; only the JSONL record and the /healthz digest need
-telemetry on. (The JAX package's abort hooks, which drain its
-checkpointer, come with the checkpointer's port.)
+telemetry on.
 """
 import logging
 import os
@@ -35,7 +38,8 @@ import time
 import traceback
 
 __all__ = ['HANG_EXIT_CODE', 'enabled', 'note_progress', 'suspend',
-           'hang_info', 'snapshot_watchdog', 'stop']
+           'hang_info', 'snapshot_watchdog', 'stop', 'add_abort_hook',
+           'remove_abort_hook']
 
 # distinct from every exit code a Python process produces on its own
 # (tracebacks exit 1, CLI misuse 2, signals 128+n)
@@ -43,6 +47,52 @@ HANG_EXIT_CODE = 85
 
 _MIN_POLL_S = 0.05
 _STACK_LIMIT = 24          # frames kept per thread in the hang digest
+_ABORT_HOOK_CAP_S = 30.0   # bound on the abort hooks' work: the exit
+                           # happens even if a hook wedges too
+
+# callables run (bounded, best effort) before an abort exit
+_abort_hooks = []
+_hook_lock = threading.Lock()
+
+
+def add_abort_hook(fn):
+    """Register ``fn`` to run (on a side thread, bounded by
+    _ABORT_HOOK_CAP_S in all) before an ``action=abort`` exit. Idempotent
+    per callable."""
+    with _hook_lock:
+        if fn not in _abort_hooks:
+            _abort_hooks.append(fn)
+
+
+def remove_abort_hook(fn):
+    with _hook_lock:
+        try:
+            _abort_hooks.remove(fn)
+        except ValueError:
+            pass
+
+
+def _run_abort_hooks():
+    """Run the abort hooks on a side thread and wait at most
+    _ABORT_HOOK_CAP_S for them (the wedged main thread never will)."""
+    with _hook_lock:
+        hooks = list(_abort_hooks)
+    if not hooks:
+        return
+
+    def run():
+        for fn in hooks:
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 — the exit must happen
+                logging.warning('watchdog: abort hook %r failed: %s', fn, e)
+    ht = threading.Thread(target=run, name='mxtpu-watchdog-drain',
+                          daemon=True)
+    ht.start()
+    ht.join(timeout=_ABORT_HOOK_CAP_S)
+    if ht.is_alive():
+        logging.warning('watchdog: abort hooks still running after %.0fs '
+                        '— exiting anyway', _ABORT_HOOK_CAP_S)
 
 
 class _WState:
@@ -279,8 +329,9 @@ def _trip(stalled):
                         ''.join('%s\n' % f for f in frames[-6:]))
     if st.action == 'abort':
         logging.warning(
-            'watchdog: MXTPU_WATCHDOG_ACTION=abort — exiting with code %d',
-            HANG_EXIT_CODE)
+            'watchdog: MXTPU_WATCHDOG_ACTION=abort — exiting with code %d '
+            'so that a supervisor relaunches from last-good', HANG_EXIT_CODE)
+        _run_abort_hooks()
         if tst.active and tst.sink is not None:
             try:
                 tst.sink.close()
@@ -306,4 +357,6 @@ def stop():
 def _reset_for_tests():
     global _state
     stop()
+    with _hook_lock:
+        del _abort_hooks[:]
     _state = _WState()

@@ -39,7 +39,9 @@ WINDOW_FLAGS = ('MXTPU_FUSED_FIT', 'MXTPU_FUSED_EVAL',
                 'MXTPU_FUSED_FIT_PREFETCH', 'MXTPU_FUSED_EVAL_PREFETCH',
                 'MXTPU_SHARDED_UPDATE', 'MXTPU_GRAD_COMPRESS',
                 'MXTPU_HEALTH', 'MXTPU_DYNAMICS', 'MXTPU_TELEMETRY',
-                'MXTPU_CKPT_DIR', 'MXTPU_FAULT_INJECT')
+                'MXTPU_CKPT_DIR', 'MXTPU_FAULT_INJECT', 'MXTPU_HEALTH_ACTION',
+                'MXTPU_CKPT_EVERY', 'MXTPU_CKPT_ASYNC', 'MXTPU_CKPT_RESUME',
+                'MXTPU_CKPT_KEEP', 'MXTPU_FAULT_HOST')
 
 
 @pytest.fixture(autouse=True)

@@ -39,14 +39,17 @@ from mxnet_tpu_torch.module.fused_fit import FusedFitLoop
 
 TOL = 1e-5
 BATCH, FEATURES, CLASSES = 8, 10, 6
-# the window's flags and the flags that make fit raise: cleared for every
-# test (tests of the JAX package elsewhere may leave one set)
+# the window's flags, the flags that make fit raise and the resilience
+# tier's: cleared for every test (tests of the JAX package elsewhere may
+# leave one set)
 WINDOW_FLAGS = ('MXTPU_FUSED_FIT', 'MXTPU_FUSED_EVAL',
                 'MXTPU_FIT_STEPS_PER_CALL', 'MXTPU_EVAL_STEPS_PER_CALL',
                 'MXTPU_FUSED_FIT_PREFETCH', 'MXTPU_FUSED_EVAL_PREFETCH',
                 'MXTPU_FORCE_PALLAS', 'MXTPU_SHARDED_UPDATE',
                 'MXTPU_GRAD_COMPRESS', 'MXTPU_HEALTH', 'MXTPU_DYNAMICS',
-                'MXTPU_TELEMETRY', 'MXTPU_CKPT_DIR', 'MXTPU_FAULT_INJECT')
+                'MXTPU_TELEMETRY', 'MXTPU_CKPT_DIR', 'MXTPU_FAULT_INJECT',
+                'MXTPU_HEALTH_ACTION', 'MXTPU_CKPT_EVERY', 'MXTPU_CKPT_ASYNC',
+                'MXTPU_CKPT_RESUME', 'MXTPU_CKPT_KEEP', 'MXTPU_FAULT_HOST')
 
 
 @pytest.fixture(autouse=True)

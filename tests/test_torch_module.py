@@ -34,8 +34,11 @@ optimizer states' save and load, the kvstore update path, two contexts,
 checkpoints in both directions, phase (l2)'s head of ``chip_smoke.py`` at
 narrow widths (with and without ``MXTPU_FORCE_PALLAS``, which puts the JAX
 side on its Pallas kernels in interpret mode and the port on the kernels'
-plain versions), and the unported branches' errors.
+plain versions), the unported branches' errors, and the resilience tier's
+flags each taking its path (``tests/test_torch_checkpointing.py`` holds
+those paths to the JAX package's).
 """
+import os
 import pickle
 
 import numpy as np
@@ -49,10 +52,16 @@ RESNET_FIT_REL_RMS = 1e-4
 EPOCHS, BATCHES = 2, 3
 NETS = {'mlp_bn': (4, 10), 'narrow_resnet': (16, 3, 32, 32)}
 OPT = {'learning_rate': 0.1, 'momentum': 0.9, 'wd': 1e-4}
-# the flags of the unported paths, each with a value that turns its path on
-UNPORTED = {'MXTPU_CKPT_DIR': 'x', 'MXTPU_FAULT_INJECT': 'x',
-            'MXTPU_HEALTH': '1', 'MXTPU_DYNAMICS': '1',
-            'MXTPU_SHARDED_UPDATE': '1', 'MXTPU_GRAD_COMPRESS': 'int8'}
+# the flags of the paths of the JAX package's fit that the port has not,
+# each with a value that turns its path on; they raise
+UNPORTED = {'MXTPU_SHARDED_UPDATE': '1', 'MXTPU_GRAD_COMPRESS': 'int8'}
+# the resilience tier's flags, which raised until it was ported: each now
+# takes its path (a directory under tmp_path for MXTPU_CKPT_DIR)
+PORTED = {'MXTPU_CKPT_DIR': None, 'MXTPU_FAULT_INJECT': 'dispatch-exception:1',
+          'MXTPU_HEALTH': '1', 'MXTPU_DYNAMICS': '1'}
+# and the flags those paths read beside them
+RESILIENCE_FLAGS = ('MXTPU_CKPT_EVERY', 'MXTPU_TELEMETRY',
+                    'MXTPU_TELEMETRY_PATH', 'MXTPU_HEALTH_ACTION')
 WINDOW_FLAGS = ('MXTPU_FUSED_FIT', 'MXTPU_FUSED_EVAL',
                 'MXTPU_FIT_STEPS_PER_CALL', 'MXTPU_EVAL_STEPS_PER_CALL')
 
@@ -61,7 +70,8 @@ WINDOW_FLAGS = ('MXTPU_FUSED_FIT', 'MXTPU_FUSED_EVAL',
 def _clean_flags(monkeypatch):
     """Both packages' fit and eval run as they do by default; the port's
     flags for its unported paths are unset."""
-    for name in list(UNPORTED) + list(WINDOW_FLAGS):
+    for name in list(UNPORTED) + list(PORTED) + list(RESILIENCE_FLAGS) \
+            + list(WINDOW_FLAGS):
         monkeypatch.delenv(name, raising=False)
     mt.config.flags.reload()
     yield
@@ -385,9 +395,62 @@ def test_kernel_head_through_fit_matches_jax(monkeypatch, kernels):
     mt.config.flags.reload('MXTPU_FORCE_PALLAS')
 
 
-@pytest.mark.parametrize('flag', sorted(UNPORTED))
-def test_unported_paths_raise(monkeypatch, flag):
+def _resilience_path(monkeypatch, tmp_path, flag, mod, it):
+    """Set ``flag`` and show that fit takes its path: a checkpoint a step,
+    the injected dispatch failure, the sentinels' rows."""
+    from mxnet_tpu_torch import faults, telemetry
+    from mxnet_tpu_torch.faults import FaultInjected
+    if flag in ('MXTPU_HEALTH', 'MXTPU_DYNAMICS'):
+        monkeypatch.setenv('MXTPU_TELEMETRY', '1')
+        monkeypatch.setenv('MXTPU_TELEMETRY_PATH', str(tmp_path / 't.jsonl'))
+    value = PORTED[flag] or str(tmp_path / 'ckpt')
+    monkeypatch.setenv(flag, value)
+    if flag == 'MXTPU_CKPT_DIR':
+        monkeypatch.setenv('MXTPU_CKPT_EVERY', '1')
+    mt.config.flags.reload()
+    telemetry._reset_for_tests()
+    faults._reset_for_tests()
+    try:
+        if flag == 'MXTPU_FAULT_INJECT':
+            with pytest.raises(FaultInjected, match='step 1'):
+                mod.fit(it, num_epoch=1)
+            return
+        mod.fit(it, num_epoch=1)
+        mod.score(it, 'acc')
+        if flag == 'MXTPU_CKPT_DIR':
+            ckpt = mod.__dict__['_mxtpu_ckpt']
+            assert ckpt.last_good == ckpt.global_step == BATCHES
+            # a save is skipped while the writer is busy; the final one
+            # never is
+            names = set(os.listdir(value))
+            assert {'3', 'last_good.step'} <= names <= {
+                '1', '2', '3', 'last_good.step'}
+        elif flag == 'MXTPU_HEALTH':
+            reg = telemetry.get_registry()
+            # 3 executor steps in fit, one step's rows of the score tail
+            assert reg.counter('health.steps').value == BATCHES
+            assert telemetry.health.snapshot_health()['nonfinite_steps'] == 0
+        else:
+            snap = telemetry.dynamics.snapshot_dynamics()
+            assert snap['steps'] == BATCHES
+            assert set(snap['layers']) == {'fc1_weight', 'fc1_bias',
+                                           'bn1_gamma', 'bn1_beta',
+                                           'fc2_weight', 'fc2_bias'}
+    finally:
+        monkeypatch.delenv(flag)
+        mt.config.flags.reload()
+        telemetry._reset_for_tests()
+        faults._reset_for_tests()
+
+
+@pytest.mark.parametrize('flag', sorted(list(UNPORTED) + list(PORTED)))
+def test_unported_paths_raise(monkeypatch, tmp_path, flag):
+    """The paths still to port raise; the resilience tier's flags, which
+    raised until it was ported, each take their path."""
     mod, it = _module(mt, 'mlp_bn', _init_values('mlp_bn'))
+    if flag in PORTED:
+        _resilience_path(monkeypatch, tmp_path, flag, mod, it)
+        return
     monkeypatch.setenv(flag, UNPORTED[flag])
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         mod.fit(it, num_epoch=1)

@@ -367,8 +367,15 @@ def test_live_endpoint(tele, monkeypatch):
 @pytest.mark.parametrize('name', ['xla', 'programs', 'health', 'roofline',
                                   'memory', 'dynamics', 'ledger'])
 def test_unported_planes_raise(name):
-    with pytest.raises(NotImplementedError, match='item 13'):
-        getattr(ttele, name)
+    """The planes still to port raise naming their ROADMAP.md item; the
+    health and dynamics planes, which raised until they were ported, are
+    the JAX package's by their public names."""
+    if name in ('health', 'dynamics'):
+        assert getattr(ttele, name).__all__ == getattr(jtele, name).__all__
+        assert name in ttele.__all__
+    else:
+        with pytest.raises(NotImplementedError, match='item 13'):
+            getattr(ttele, name)
     with pytest.raises(AttributeError):
         getattr(ttele, 'no_such_plane')
 

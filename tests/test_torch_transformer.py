@@ -150,7 +150,13 @@ def test_import_leaves_jax_and_the_jax_package_out():
             'mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.symbol.contrib, '
             'mxnet_tpu_torch.serving.step_cache, '
             'mxnet_tpu_torch.ndarray.sparse, mxnet_tpu_torch.ops.sparse_ops, '
-            'mxnet_tpu_torch.symbol.sparse\n'
+            'mxnet_tpu_torch.symbol.sparse, mxnet_tpu_torch.faults, '
+            'mxnet_tpu_torch.telemetry.health, '
+            'mxnet_tpu_torch.telemetry.dynamics, '
+            'mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.checkpoint, '
+            'mxnet_tpu_torch.module.checkpointing, '
+            'mxnet_tpu_torch.module.resilient_fit, '
+            'mxnet_tpu_torch.train_supervisor\n'
             'from mxnet_tpu_torch.io import (ImageRecordIter, MNISTIter, '
             'CSVIter, ImageDetRecordIter, MXDataIter)\n'
             'from mxnet_tpu_torch.gluon.data import DataLoader, ArrayDataset\n'
